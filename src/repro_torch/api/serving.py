@@ -1,0 +1,130 @@
+"""Serving building blocks of the port: prefill → decode handoff + sampling.
+
+PyTorch counterpart of ``repro.api.serving``.  Two prefill paths, both
+ending in ``decode_step``'s cache layout:
+
+  * **bulk** (default): one ``tf.prefill`` forward over the whole prompt
+    (flash-attention kernel), re-laid into the decode ring buffers by
+    ``tf.prefill_to_decode_cache``,
+  * **exact** (``exact=True``): the prompt fed through ``decode_step``
+    one token at a time (decode-attention kernel) — the debug path.
+
+Everything runs eagerly under ``torch.inference_mode()``; the token loop
+keeps tokens on the device and copies them to the host once, at the end.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf
+
+
+def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
+                    exact: bool = False) -> Callable:
+    """→ ``prefill(params, tokens) → (last_logits (B, V), cache)``.
+
+    The cache is kept in ``cfg.dtype``: the decode kernel reads q and the
+    cache in one dtype.  (The reference's ``dtype`` option, an f32 cache
+    upcast in its attention, has no counterpart here.)
+    """
+    use_bulk = tf.bulk_prefill_supported(cfg) and not exact
+
+    def bulk(params, tokens):
+        logits, pcache = tf.prefill(params, cfg, tokens, last_only=True)
+        cache = tf.prefill_to_decode_cache(cfg, pcache, max_len)
+        return logits[:, -1], cache
+
+    def exact_loop(params, tokens):
+        B, S = tokens.shape
+        cache = tf.init_cache(cfg, B, max_len, device=tokens.device)
+        logits = None
+        for t in range(S):
+            logits, cache = tf.decode_step(params, cfg, tokens[:, t:t + 1],
+                                           cache)
+        return logits, cache
+
+    return bulk if use_bulk else exact_loop
+
+
+def make_decode_fn(cfg: ModelConfig) -> Callable:
+    """→ ``decode(params, token, cache) → (logits, cache)``.
+
+    The decode-attention kernel is chosen by the device of the tensors
+    (``kernels.ops``), so there is no switch to resolve here.
+    """
+    def decode(params, token, cache):
+        return tf.decode_step(params, cfg, token, cache)
+
+    return decode
+
+
+def generate_tokens(params, cfg: ModelConfig, prompt: torch.Tensor,
+                    gen_len: int, *, prefill_fn: Callable,
+                    decode_fn: Callable, greedy: bool = True,
+                    seed: int = 0) -> np.ndarray:
+    """The generation loop over prebuilt step fns → (B, gen_len) tokens.
+
+    Greedy takes the first maximum, as ``jnp.argmax`` does; sampling
+    draws from ``softmax(logits)`` with a ``torch.Generator`` seeded by
+    ``seed`` on the prompt's device.
+    """
+    logits, cache = prefill_fn(params, prompt)
+    gen = None
+    if not greedy:
+        gen = torch.Generator(device=prompt.device).manual_seed(seed)
+    out = []
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    for _ in range(gen_len):
+        out.append(tok)
+        logits, cache = decode_fn(params, tok, cache)
+        if greedy:
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        else:
+            probs = torch.softmax(logits.float(), -1)
+            tok = torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+    return torch.cat(out, dim=1).cpu().numpy()
+
+
+def _on_device(params, device: torch.device) -> None:
+    leaf = params["embed"]["table"]
+    if leaf.device.type != device.type:
+        raise ValueError(f"params live on {leaf.device}, not on {device}")
+
+
+@torch.inference_mode()
+def prefill_into_cache(params, cfg: ModelConfig, tokens, max_len: int, *,
+                       exact: bool = False, device="cuda"
+                       ) -> Tuple[torch.Tensor, object]:
+    """Single-host convenience: run one prefill → (logits, cache)."""
+    device = resolve_device(device)
+    _on_device(params, device)
+    tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                             device=device)
+    return make_prefill_fn(cfg, max_len, exact=exact)(params, tokens)
+
+
+@torch.inference_mode()
+def generate(params, cfg: ModelConfig, prompt, gen_len: int,
+             max_len: Optional[int] = None, greedy: bool = True,
+             seed: int = 0, exact_handoff: bool = False,
+             device="cuda") -> np.ndarray:
+    """Single-host generation → (B, gen_len) int32 tokens (numpy).
+
+    Runs on ``device`` (the card unless the caller asks for the CPU);
+    ``params`` must already live there.
+    """
+    device = resolve_device(device)
+    _on_device(params, device)
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                             device=device)
+    max_len = max_len or prompt.shape[1] + gen_len + 1
+    return generate_tokens(
+        params, cfg, prompt, gen_len,
+        prefill_fn=make_prefill_fn(cfg, max_len, exact=exact_handoff),
+        decode_fn=make_decode_fn(cfg), greedy=greedy, seed=seed,
+    )

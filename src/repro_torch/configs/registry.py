@@ -1,0 +1,46 @@
+"""--arch registry of the port: maps ported architecture ids to their
+(full, smoke) ModelConfigs.
+
+Only architectures the port runs are listed; the reference's other
+archs raise ``NotImplementedError`` naming ROADMAP.md, where their
+slice is queued.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+ARCH_IDS = ("llama3-8b",)
+
+#: reference archs whose port is still queued in ROADMAP.md
+NOT_PORTED = (
+    "granite-8b",
+    "starcoder2-3b",
+    "gemma3-27b",
+    "qwen2-vl-2b",
+    "recurrentgemma-2b",
+    "whisper-medium",
+    "mamba2-370m",
+    "granite-moe-3b-a800m",
+    "llama4-maverick-400b-a17b",
+)
+
+
+def _module(arch: str):
+    if arch in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to repro_torch yet; see the "
+            f"queue in ROADMAP.md")
+    if arch not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch!r}; ported: {ARCH_IDS}")
+    return importlib.import_module(
+        f"repro_torch.configs.{arch.replace('-', '_')}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE

@@ -1,0 +1,131 @@
+"""Batched serving driver CLI of the port: prefill + decode with KV caches.
+
+PyTorch counterpart of ``repro.launch.serve`` on one device: random
+weights from ``--seed`` (made on the device), a random prompt, the bulk
+prefill (flash-attention kernel) handed off into the decode ring buffers,
+then ``--gen`` greedy decode steps (decode-attention kernel).  Runs on the
+card unless ``--device cpu`` is given.
+
+``--smoke/--no-smoke`` picks the smoke or the full config (default
+smoke); ``--no-smoke`` serves the full llama3-8b (≈16 GB of bf16 weights).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --no-smoke --batch 4 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --f32
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.api import serving
+from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.models import transformer as tf
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="smoke config (default); --no-smoke serves the "
+                         "full config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (the port runs tp=1 only)")
+    ap.add_argument("--exact-handoff", action="store_true",
+                    help="debug: feed the prompt through decode_step "
+                         "token by token instead of the bulk prefill")
+    ap.add_argument("--f32", action="store_true",
+                    help="force float32 compute")
+    ap.add_argument("--tokens-out", default="",
+                    help="write the generated token matrix as JSON")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.tp != 1:
+        raise NotImplementedError(
+            "repro_torch serves on one device (tp=1); tensor parallelism "
+            "is queued in ROADMAP.md")
+    device = resolve_device(args.device)
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.f32:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+
+    with torch.inference_mode():
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = tf.init_params(cfg, gen, device=device)
+        prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                               generator=gen, device=device)
+        max_len = args.prompt_len + args.gen + 1
+        prefill = serving.make_prefill_fn(cfg, max_len,
+                                          exact=args.exact_handoff)
+        decode = serving.make_decode_fn(cfg)
+        seen = {}
+
+        # profiler spans (no-ops unless a torch.profiler is recording):
+        # "serve.prefill" ends after the prefill's kernels, "serve.request"
+        # after the tokens' host copy, so the device work between the two
+        # ends is the decode's
+        def timed_prefill(p, tokens):
+            _sync(device)
+            with torch.profiler.record_function("serve.prefill"):
+                t = time.perf_counter()
+                out = prefill(p, tokens)
+                _sync(device)
+                seen["prefill_s"] = time.perf_counter() - t
+            return out
+
+        def watched_decode(p, tok, cache):
+            logits, cache = decode(p, tok, cache)
+            seen["last_logits"] = logits
+            return logits, cache
+
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        with torch.profiler.record_function("serve.request"):
+            t0 = time.perf_counter()
+            toks = serving.generate_tokens(
+                params, cfg, prompt, args.gen, prefill_fn=timed_prefill,
+                decode_fn=watched_decode, seed=args.seed)
+            total = time.perf_counter() - t0  # ends in the tokens' host copy
+    decode_s = total - seen["prefill_s"]
+    stats = {
+        "prefill_ms": 1e3 * seen["prefill_s"],
+        "decode_ms_per_token": 1e3 * decode_s / max(args.gen, 1),
+        "tok_per_s": args.batch * args.gen / decode_s if decode_s else 0.0,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+    }
+    mode = "exact-handoff" if (args.exact_handoff
+                               or not tf.bulk_prefill_supported(cfg)) \
+        else "bulk-prefill"
+    print(f"[serve] {args.arch} ({device.type}, {mode}): generated "
+          f"{toks.shape} tokens in {total:.3f}s; prefill "
+          f"{stats['prefill_ms']:.2f} ms, decode "
+          f"{stats['decode_ms_per_token']:.3f} ms/token "
+          f"({stats['tok_per_s']:.1f} tok/s)")
+    print("[serve] sample:", toks[0][:16].tolist())
+    if args.tokens_out:
+        with open(args.tokens_out, "w") as f:
+            json.dump({"tp": args.tp, "tokens": toks.tolist()}, f)
+    return {"tokens": toks, "last_logits": seen.get("last_logits"),
+            **stats}
+
+
+if __name__ == "__main__":
+    main()

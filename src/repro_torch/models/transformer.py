@@ -1,0 +1,441 @@
+"""Dense attention-only transformer of the port (serving subset).
+
+PyTorch counterpart of ``repro.models.transformer`` for decoders whose
+layers are all "global"/"local" attention with a dense MLP (llama3):
+
+  * params are nested dicts of tensors keyed like the reference pytree
+    (``embed/table``, ``groups/p0/attn/wq`` …); every layer tensor of a
+    pattern position is stacked along a leading layer axis, and a
+    Python loop indexes the stack where the reference runs ``lax.scan``,
+  * self-attention goes through ``kernels.ops``: the prefill through the
+    flash-attention kernel, each decode step through the decode-
+    attention kernel (plain versions for CPU tensors),
+  * the decode cache is updated in place (see ``decode_step``).
+
+Kinds the slice does not cover (ssm, recurrent, MoE, encoder–decoder,
+M-RoPE) raise ``NotImplementedError``; ROADMAP.md queues them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_lib
+
+PyTree = Any
+
+
+def _torch_dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    kinds = set(cfg.block_pattern) - {"global", "local"}
+    if kinds or cfg.is_moe or cfg.is_encdec or cfg.mrope_sections:
+        raise NotImplementedError(
+            f"{cfg.name}: repro_torch runs dense attention-only decoders "
+            f"so far (pattern {cfg.block_pattern}, moe={cfg.is_moe}, "
+            f"encdec={cfg.is_encdec}, mrope={cfg.mrope_sections}); the "
+            f"other kinds are queued in ROADMAP.md")
+
+
+def _index(tree: PyTree, i: int) -> PyTree:
+    """Layer ``i`` of a stacked layer dict, as views (no copy)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ----------------------------------------------------------------------
+# normalization
+# ----------------------------------------------------------------------
+def _init_norm(cfg: ModelConfig, shape, device,
+               dtype=torch.float32) -> Dict:
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if cfg.norm == "layer":
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
+def _norm(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """RMS (or layer) norm in f32, eps 1e-6, as the reference computes
+    it; the fused ``F.rms_norm``/``F.layer_norm`` keep the serving
+    step's launch count down."""
+    xf = x.to(torch.float32)
+    shape = (x.shape[-1],)
+    if "bias" in p:
+        out = F.layer_norm(xf, shape, eps=1e-6) * p["scale"] + p["bias"]
+    else:
+        out = F.rms_norm(xf, shape, eps=1e-6) * p["scale"]
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# init
+# ----------------------------------------------------------------------
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device="cuda", dtype=None) -> PyTree:
+    """Random weights N(0, 0.02²), laid out as the reference's pytree.
+
+    Serving allocates the cast working copy directly, as
+    ``cast_params`` would make it of an f32 master copy without holding
+    that copy too (32 GB for llama3-8b): every tensor of two or more
+    dimensions (the matrices and the layer-stacked norm scales) in
+    ``dtype`` (default ``cfg.dtype``), the final norm scale in float32.
+    ``generator`` must live on ``device``; None seeds one with 0.
+    """
+    _check_supported(cfg)
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    dt = _torch_dtype(dtype or cfg.dtype)
+    d, V, H, Kv, Dh = (cfg.d_model, cfg.vocab, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    ff = cfg.d_ff_dense or cfg.d_ff
+
+    def normal(*shape):
+        t = torch.randn(shape, generator=generator, dtype=dt, device=device)
+        return t.mul_(0.02)
+
+    def layers(lead: Tuple[int, ...]) -> Dict:
+        ndt = dt if lead else torch.float32
+        p: Dict[str, Any] = {
+            "norm1": _init_norm(cfg, lead + (d,), device, ndt),
+            "attn": {
+                "wq": normal(*lead, d, H * Dh),
+                "wk": normal(*lead, d, Kv * Dh),
+                "wv": normal(*lead, d, Kv * Dh),
+                "wo": normal(*lead, H * Dh, d),
+            },
+        }
+        if cfg.d_ff > 0:
+            p["norm2"] = _init_norm(cfg, lead + (d,), device, ndt)
+            if cfg.mlp == "swiglu":
+                p["mlp"] = {"wg": normal(*lead, d, ff),
+                            "wu": normal(*lead, d, ff),
+                            "wd": normal(*lead, ff, d)}
+            else:
+                p["mlp"] = {"w1": normal(*lead, d, ff),
+                            "w2": normal(*lead, ff, d)}
+        return p
+
+    params: Dict[str, Any] = {
+        "embed": {"table": normal(V, d)},
+        "final_norm": _init_norm(cfg, (d,), device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": normal(d, V)}
+    P = len(cfg.block_pattern)
+    n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
+    params["groups"] = {f"p{k}": layers((n_groups,)) for k in range(P)}
+    if n_rest:
+        params["rest"] = {f"r{k}": layers(()) for k in range(n_rest)}
+    return params
+
+
+# ----------------------------------------------------------------------
+# layer application (full sequence)
+# ----------------------------------------------------------------------
+def _split_heads(x, n, Dh):
+    return x.reshape(*x.shape[:-1], n, Dh)
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """Rotary tables for ``positions``, computed once per forward/step
+    and shared by every layer (the reference recomputes them per
+    ``apply_rope`` call; the values are the same)."""
+    if positions.ndim == 3:
+        raise NotImplementedError(
+            "M-RoPE is not ported to repro_torch yet; see ROADMAP.md")
+    return attn_lib.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                rope: Tuple[torch.Tensor, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Causal self-attention block; returns (output, (k, v) for caching).
+
+    Self-attention over the whole prompt is the flash-attention kernel's
+    function whatever ``cfg.flash`` says (the reference's two branches
+    compute the same values there).
+    """
+    B, S, _ = x.shape
+    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = attn_lib.rotate(_split_heads(x @ p["wq"], H, Dh), *rope)
+    k = attn_lib.rotate(_split_heads(x @ p["wk"], Kv, Dh), *rope)
+    v = _split_heads(x @ p["wv"], Kv, Dh)
+    window = cfg.window if kind == "local" else 0
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.logit_softcap)
+    return out.reshape(B, S, H * Dh) @ p["wo"], (k, v)
+
+
+def _mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp == "swiglu" and "wg" in p:
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+
+
+def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
+                 rope: Tuple[torch.Tensor, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Returns (x_out, cache_entry)."""
+    h = _norm(p["norm1"], x)
+    out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope)
+    cache_entry = {"k": k.reshape(*k.shape[:2], -1),
+                   "v": v.reshape(*v.shape[:2], -1)}
+    x = x + out
+    if "norm2" in p:
+        x = x + _mlp_apply(p["mlp"], _norm(p["norm2"], x), cfg)
+    return x, cache_entry
+
+
+# ----------------------------------------------------------------------
+# full forward (prefill)
+# ----------------------------------------------------------------------
+def cast_params(params: PyTree, cfg: ModelConfig) -> PyTree:
+    """Working copy: float32 tensors of two or more dimensions in
+    ``cfg.dtype`` (the reference's rule; vectors stay f32).  No copy for
+    tensors already in place — the serving weights from ``init_params``
+    are."""
+    tgt = _torch_dtype(cfg.dtype)
+
+    def cast(a):
+        if isinstance(a, dict):
+            return {k: cast(v) for k, v in a.items()}
+        if a.ndim >= 2 and a.dtype == torch.float32 and tgt != a.dtype:
+            return a.to(tgt)
+        return a
+
+    return cast(params)
+
+
+def _embed(params, cfg, tokens):
+    table = params["embed"]["table"].to(_torch_dtype(cfg.dtype))
+    return table[tokens]
+
+
+def _matmul_f32(x, w, cfg):
+    """The vocab matmul accumulated and returned in f32 without an f32
+    copy of the weights."""
+    x = x.to(_torch_dtype(cfg.dtype))
+    if w.dtype == torch.float32:
+        return x @ w
+    if w.is_cuda:
+        x2 = x.reshape(-1, x.shape[-1])
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def _unembed(params, cfg, x):
+    x = _norm(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return _matmul_f32(x, params["embed"]["table"].T, cfg)
+    return _matmul_f32(x, params["head"]["w"], cfg)
+
+
+def _layers(params, cfg):
+    """(params, kind, group key, layer index or None) in model order."""
+    P = len(cfg.block_pattern)
+    for l in range(cfg.n_layers // P):
+        for k in range(P):
+            yield (_index(params["groups"][f"p{k}"], l),
+                   cfg.block_pattern[k], ("groups", f"p{k}"), l)
+    for k in range(cfg.n_layers % P):
+        yield (params["rest"][f"r{k}"], cfg.block_pattern[k],
+               ("rest", f"r{k}"), None)
+
+
+def forward(
+    params: PyTree,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (B, S) int
+    positions: Optional[torch.Tensor] = None,  # (B, S)
+    return_cache: bool = False,
+    last_only: bool = False,  # unembed only the final position (prefill)
+):
+    """Full-sequence forward → logits (B, S, V) f32 [, cache].
+
+    The cache holds each layer's K/V as ``(…, S, Kv·Dh)``, stacked per
+    pattern position like the reference's scan output.
+    """
+    _check_supported(cfg)
+    params = cast_params(params, cfg)
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    rope = _rope(cfg, positions)
+    n_groups = cfg.n_layers // len(cfg.block_pattern)
+    KvDh = cfg.n_kv_heads * cfg.head_dim
+    cache: Dict[str, Dict] = {"groups": {}, "rest": {}}
+    if return_cache:
+        for k in range(len(cfg.block_pattern)):
+            cache["groups"][f"p{k}"] = {
+                n: torch.empty((n_groups, B, S, KvDh), dtype=x.dtype,
+                               device=x.device) for n in ("k", "v")}
+    for lp, kind, (part, key), l in _layers(params, cfg):
+        x, entry = _layer_apply(lp, x, kind, cfg, rope)
+        if return_cache:
+            if l is None:
+                cache[part][key] = entry
+            else:
+                cache[part][key]["k"][l] = entry["k"]
+                cache[part][key]["v"][l] = entry["v"]
+    if last_only:
+        x = x[:, -1:]
+    logits = _unembed(params, cfg, x)
+    return (logits, cache) if return_cache else logits
+
+
+# ----------------------------------------------------------------------
+# decode: cache init, prefill, single step
+# ----------------------------------------------------------------------
+def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    if kind == "local" and cfg.window > 0:
+        return min(cfg.window, max_len)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> PyTree:
+    """Empty decode cache (ring buffers for local layers), in
+    ``cfg.dtype``: the decode kernel reads q and the cache in one dtype."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    dt = _torch_dtype(cfg.dtype)
+    KvDh = cfg.n_kv_heads * cfg.head_dim
+    P = len(cfg.block_pattern)
+    n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
+
+    def entry(kind, lead=()):
+        shp = lead + (batch, _cache_len(cfg, kind, max_len), KvDh)
+        return {"k": torch.zeros(shp, dtype=dt, device=device),
+                "v": torch.zeros(shp, dtype=dt, device=device)}
+
+    return {
+        "groups": {f"p{k}": entry(cfg.block_pattern[k], (n_groups,))
+                   for k in range(P)},
+        "rest": {f"r{k}": entry(cfg.block_pattern[k])
+                 for k in range(n_rest)},
+        "length": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
+                  cache_entry: Dict, pos: torch.Tensor,
+                  rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    B = x1.shape[0]
+    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = _norm(p["norm1"], x1)
+    a = p["attn"]
+    q = attn_lib.rotate(_split_heads(h @ a["wq"], H, Dh), *rope)
+    k = attn_lib.rotate(_split_heads(h @ a["wk"], Kv, Dh), *rope)
+    v = _split_heads(h @ a["wv"], Kv, Dh)
+    kc, vc = cache_entry["k"], cache_entry["v"]
+    C = kc.shape[1]
+    window = cfg.window if kind == "local" else 0
+    # in-place ring write where the reference uses dynamic_update_slice:
+    # saves a copy of the layer's cache per step; the slot index stays
+    # on the device (no host sync)
+    slot = torch.remainder(pos, C).to(torch.int64).reshape(1)
+    kc.index_copy_(1, slot, k.reshape(B, 1, Kv * Dh).to(kc.dtype))
+    vc.index_copy_(1, slot, v.reshape(B, 1, Kv * Dh).to(vc.dtype))
+    out = ops.decode_attention(
+        q, kc.view(B, C, Kv, Dh), vc.view(B, C, Kv, Dh), pos,
+        window=window, softcap=cfg.logit_softcap)
+    x1 = x1 + out.reshape(B, 1, H * Dh) @ a["wo"]
+    if "norm2" in p:
+        x1 = x1 + _mlp_apply(p["mlp"], _norm(p["norm2"], x1), cfg)
+    return x1
+
+
+def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
+                cache: PyTree) -> Tuple[torch.Tensor, PyTree]:
+    """One decode step against the cache; returns (logits (B, V), cache).
+
+    The cache is updated in place — each layer's ring slot and then
+    ``length`` — and returned; ``length`` stays an int32 tensor on the
+    device, which the decode kernel reads as the token's position.
+    """
+    _check_supported(cfg)
+    pos = cache["length"]
+    params = cast_params(params, cfg)
+    x = _embed(params, cfg, token)
+    rope = _rope(cfg, pos.expand(token.shape[0], 1))
+    for lp, kind, (part, key), l in _layers(params, cfg):
+        entry = cache[part][key]
+        x = _decode_layer(lp, x, kind, cfg,
+                          entry if l is None else _index(entry, l), pos,
+                          rope)
+    logits = _unembed(params, cfg, x)[:, 0]
+    cache["length"].add_(1)
+    return logits, cache
+
+
+def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            last_only: bool = False) -> Tuple[torch.Tensor, PyTree]:
+    """Full-sequence forward that also materializes the K/V cache
+    (full length; :func:`prefill_to_decode_cache` re-lays it)."""
+    return forward(params, cfg, tokens, return_cache=True,
+                   last_only=last_only)
+
+
+def bulk_prefill_supported(cfg: ModelConfig) -> bool:
+    """Whether the bulk prefill → decode-cache handoff covers this arch."""
+    return (set(cfg.block_pattern) <= {"global", "local"}
+            and not cfg.is_encdec)
+
+
+def prefill_to_decode_cache(cfg: ModelConfig, prefill_cache: PyTree,
+                            max_len: int) -> PyTree:
+    """Re-lay a bulk-prefill cache into ``decode_step``'s layout, in
+    ``cfg.dtype``.
+
+    Keeps the last ``min(S, C)`` positions of each layer and scatters
+    each to its ring slot ``pos % C`` — the state ``S`` decode steps
+    would have built.
+    """
+    if not bulk_prefill_supported(cfg):
+        raise ValueError(
+            f"{cfg.name}: bulk prefill handoff needs an attention-only "
+            f"decoder (pattern {cfg.block_pattern}); use the exact "
+            f"token-by-token handoff")
+    dt = _torch_dtype(cfg.dtype)
+    k0 = prefill_cache["groups"]["p0"]["k"]  # (n_groups, B, S, Kv·Dh)
+    S, device = k0.shape[-2], k0.device
+
+    def convert(entry, kind):
+        C = _cache_len(cfg, kind, max_len)
+        if kind != "local" and S > C:
+            raise ValueError(
+                f"prompt length {S} exceeds cache size {C} — raise max_len")
+        keep = min(S, C)
+        slots = torch.arange(S - keep, S, device=device) % C
+
+        def scatter(x):
+            buf = torch.zeros(x.shape[:-2] + (C, x.shape[-1]), dtype=dt,
+                              device=device)
+            buf[..., slots, :] = x[..., S - keep:, :].to(dt)
+            return buf
+
+        return {"k": scatter(entry["k"]), "v": scatter(entry["v"])}
+
+    P = len(cfg.block_pattern)
+    cache = {
+        "groups": {f"p{k}": convert(prefill_cache["groups"][f"p{k}"],
+                                    cfg.block_pattern[k])
+                   for k in range(P)},
+        "rest": {f"r{k}": convert(prefill_cache["rest"][f"r{k}"],
+                                  cfg.block_pattern[k])
+                 for k in range(cfg.n_layers % P)},
+    }
+    cache["length"] = torch.tensor(S, dtype=torch.int32, device=device)
+    return cache

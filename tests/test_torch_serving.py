@@ -1,0 +1,76 @@
+"""Port vs reference: greedy generation token for token, and the serve CLI.
+
+The same weights (the reference's init, carried across by flat keys)
+and the same numpy prompt go through ``repro.api.serving.generate`` and
+``repro_torch.api.serving.generate``, in float32 on the CPU.  Greedy
+tokens must be identical: both take the first maximum.
+"""
+import dataclasses
+import json
+
+import jax
+import numpy as np
+import pytest
+
+from repro.api import serving as jserving
+from repro.checkpoint.store import _flatten
+from repro.configs.registry import get_smoke_config as ref_smoke
+from repro.models import transformer as jtf
+from repro_torch.api import serving
+from repro_torch.checkpoint.params import params_from_numpy
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch import serve
+
+
+@pytest.mark.parametrize("exact_handoff", [False, True],
+                         ids=["bulk", "exact"])
+@pytest.mark.parametrize("gqa", [False, True], ids=["mqa", "gqa"])
+def test_greedy_tokens_match_reference(exact_handoff, gqa):
+    ref_cfg = dataclasses.replace(ref_smoke("llama3-8b"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
+    if gqa:
+        ref_cfg = dataclasses.replace(ref_cfg, n_heads=8, n_kv_heads=2)
+        cfg = dataclasses.replace(cfg, n_heads=8, n_kv_heads=2)
+    jparams = jtf.init_params(jax.random.PRNGKey(11), ref_cfg)
+    params = params_from_numpy(
+        {k: np.asarray(v) for k, v in _flatten(jparams).items()}, "cpu")
+    prompt = np.random.default_rng(12).integers(
+        0, cfg.vocab, (2, 10)).astype(np.int32)
+    want = jserving.generate(jparams, ref_cfg, prompt, 12, max_len=32,
+                             exact_handoff=exact_handoff)
+    got = serving.generate(params, cfg, prompt, 12, max_len=32,
+                           exact_handoff=exact_handoff, device="cpu")
+    assert got.shape == (2, 12)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_sampling_is_seeded():
+    cfg = get_smoke_config("llama3-8b")
+    from repro_torch.models import transformer as tf
+
+    params = tf.init_params(cfg, device="cpu")
+    prompt = [[1, 2, 3, 4]]
+    a = serving.generate(params, cfg, prompt, 6, greedy=False, seed=3,
+                         device="cpu")
+    b = serving.generate(params, cfg, prompt, 6, greedy=False, seed=3,
+                         device="cpu")
+    np.testing.assert_array_equal(a, b)
+    assert ((a >= 0) & (a < cfg.vocab)).all()
+
+
+def test_serve_cli_on_cpu(tmp_path):
+    out = tmp_path / "tokens.json"
+    res = serve.main(["--device", "cpu", "--f32", "--batch", "3",
+                      "--prompt-len", "8", "--gen", "5",
+                      "--tokens-out", str(out)])
+    toks = json.load(open(out))["tokens"]
+    assert np.asarray(toks).shape == (3, 5)
+    np.testing.assert_array_equal(res["tokens"], toks)
+    assert res["last_logits"].shape == (3, 256)
+    assert np.isfinite(res["last_logits"].numpy()).all()
+    exact = serve.main(["--device", "cpu", "--f32", "--batch", "3",
+                        "--prompt-len", "8", "--gen", "5",
+                        "--exact-handoff"])
+    np.testing.assert_array_equal(exact["tokens"], toks)
+    with pytest.raises(NotImplementedError, match="tp=1"):
+        serve.main(["--device", "cpu", "--tp", "2"])
