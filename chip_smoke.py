@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The PyTorch/CUDA port on one NVIDIA card: build, check, serve.
+"""The PyTorch/CUDA port on one NVIDIA card: build, check, serve, train.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -12,8 +12,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. build: every kernel of the port from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, in parallel).
   2. kernels against their plain versions on the card, over a grid of
-     shapes (tolerance 1e-4 in float32, 2e-2 in bfloat16), then checked
-     and timed at the serving path's shapes: besides the grid's
+     shapes (attention: tolerance 1e-4 in float32, 2e-2 in bfloat16;
+     the four coded-combine kernels: every output row within 1e-5 of
+     its max |plain|), then checked and timed at the main paths'
+     shapes (the combine kernels: K = 2 pods × the 525M-value embedding
+     leaf, block 64, for the int8/int4/fp8 hop; R = 8 and R = 1 by
+     K = 8 × the 117M-value ``mlp.wd`` leaf for the f32 encode/decode,
+     beside ``torch.mm`` with TF32 off); the flash kernel's per-row
+     log-sum-exp against the plain version's.  For attention, besides the grid's
      tolerance, every output row (the Dh features of one query and head)
      must be within a share of its own max |plain| (decode 1e-2, flash
      2e-2: one bf16 rounding is at most 2^-7 of it); timed beside the
@@ -33,6 +39,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ``torch.profiler``: its device time in the prefill and in the decode
      (split by the serve CLI's profiler spans), over the counted run's
      host times, is the share of each phase the device was busy.
+  5. training parity: a small float32 config (llama3-8b smoke, 2
+     layers), 4 sgd steps of ``CodedSession`` in modes off, coded and
+     coded_q × {int8, int4, fp8} on the card and on the CPU from the
+     same initial params: card losses within 2e-3·|loss| of the CPU's
+     and trained params within 1e-4 of each leaf's largest change (a
+     1e-3 share of the values may differ over a quantized hop), coded ==
+     off within 5e-4, coded_q within 5e-3 of off.
+  6. the training path: ``CodedSession.fit`` in mode coded_q at
+     llama3-8b's full width cut to 2 layers (adamw, seq 512, the
+     homogeneous 2 × 4 cluster, hgc s_e = s_w = 1: K = 8, 32 rows a
+     step), int8 for 4 steps with edge 1 dropped at step 2, then int4
+     and fp8 for 2 steps each: host ms per step (ending in a
+     synchronize), peak memory, finite losses, exact launches per step
+     (the codec's combine kernel once per param leaf, flash 8 groups ×
+     2 layers × 2 for the remat); a fifth int8 step under
+     ``torch.profiler`` for the device time by kernel; then the HGC
+     encode → decode of the 8 per-part gradients of the full-width
+     ``groups.p0.mlp.wd`` leaf under a sampled straggler pattern equals
+     their sum within 1e-5 · max|Σ g|.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +77,12 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# the training path's shapes: llama3-8b at full width, 2 layers
+EMBED_F = 128256 * 4096           # the embedding leaf, the hop's largest
+WD_F = 2 * 14336 * 4096           # groups.p0.mlp.wd, the encode/decode leaf
+HOP_BLOCK = 64                    # TrainConfig.grad_compression_block
+TRAIN_LAYERS, TRAIN_SEQ, GROUPS = 2, 512, 8
 
 # the serving path's shapes: llama3-8b, batch 4, 1024-token prompts, 32 new
 B, PROMPT, GEN = 4, 1024, 32
@@ -290,6 +321,147 @@ def _time_flash(torch):
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), row_err
 
 
+COMBINE = {  # kind → (kernel wrapper, plain version, replaced Pallas call)
+    "f32": ("coded_combine", "coded_combine_ref",
+            "src/repro/kernels/coded_combine.py:58"),
+    "int8": ("coded_combine_q", "coded_combine_q_ref",
+             "src/repro/kernels/coded_combine.py:110"),
+    "int4": ("coded_combine_q4", "coded_combine_q4_ref",
+             "src/repro/kernels/coded_combine.py:171"),
+    "fp8": ("coded_combine_f8", "coded_combine_f8_ref",
+            "src/repro/kernels/coded_combine.py:225"),
+}
+
+
+def _combine_inputs(torch, gen, kind, R, K, F, block):
+    """(coeff, payload, scales) on the card in the codec's layout: F
+    values per row (int4 packs two per byte); random payloads."""
+    c = torch.randn(R, K, generator=gen, device="cuda")
+    if kind == "f32":
+        return c, torch.randn(K, F, generator=gen, device="cuda"), None
+    s = torch.rand(K, F // block, generator=gen, device="cuda") + 0.1
+    if kind == "int8":
+        q = torch.randint(-127, 128, (K, F), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    elif kind == "int4":
+        q = torch.randint(-128, 128, (K, F // 2), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    else:
+        q = (torch.randn(K, F, generator=gen, device="cuda") * 100).clamp(
+            -448, 448).to(torch.float8_e4m3fn)  # e4m3 has no inf
+    return c, q, s
+
+
+def _combine_calls(kind, c, q, s, block):
+    """(kernel, plain version) of one combine kind, bound to its inputs."""
+    from repro_torch.kernels import coded_combine as cc
+    from repro_torch.kernels import ref
+
+    kname, pname, _ = COMBINE[kind]
+    kernel, plain = getattr(cc, kname), getattr(ref, pname)
+    if kind == "f32":
+        return (lambda: kernel(c, q)), (lambda: plain(c, q))
+    return (lambda: kernel(c, q, s, block=block),
+            lambda: plain(c, q, s, block))
+
+
+def _row_share(got, want) -> float:
+    """Worst output row's max |got − want| over that row's max |want|."""
+    scale = want.abs().amax(-1).clamp_min(1e-30)
+    return ((got - want).abs().amax(-1) / scale).max().item()
+
+
+def _grid_combine(torch, gen):
+    """The four combine kernels against their plain versions over
+    R ∈ {1, 8, 13}, K ∈ {2, 8, 64}, F ∈ {64, 4160, 2^20 + 64} and, for
+    the scaled payloads, block ∈ {64, 128, 256} (F rounded up to a
+    multiple of the block); plus F = 4162 with block 2 and, for f32,
+    F = 4161: rows that are not 16-byte aligned take the scalar path,
+    and a block smaller than a thread's 16 values one scale per value."""
+    import itertools
+
+    worst, n = 0.0, 0
+    for kind, (kname, _, _) in COMBINE.items():
+        blocks = [1] if kind == "f32" else [64, 128, 256]
+        cases = [(R, K, -(-F // b) * b, b) for R, K, F, b in
+                 itertools.product([1, 8, 13], [2, 8, 64],
+                                   [64, 4160, 2 ** 20 + 64], blocks)]
+        cases += [(R, K, 4162, 2) for R in (1, 13) for K in (2, 64)]
+        if kind == "f32":
+            cases += [(R, K, 4161, 1) for R in (1, 13) for K in (2, 64)]
+        for R, K, F, block in cases:
+            c, q, sc = _combine_inputs(torch, gen, kind, R, K, F, block)
+            kernel, plain = _combine_calls(kind, c, q, sc, block)
+            got, want = kernel(), plain()
+            share = _row_share(got, want)
+            if not share <= 1e-5:
+                raise AssertionError(f"{kname} R={R} K={K} F={F} "
+                                     f"block={block}: a row is off by "
+                                     f"{share:.3g} of its max |plain|")
+            worst = max(worst, share)
+            n += 1
+    return n, worst
+
+
+def _time_combine(torch, kind, R, K, F, block):
+    """One combine kernel at a main path's shape: checked row-wise
+    against its plain version, then timed beside it (CUDA events) and,
+    for f32, beside ``torch.mm`` (TF32 off).  The payload is 1–4 GB, far
+    beyond the 50 MB L2, so every launch reads it from HBM."""
+    kname = COMBINE[kind][0]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    c, q, s = _combine_inputs(torch, gen, kind, R, K, F, block)
+    kernel, plain = _combine_calls(kind, c, q, s, block)
+    got, want = kernel(), plain()
+    share = _row_share(got, want)
+    if not share <= 1e-5:
+        raise AssertionError(f"{kname} at R={R} K={K} F={F}: a row is off "
+                             f"by {share:.3g} of its max |plain|")
+    err = (got - want).abs().max().item()
+    del got, want
+    kernel_ms = timed_ms(kernel, 10, warmup=2)
+    plain_ms = timed_ms(plain, 3, warmup=1)
+    lib_ms = None
+    if kind == "f32":
+        lib_ms = timed_ms(lambda: torch.mm(c, q), 10, warmup=2)
+    payload = q.numel() * q.element_size()
+    nbytes = payload + R * K * 4 + R * F * 4 + (0 if s is None
+                                                 else s.numel() * 4)
+    flops = 2 * R * K * F + (0 if s is None else K * F)
+    bms, by = bound_ms(nbytes, flops, "float32")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms), share
+
+
+def _check_flash_lse(torch, gen):
+    """The flash kernel's per-row log-sum-exp (the training forward's
+    second output) against the plain version's, f32 and bf16, and at
+    the training path's shapes (one group: 4 × 512, 32 heads)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    worst = 0.0
+    cases = [(1, 17, 2, 1, 64, 0, 0.0), (2, 100, 2, 4, 128, 16, 30.0),
+             (4, TRAIN_SEQ, 8, 4, 128, 0, 0.0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B_, S, Kv, G, Dh, window, softcap in cases:
+            q = torch.randn(B_, S, Kv * G, Dh, generator=gen,
+                            device="cuda").to(dtype)
+            k = torch.randn(B_, S, Kv, Dh, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(B_, S, Kv, Dh, generator=gen,
+                            device="cuda").to(dtype)
+            _, lse = flash_attention_fwd(q, k, v, window=window,
+                                         softcap=softcap, return_lse=True)
+            _, want = ref.flash_attention_ref(q, k, v, window=window,
+                                              softcap=softcap,
+                                              return_lse=True)
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            torch.testing.assert_close(lse, want, rtol=tol, atol=tol)
+            worst = max(worst, (lse - want).abs().max().item())
+    return worst
+
+
 def phase_kernels():
     import torch
 
@@ -303,6 +475,17 @@ def phase_kernels():
         n, worst = _grid_flash(torch, dtype, gen)
         log(f"[kernels] flash_attention == plain on {n} cases, {dtype}, "
             f"max abs err {worst:.3g} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    lse_err = _check_flash_lse(torch, gen)
+    log(f"[kernels] flash_attention log-sum-exp == plain (f32, bf16, "
+        f"training shape), max abs err {lse_err:.3g} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n, worst = _grid_combine(torch, gen)
+    log(f"[kernels] coded_combine/_q/_q4/_f8 == plain on {n} cases, worst "
+        f"row {worst:.3g} of its max |plain| "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
     rows = {}
     for name, timer in (("decode_attention", _time_decode),
                         ("flash_attention", _time_flash)):
@@ -314,6 +497,23 @@ def phase_kernels():
             f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), sdpa "
             f"{r['library_ms']:.4f} ms")
     torch.cuda.empty_cache()
+    shapes = [("f32", 8, 8, WD_F, 1), ("f32", 1, 8, WD_F, 1),
+              ("int8", 1, 2, EMBED_F, HOP_BLOCK),
+              ("int4", 1, 2, EMBED_F, HOP_BLOCK),
+              ("fp8", 1, 2, EMBED_F, HOP_BLOCK)]
+    for kind, R, K, F, block in shapes:
+        r, share = _time_combine(torch, kind, R, K, F, block)
+        name = COMBINE[kind][0]
+        lib = ("none (no single PyTorch call dequantizes and combines)"
+               if r["library_ms"] is None
+               else f"torch.mm {r['library_ms']:.4f} ms")
+        log(f"[kernels] {name} at R={R} K={K} F={F} block={block}: max abs "
+            f"err {r['max_abs_err']:.3g}, worst row {share:.3g}; kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {lib}")
+        if name not in rows:  # the first shape of each kernel is its row
+            rows[name] = r
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -424,7 +624,7 @@ def phase_serve():
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     res = serve.main(argv)
-    counts = ops.launch_counts()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
     n_layers = 32
     want = {"flash_attention": n_layers, "decode_attention": n_layers * GEN}
     if counts != want:
@@ -463,6 +663,260 @@ def phase_serve():
     return counts
 
 
+TRAIN_RUNS = [("off", ""), ("coded", ""), ("coded_q", "int8"),
+              ("coded_q", "int4"), ("coded_q", "fp8")]
+
+
+def _session(cfg, mode, comp, device, **kw):
+    from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
+
+    return CodedSession(CodedCluster.homogeneous(2, 4), cfg,
+                        planner=planner_for_scheme("hgc", 1, 1), mode=mode,
+                        grad_compression=comp, device=device, **kw)
+
+
+def _params_off(card, cpu, init):
+    """Values of the trained params where the card's run and the CPU's
+    differ by more than 1e-4 of the leaf's largest change since ``init``
+    plus two float32 spacings of the value: ``(count, of all)``.  Over a
+    quantized hop a value whose card and CPU partials differ by an ulp
+    may round to the next code (error feedback carries it back), so
+    there a 1e-3 share is allowed; a wrong decode (a wrong λ, a dropped
+    pod, no update) moves most values."""
+    import numpy as np
+
+    off = total = 0
+    for key, want in cpu.items():
+        tol = (1e-4 * np.abs(want - init[key]).max()
+               + 2 * np.spacing(np.abs(want)))
+        off += int((np.abs(card[key] - want) > tol).sum())
+        total += want.size
+    return off, total
+
+
+def phase_train_parity():
+    """The coded session's modes on the card against the same port on
+    the CPU (small float32 config, same initial params, 4 sgd steps,
+    edge 1 dropped at step 2), and against each other within the
+    reference's own tolerances (tests/test_dist_train_elastic.py)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.params import params_to_numpy
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
+    init = params_to_numpy(tf.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu",
+        dtype=torch.float32))
+    kw = dict(seq_len=32, optimizer="sgd", lr=0.05, total_steps=4,
+              verbose=False, params=init)
+    losses = {}
+    for mode, comp in TRAIN_RUNS:
+        trained = {}
+        for dev in ("cuda", "cpu"):
+            s = _session(cfg, mode, comp, dev, **kw)
+            losses[mode + comp, dev] = np.asarray(
+                s.fit(4, force_drop_edge=1, force_drop_step=2)["losses"])
+            trained[dev] = params_to_numpy(s.params)
+        card, cpu = losses[mode + comp, "cuda"], losses[mode + comp, "cpu"]
+        if not (np.isfinite(card).all()
+                and (np.abs(card - cpu) <= 2e-3 * np.abs(cpu)).all()):
+            raise AssertionError(f"{mode}{comp}: card losses {card} vs cpu "
+                                 f"{cpu}")
+        # the losses alone would miss a wrong decode that moves them less
+        # than their limit: the params are held leaf by leaf as well
+        off, total = _params_off(trained["cuda"], trained["cpu"], init)
+        allowed = 1e-3 * total if comp else 0
+        log(f"[train-parity] {mode}{comp}: loss moved "
+            f"{abs(cpu[-1] - cpu[0]):.4g} over 4 steps (limit card-cpu "
+            f"{2e-3 * np.abs(cpu).max():.4g}); {off} of {total} param "
+            f"values off by > 1e-4 of their leaf's change (allowed "
+            f"{allowed:g})")
+        if off > allowed:
+            raise AssertionError(f"{mode}{comp}: {off} of {total} trained "
+                                 f"param values differ card vs cpu")
+    off = losses["off", "cuda"]
+    if not np.abs(losses["coded", "cuda"] - off).max() <= 5e-4:
+        raise AssertionError(f"coded {losses['coded', 'cuda']} != off {off}")
+    for codec in ("int8", "int4", "fp8"):
+        got = losses["coded_q" + codec, "cuda"]
+        if not np.abs(got - off).max() <= 5e-3:
+            raise AssertionError(f"coded_q {codec} {got} far from off {off}")
+    worst = max(np.abs(losses[k, "cuda"] - losses[k, "cpu"]).max()
+                / np.abs(losses[k, "cpu"]).max()
+                for k in {m + c for m, c in TRAIN_RUNS})
+    log(f"[train-parity] off, coded, coded_q x int8/int4/fp8: card == cpu "
+        f"within {worst:.3g} x |loss|; coded - off "
+        f"{np.abs(losses['coded', 'cuda'] - off).max():.3g}; off losses "
+        f"{np.round(off, 5).tolist()} ({time.perf_counter() - t0:.1f} s)")
+
+
+def _hgc_recovery(torch, session):
+    """HGC encode → decode of one full-width leaf: the 8 per-part
+    gradients of ``groups.p0.mlp.wd`` (each part's own examples, fixed
+    denominator), encoded into the workers' messages (eq. 22) and
+    decoded from a sampled straggler pattern's survivors (eqs. 25/27),
+    must equal their sum."""
+    import numpy as np
+
+    from repro_torch.api.cluster import sample_straggler_pattern
+    from repro_torch.dist import grad_sync
+
+    from repro_torch.models import transformer as tf
+
+    code, cfg = session.code, session.cfg
+    leaf = session.params["groups"]["p0"]["mlp"]["wd"]
+    parts = []
+    for k in range(code.K):
+        b = session.streams[k].next_batch()
+        b = {"tokens": torch.as_tensor(b["tokens"]).long().to("cuda"),
+             "targets": torch.as_tensor(b["targets"]).long().to("cuda"),
+             "weights": torch.as_tensor(b["weights"]).to("cuda"),
+             "denom": torch.tensor(float(code.K * TRAIN_SEQ), device="cuda")}
+        with torch.enable_grad():
+            total, _ = tf.loss_and_metrics(session.params, cfg, b)
+            (g,) = torch.autograd.grad(total, [leaf])
+        parts.append(g.reshape(-1))
+        del g, total
+    g_parts = torch.stack(parts)
+    del parts
+    fast_e, fast_w, _, _ = sample_straggler_pattern(
+        np.random.default_rng(5), code, session.cluster.params, code.load)
+    msgs = grad_sync.encode_messages(code, g_parts)
+    dec = grad_sync.decode_gradient(code, msgs, fast_e, fast_w)
+    want = g_parts.sum(0)
+    scale = want.abs().max().item()
+    err = (dec - want).abs().max().item()
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"HGC decode off by {err:.3g} > 1e-5 x "
+                             f"{scale:.3g}")
+    return dict(F=int(g_parts.shape[1]), fast_edges=fast_e,
+                fast_workers=[list(w) for w in fast_w], err=err / scale)
+
+
+def phase_train():
+    """The training path at llama3-8b's full width, 2 layers: coded_q
+    int8 for 4 steps (edge 1 dropped at step 2), a fifth step under
+    ``torch.profiler``, int4 and fp8 for 2 steps each, then the HGC
+    encode/decode check.  The launch counts are set to 0 before the
+    path and read after it; each step's own counts are exact."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import _tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=TRAIN_LAYERS)
+    kernel_of = {"int8": "coded_combine_q", "int4": "coded_combine_q4",
+                 "fp8": "coded_combine_f8"}
+    totals = {name: 0 for name in ops.KERNELS}
+    result = {}
+    session = None
+    for codec, n_steps in (("int8", 4), ("int4", 2), ("fp8", 2)):
+        del session
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        session = _session(cfg, "coded_q", codec, "cuda", seq_len=TRAIN_SEQ,
+                           part_batch=1, optimizer="adamw",
+                           total_steps=n_steps + 1, grad_block=HOP_BLOCK,
+                           log_every=1)
+        torch.cuda.synchronize()
+        n_leaves = len(_tree.leaves(session.params))
+        log(f"[train] {codec}: session built in "
+            f"{time.perf_counter() - t0:.1f} s: {n_leaves} param leaves, "
+            f"{sum(p.numel() for p in _tree.leaves(session.params)):,} "
+            f"params, K={session.code.K}, load D={session.code.load}")
+        want = {kernel_of[codec]: n_leaves,
+                "flash_attention": GROUPS * TRAIN_LAYERS * 2}
+        step_ms = []
+        for step in range(n_steps):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.fit(step + 1, force_drop_edge=1, force_drop_step=2)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            counts = ops.launch_counts()
+            got = {k: v for k, v in counts.items() if v}
+            if got != want:
+                raise AssertionError(f"{codec} step {step}: launches {got}, "
+                                     f"expected {want}")
+            for k, v in counts.items():
+                totals[k] += v
+        losses = session.losses
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{codec}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[train] {codec}: losses {[round(x, 5) for x in losses]}, "
+            f"host ms per step {[round(x, 1) for x in step_ms]}, peak "
+            f"{peak:.2f} GiB allocated; launches per step {want}")
+        result[codec] = dict(losses=list(losses), step_ms=step_ms,
+                             peak_gib=peak)
+        if codec == "int8":
+            _profile_step(torch, profile, ProfilerActivity, session,
+                          n_steps, step_ms)
+            ops.reset_launch_counts()  # the profiled step is not counted
+    ops.reset_launch_counts()
+    hgc = _hgc_recovery(torch, session)
+    counts = ops.launch_counts()
+    if counts["coded_combine"] != 2:
+        raise AssertionError(f"HGC check launches {counts}")
+    totals["coded_combine"] += counts["coded_combine"]
+    log(f"[train] HGC encode -> decode of groups.p0.mlp.wd (F={hgc['F']}), "
+        f"survivors edges {list(hgc['fast_edges'])} workers "
+        f"{hgc['fast_workers']}: max |decoded - sum| {hgc['err']:.3g} x "
+        f"max|sum| (limit 1e-5); coded_combine launches 2")
+    del session
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _profile_step(torch, profile, ProfilerActivity, session, step,
+                  step_ms):
+    """One more int8 step under ``torch.profiler``: its device time by
+    kernel name, over the median host time of the counted steps after
+    the first (the profiler slows the host)."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        session.fit(step + 1)
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        raise AssertionError("the profiler saw no device work in the step")
+    host = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    dev = sum(by_name.values())
+    log(f"[profile] train step: device {dev:.3f} ms over the counted "
+        f"steps' median host {host:.3f} ms: device busy "
+        f"{100 * dev / host:.1f}%")
+    for name, ms in by_name.most_common(12):
+        log(f"[profile]   {ms:9.3f} ms  {name[:90]}")
+    # the port's own kernels in the step, by their source's entry names
+    for label, key in (("combine kernel", "combine_kernel"),
+                       ("flash forward", "flash_fwd")):
+        hits = {n: ms for n, ms in by_name.items() if key in n}
+        log(f"[profile]   the port's {label}: "
+            f"{sum(hits.values()):.3f} ms in {len(hits)} instantiation(s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -484,14 +938,20 @@ def main() -> int:
     rows = phase_kernels()
     phase_parity()
     counts = phase_serve()
-    sources = {"decode_attention": ("src/repro_torch/kernels/csrc/"
-                                    "decode_attention.cu",
+    phase_train_parity()
+    train_counts = phase_train()
+    log(f"[done] launches on the main paths: serve {counts}, train "
+        f"{ {k: v for k, v in train_counts.items() if v} }")
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {"decode_attention": (csrc + "decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:131"),
-               "flash_attention": ("src/repro_torch/kernels/csrc/"
-                                   "flash_attention.cu",
+               "flash_attention": (csrc + "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:100")}
+    for name, _, replaces in COMBINE.values():
+        sources[name] = (csrc + "coded_combine.cu", replaces)
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
-                    replaces=sources[name][1], launches=counts[name], **r)
+                    replaces=sources[name][1],
+                    launches=counts.get(name, 0) + train_counts[name], **r)
                for name, r in rows.items()]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,475 @@
+"""`CodedSession` of the port — coded training on one device.
+
+PyTorch counterpart of ``repro.api.session.CodedSession`` for training:
+the planned HGC code, the per-part data streams, the straggler
+simulation + detector feedback, JNCSS replanning, and the train step of
+the session's mode:
+
+  * ``"off"``        — single-host reference: λ rides the per-example
+    batch weights and the one gradient is the decoded aggregate,
+  * ``"coded"``      — the (pod, data) mesh on one card
+    (:class:`repro_torch.dist.mesh.OneCardMesh`) with the two-stage
+    coded decode, λ a runtime operand,
+  * ``"coded_int8"`` — same, with the blockwise-int8 + error-feedback
+    edge→master hop (per-pod EF residuals ride the session state),
+  * ``"coded_q"``    — same hop with the codec ``grad_compression``
+    selects (int8 default, int4 packed nibbles, or fp8-e4m3).
+
+Not ported yet (each raises, naming ROADMAP.md): checkpoints and resume,
+``shrink``, ``eval_step``, ``generate`` (the serving path is
+``repro_torch.api.serving``), and the TP/SP/PP options.  The session
+runs on the card unless ``device="cpu"`` is given.
+
+Quickstart::
+
+    from repro_torch.api import CodedCluster, CodedSession
+    from repro_torch.configs.registry import get_smoke_config
+
+    cluster = CodedCluster.hetero(n_edges=2, n_workers=4)
+    session = CodedSession(cluster, get_smoke_config("llama3-8b"),
+                           total_steps=20, device="cpu")
+    session.fit()
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import _tree
+from repro_torch._device import resolve_device
+from repro_torch.api.cluster import CodedCluster, sample_straggler_pattern
+from repro_torch.api.planner import Planner, get_planner
+from repro_torch.checkpoint.params import params_from_numpy
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.hgc import HGCCode
+from repro_torch.data.pipeline import TokenStream
+from repro_torch.models import transformer as tf
+from repro_torch.optim import make_optimizer
+
+PyTree = Any
+
+MODES = ("off", "coded", "coded_int8", "coded_q")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md")
+
+
+class ReplanError(RuntimeError):
+    """A replan produced a plan the deployed session cannot run; the
+    session keeps its previous code.  ``constraint`` names what broke
+    (``"uniform_load"`` or ``"topology"``), ``topo`` the topology."""
+
+    def __init__(self, message: str, *, constraint: str, topo):
+        super().__init__(message)
+        self.constraint = constraint
+        self.topo = topo
+
+
+def _step_rng(seed: int, step: int) -> np.random.Generator:
+    """Per-step straggler RNG (history-independent, as the reference's)."""
+    return np.random.default_rng(np.random.SeedSequence([seed, 7919, step]))
+
+
+def build_coded_batch(code: HGCCode, streams, fast_e, fast_w, seq_len,
+                      with_lam: bool = True) -> Dict[str, np.ndarray]:
+    """Global batch = all workers' assigned-part examples, (pod, data)-major.
+
+    ``with_lam=True`` (mode off): weights carry coeff × λ, stragglers
+    weight 0.  ``with_lam=False`` (coded modes): weights carry the coding
+    coefficients only; λ is applied in the decode.  ``denom`` is the
+    fixed normalizer (K parts × per-part tokens) that keeps the loss
+    linear in the weights (exact coded decode).
+    """
+    lam = code.collapsed_weights(fast_e, fast_w) if with_lam else None
+    tokens, targets, weights = [], [], []
+    topo = code.topo
+    for i in range(topo.n):
+        for j in range(topo.m[i]):
+            w_idx = topo.flat_index(i, j)
+            coeff = code.worker_coeffs(i, j)
+            for k in code.assignment.worker_parts(i, j):
+                b = streams[k].next_batch()
+                tokens.append(b["tokens"])
+                targets.append(b["targets"])
+                w = b["weights"] * float(coeff[k])
+                if lam is not None:
+                    w = w * float(lam[w_idx])
+                weights.append(w)
+    return {
+        "tokens": np.concatenate(tokens, 0),
+        "targets": np.concatenate(targets, 0),
+        "weights": np.concatenate(weights, 0),
+        "denom": np.float32(code.K * tokens[0].shape[0] * seq_len),
+    }
+
+
+def _extend_streams(streams, K: int, vocab: int, part_batch: int,
+                    seq_len: int, seed: int):
+    """K growth reuses the existing part streams; only new parts get
+    fresh streams."""
+    while len(streams) < K:
+        streams.append(TokenStream(vocab, part_batch, seq_len,
+                                   seed=seed * 1000 + len(streams)))
+
+
+class CodedSession:
+    """One coded training session over a :class:`CodedCluster`.
+
+    ``params``: initial weights as a flat ``{key: ndarray}`` map in the
+    reference's checkpoint layout (``checkpoint.params``) — e.g. the
+    reference session's own initial params; None draws them from
+    ``seed`` (the port's initializer, not the reference's).
+    """
+
+    def __init__(
+        self,
+        cluster: Optional[CodedCluster],
+        cfg: ModelConfig,
+        *,
+        planner: Any = "jncss",
+        mode: str = "off",
+        tp: int = 1,
+        seq_shard: Optional[bool] = None,
+        pp: int = 1,
+        microbatches: int = 0,
+        seq_len: int = 64,
+        part_batch: int = 1,
+        K: int = 0,
+        optimizer: str = "adamw",
+        lr: float = 1e-2,
+        total_steps: int = 100,
+        warmup_steps: Optional[int] = None,
+        grad_clip: float = 1.0,
+        grad_block: int = 64,
+        grad_compression: str = "",
+        seed: int = 0,
+        scheme: Optional[str] = None,
+        checkpoint_dir: str = "",
+        resume: bool = False,
+        log_every: int = 10,
+        verbose: bool = True,
+        params: Optional[Dict[str, np.ndarray]] = None,
+        device="cuda",
+    ):
+        if mode not in MODES:
+            raise ValueError(f"unknown session mode {mode!r}")
+        if cluster is None:
+            raise _not_ported("a serve-only session (cluster=None; serve "
+                              "through repro_torch.api.serving)")
+        if max(int(tp), 1) > 1 or seq_shard or max(int(pp), 1) > 1 \
+                or microbatches:
+            raise _not_ported("tensor, sequence and pipeline parallelism "
+                              "(tp / seq_shard / pp / microbatches)")
+        if checkpoint_dir or resume:
+            raise _not_ported("checkpointing (checkpoint_dir / resume)")
+        if mode == "coded_int8":
+            if grad_compression and grad_compression != "int8":
+                raise ValueError(
+                    "mode='coded_int8' pins grad_compression='int8'; use "
+                    "mode='coded_q' to pick a codec")
+            self.grad_compression = "int8"
+        elif mode == "coded_q":
+            from repro_torch.dist import compression
+
+            self.grad_compression = grad_compression or "int8"
+            if self.grad_compression not in compression.COMPRESSION_MODES:
+                raise ValueError(
+                    f"unknown grad_compression {self.grad_compression!r} "
+                    f"(choose from {compression.COMPRESSION_MODES})")
+        else:
+            if grad_compression:
+                raise ValueError(
+                    f"grad_compression={grad_compression!r} needs "
+                    f"mode='coded_q' (or 'coded_int8')")
+            self.grad_compression = "none"
+        self.device = resolve_device(device)
+        self.cluster = cluster
+        self.cfg = cfg
+        self.mode = mode
+        self.seq_len = seq_len
+        self.part_batch = part_batch
+        self.seed = seed
+        self.log_every = log_every
+        self.verbose = verbose
+        self.losses: List[float] = []
+
+        if params is not None:
+            self.params = params_from_numpy(params, self.device,
+                                            dtype=torch.float32)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.params = tf.init_params(cfg, gen, device=self.device,
+                                         dtype=torch.float32)
+        for p in _tree.leaves(self.params):
+            p.requires_grad_(True)
+        self._optimizer = make_optimizer(optimizer)
+
+        # ---- plan the code ------------------------------------------
+        self.planner: Planner = get_planner(planner)
+        topo = cluster.topo
+        K_target = K or self.planner.initial_K(topo)
+        self.plan = self.planner.plan(cluster.params, K_target, seed=seed)
+        self.code = self.plan.code
+        self.scheme = scheme or (
+            "hgc_jncss" if self.plan.jncss is not None else "hgc")
+        if self.verbose:
+            if self.plan.jncss is not None:
+                print(f"[train] JNCSS chose (s_e={self.code.tol.s_e}, "
+                      f"s_w={self.code.tol.s_w}), D={self.code.load}, "
+                      f"K={self.code.K}, "
+                      f"T̂={self.plan.expected_iteration_ms:.0f} ms")
+            else:
+                print(f"[train] fixed scheme {self.scheme}: "
+                      f"(s_e={self.code.tol.s_e}, "
+                      f"s_w={self.code.tol.s_w}), D={self.code.load}, "
+                      f"K={self.code.K}")
+
+        self.tcfg = TrainConfig(
+            optimizer=optimizer, lr=lr, total_steps=total_steps,
+            warmup_steps=(warmup_steps if warmup_steps is not None
+                          else max(total_steps // 10, 1)),
+            grad_clip=grad_clip,
+            scheme=self.scheme, s_e=self.code.tol.s_e,
+            s_w=self.code.tol.s_w, K=self.code.K,
+            dist_mode=mode,
+            grad_compression=self.grad_compression,
+            grad_compression_block=grad_block,
+        )
+
+        # ---- data: one resumable stream per dataset part -------------
+        self.streams: List[TokenStream] = []
+        _extend_streams(self.streams, self.code.K, cfg.vocab, part_batch,
+                        seq_len, seed)
+        self.opt_state = self._optimizer.init(self.params)
+        self._step = 0
+        self._setup_train_step()
+
+    # ------------------------------------------------------------------
+    # the train step of the mode
+    # ------------------------------------------------------------------
+    def _setup_train_step(self):
+        from repro_torch.launch import steps as steps_lib
+
+        topo = self.cluster.topo
+        self.residual: List[torch.Tensor] = []
+        if self.mode == "off":
+            self._mesh = None
+            self.train_step = steps_lib.make_train_step(
+                self.cfg, self.tcfg, optimizer=self._optimizer)
+            return
+        if len(set(topo.m)) != 1:
+            raise ValueError(
+                f"dist modes need a uniform topology for the (pod, data) "
+                f"mesh, got m={topo.m}")
+        self._require_dist_uniform_load(self.code)
+        from repro_torch.dist import compression
+        from repro_torch.dist.mesh import OneCardMesh
+
+        self._mesh = OneCardMesh(topo.n, topo.m[0])
+        if self.verbose:
+            print(f"[train] dist={self.mode}: one-card mesh (pod={topo.n} "
+                  f"× data={topo.m[0]}) on {self.device}, "
+                  f"grad_compression={self.tcfg.grad_compression}")
+        if self.tcfg.grad_compression != "none":
+            self.residual = _tree.leaves(
+                compression.init_pod_residuals(self.params, topo.n))
+        self.train_step = steps_lib._make_dist_train_step(
+            self.cfg, self.tcfg, self._mesh, optimizer=self._optimizer)
+
+    def _require_dist_uniform_load(self, code):
+        """The coded modes split the batch evenly over (pod, data): every
+        worker must carry the same load."""
+        if self.mode == "off":
+            return
+        loads = getattr(code, "loads", None)
+        if loads is not None and len(set(loads)) > 1:
+            raise ValueError(
+                f"dist mode {self.mode!r} splits the coded batch evenly "
+                f"over the (pod, data) mesh, which requires every worker "
+                f"to carry the same load; this grouped plan has per-edge "
+                f"loads {tuple(loads)} (docs/planners.md)")
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def build_batch(self, fast_e, fast_w):
+        """The coded global batch for one observed straggler pattern."""
+        return build_coded_batch(self.code, self.streams, fast_e, fast_w,
+                                 self.seq_len, with_lam=(self._mesh is None))
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v))
+            if k in ("tokens", "targets"):
+                t = t.long()
+            out[k] = t.to(self.device)
+        return out
+
+    def _iteration(self, step: int, force_drop_edge: int = -1,
+                   force_drop_step: int = -1, batch=None) -> Dict:
+        code, topo = self.code, self.cluster.topo
+        fast_e, fast_w, t_iter, wt = sample_straggler_pattern(
+            _step_rng(self.seed, step), code, self.cluster.params,
+            getattr(code, "load_array", code.load))
+        if step == force_drop_step and \
+                0 <= force_drop_edge < topo.n and code.tol.s_e > 0:
+            # forced straggler drop: only the λ operand changes
+            fast_e = tuple(i for i in range(topo.n)
+                           if i != force_drop_edge)[: topo.n - code.tol.s_e]
+        self.cluster.observe(wt)
+        metrics = self._execute(step, fast_e, fast_w, batch)
+        metrics["sim_iter_ms"] = t_iter
+        metrics["fast_edges"] = fast_e
+        return metrics
+
+    def _execute(self, step: int, fast_e, fast_w, batch=None) -> Dict:
+        """Run ONE train step under a given completion set — the shared
+        tail of :meth:`_iteration` and :meth:`external_step`."""
+        code, topo = self.code, self.cluster.topo
+        if batch is None:
+            batch = self.build_batch(fast_e, fast_w)
+        batch = self._to_device(batch)
+        if self._mesh is None:
+            self.params, self.opt_state, metrics = self.train_step(
+                self.params, self.opt_state, batch, step)
+        else:
+            from repro_torch.dist import grad_sync
+
+            lam = grad_sync.lam_array_from_code(code, fast_e, fast_w,
+                                                topo.n, topo.m[0])
+            (self.params, self.opt_state, self.residual,
+             metrics) = self.train_step(self.params, self.opt_state, batch,
+                                        lam, self.residual, step)
+        self.losses.append(float(metrics["loss"]))
+        self._step = step + 1
+        return dict(metrics)
+
+    def external_step(self, fast_e, fast_w, *, worker_totals=None,
+                      sim_iter_ms: float = 0.0, batch=None) -> Dict:
+        """One train step under an EXTERNALLY observed completion set —
+        the orchestrator's entry point (``fast_w`` indexed by edge for
+        ALL edges); only the λ operand changes."""
+        topo = self.cluster.topo
+        need_e = topo.n - self.code.tol.s_e
+        if len(set(fast_e)) < need_e:
+            raise ValueError(f"completion set has {len(set(fast_e))} "
+                             f"edges; the deployed code needs >= {need_e}")
+        for i in fast_e:
+            need_w = topo.m[i] - self.code.tol.s_w_of(i)
+            if len(set(fast_w[i])) < need_w:
+                raise ValueError(
+                    f"edge {i}: completion set has {len(set(fast_w[i]))} "
+                    f"workers; the deployed code needs >= {need_w}")
+        if worker_totals is not None:
+            self.cluster.observe(worker_totals)
+        metrics = self._execute(self._step, tuple(fast_e),
+                                [tuple(w) for w in fast_w], batch)
+        metrics["sim_iter_ms"] = float(sim_iter_ms)
+        metrics["fast_edges"] = tuple(fast_e)
+        return metrics
+
+    def step(self, batch=None) -> Dict:
+        """One training iteration at the session's current step index
+        (a straggler pattern sampled from the cluster model)."""
+        return self._iteration(self._step, batch=batch)
+
+    def fit(self, steps: Optional[int] = None, *, replan_every: int = 0,
+            force_drop_edge: int = -1, force_drop_step: int = -1,
+            stop_after: int = 0) -> Dict:
+        """The managed loop: straggler simulation → coded step → detector
+        feedback → elastic replan.  ``steps`` is the global target step
+        (default ``total_steps``); ``stop_after`` exits after N steps."""
+        total = steps if steps is not None else self.tcfg.total_steps
+        start = self._step
+        t0 = time.time()
+        sim_ms = 0.0
+        steps_done = 0
+        for step in range(start, total):
+            steps_done += 1
+            m = self._iteration(step, force_drop_edge, force_drop_step)
+            sim_ms += m["sim_iter_ms"]
+            if self.verbose and (
+                    step % self.log_every == 0 or step == total - 1):
+                topo = self.cluster.topo
+                drop = sorted(set(range(topo.n)) - set(m["fast_edges"]))
+                print(f"[train] step {step:5d} loss {self.losses[-1]:.4f} "
+                      f"grad_norm {float(m['grad_norm']):.3f} "
+                      f"sim_iter {m['sim_iter_ms']:.0f} ms "
+                      f"stragglers: edges={drop}")
+            if replan_every and (step + 1) % replan_every == 0:
+                self.replan()
+            if stop_after and step + 1 >= stop_after:
+                if self.verbose:
+                    print(f"[train] stopping after step {step}")
+                break
+        if self.verbose:
+            wall = time.time() - t0
+            print(f"[train] done: {steps_done} steps in {wall:.1f}s wall, "
+                  f"{sim_ms/1e3:.1f}s simulated cluster time, jit cache "
+                  f"entries: {self.jit_cache_entries()}")
+        return self.report(first_step=start)
+
+    def replan(self, planner: Any = None, cluster: Any = None):
+        """Re-run the planner on the detector-updated cluster model; a
+        stable plan reuses the deployed code and part streams.  The step
+        is eager: a new code only changes the λ and batch operands."""
+        if planner is not None:
+            self.planner = get_planner(planner)
+        if cluster is not None:
+            if cluster.topo != self.cluster.topo:
+                raise ReplanError(
+                    f"replan cluster has topology m={cluster.topo.m}, "
+                    f"session is deployed on m={self.cluster.topo.m}",
+                    constraint="topology", topo=self.cluster.topo)
+            self.cluster = cluster
+        plan = self.planner.plan(
+            self.cluster.updated_params(self.code.load), self.code.K,
+            seed=self.seed, reuse=self.code)
+        if plan.code is not self.code:
+            try:
+                self._require_dist_uniform_load(plan.code)
+            except ValueError as err:
+                raise ReplanError(str(err), constraint="uniform_load",
+                                  topo=self.cluster.topo) from err
+            if self.verbose:
+                print(f"[train] replan: tolerance → (s_e={plan.tol.s_e}, "
+                      f"s_w={plan.tol.s_w}), K={plan.K}, "
+                      f"T̂={plan.expected_iteration_ms:.0f} ms")
+            self.plan = plan
+            self.code = plan.code
+            _extend_streams(self.streams, self.code.K, self.cfg.vocab,
+                            self.part_batch, self.seq_len, self.seed)
+        return self.plan
+
+    def shrink(self, dead_edges=(), dead_workers=()):
+        raise _not_ported("CodedSession.shrink")
+
+    def save_checkpoint(self, step: Optional[int] = None) -> str:
+        raise _not_ported("CodedSession.save_checkpoint")
+
+    def eval_step(self, batch) -> Dict[str, float]:
+        raise _not_ported("CodedSession.eval_step")
+
+    def generate(self, *args, **kwargs):
+        raise _not_ported("CodedSession.generate (serve with "
+                          "repro_torch.api.serving)")
+
+    def jit_cache_entries(self) -> int:
+        """-1: the port's step is eager, so there is no executable cache
+        to count (the reference's own "cannot tell" value)."""
+        return -1
+
+    def report(self, first_step: int = 0) -> Dict:
+        """The metrics payload the train CLI writes to --metrics-out."""
+        return {
+            "dist": self.mode,
+            "first_step": first_step,
+            "losses": self.losses,
+            "jit_cache_entries": self.jit_cache_entries(),
+        }

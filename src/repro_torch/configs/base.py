@@ -1,8 +1,11 @@
 """Model architecture description for the PyTorch port.
 
-The port's own copy of ``repro.configs.base.ModelConfig``: the same
-fields, defaults, ``head_dim`` post-init and ``param_counts``, so a
-config built here compares equal field by field with the reference's.
+The port's own copies of ``repro.configs.base.ModelConfig`` and
+``TrainConfig``: the same fields, defaults, ``head_dim`` post-init and
+``param_counts``, so a config built here compares equal field by field
+with the reference's.  Note ``TrainConfig.grad_compression_block`` (64)
+differs from ``dist.compression.DEFAULT_BLOCK`` (256): the coded step
+always passes the block from the config.
 """
 from __future__ import annotations
 
@@ -144,3 +147,60 @@ class ModelConfig:
             total += enc
             active += enc
         return total, active
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop hyperparameters + HGC wiring."""
+
+    optimizer: str = "adamw"  # sgd | momentum | adamw | adafactor
+    lr: float = 3e-4
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    microbatch: int = 0  # 0 ⇒ no accumulation; else per-step microbatch
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    seed: int = 0
+    # HGC (aggregation scheme at the data-parallel layer)
+    scheme: str = "uncoded"  # any of core.schemes.SCHEME_NAMES
+    s_e: int = 1
+    s_w: int = 1
+    K: int = 0  # 0 ⇒ auto (compatible_K)
+    # fault tolerance
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    # distributed perf knobs (see EXPERIMENTS.md §Perf)
+    remat_policy: str = "layer"  # layer | none | dots
+    # aggregation execution mode (launch.train --dist):
+    #   off        — single-host reference loop, λ rides the batch weights
+    #   coded      — shard_map two-stage coded psum on a (pod, data[, model]) mesh
+    #   coded_int8 — same, with the int8 + error-feedback cross-pod hop
+    #   coded_q    — same, codec chosen by grad_compression (int8|int4|fp8)
+    dist_mode: str = "off"
+    # edge→master hop codec: none | int8 | int4 (packed nibbles) | fp8
+    # (e4m3); all three share the EF-residual contract, so checkpoints
+    # restore across codecs (dist/compression.py)
+    grad_compression: str = "none"
+    grad_compression_block: int = 64  # quantization block on that hop
+    fsdp: bool = True  # shard params over the data axis as well
+    # sequence parallelism (Megatron SP) inside the dist-TP shard_map:
+    # row-parallel out-projections reduce-scatter over seq, the
+    # norm/residual work between the TP collective pairs runs on the
+    # local 1/tp seq block, column-parallel in-projections re-gather.
+    # Config-level default; the train CLI's --seq-shard/--no-seq-shard
+    # flag (CodedSession ``seq_shard=``) overrides it.  Needs tp > 1
+    # and seq_len % tp == 0 (sharding.validate_seq_shard).
+    seq_shard_activations: bool = False
+    # pipeline parallelism over the leading "stage" mesh axis: the
+    # stacked layer groups shard stage-wise (each stage owns a
+    # contiguous block of n_groups // pp_stages groups) and the dist
+    # train step runs a microbatched pipeline schedule with ppermute
+    # activation handoffs.  Needs n_groups % pp_stages == 0
+    # (sharding.validate_pp).  1 ⇒ off (no "stage" mesh axis at all).
+    pp_stages: int = 1
+    # pipeline microbatch COUNT per step (distinct from ``microbatch``,
+    # the accumulation SIZE of the single-host path): the per-group
+    # coded batch splits into this many microbatches flowing through
+    # the stage pipeline.  0 ⇒ pp_stages (minimum that fills the
+    # pipeline); must divide the per-group batch rows.
+    microbatches: int = 0

@@ -30,7 +30,8 @@
 //
 // Both skip whole K tiles above the causal diagonal or before the
 // sliding window; mask value -1e30, denominator clamped at 1e-30, as in
-// the reference.
+// the reference.  Optionally each row's log-sum-exp is written too (the
+// training forward saves it for the recompute backward).
 //
 // Bound.  At llama3-8b's prefill (B=4, S=1024, H=32, Kv=8, Dh=128, bf16,
 // causal) the work is 4 * B * H * Dh * (S^2 + S) / 2 ~ 34.4 GFLOP, >= ~35 us
@@ -68,8 +69,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int T_,
-                 int H, int G, long long q_sb, long long q_ss, long long k_sb,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int T_, int H, int G,
+                 long long q_sb, long long q_ss, long long k_sb,
                  long long k_ss, long long v_sb, long long v_ss,
                  long long o_sb, long long o_ss, int causal, int window,
                  float softcap, float scale) {
@@ -225,6 +227,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty + 16 * i;
     const int qpos = q0 + r;
     if (qpos >= S) continue;
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * S + qpos) * H + h] = m[r] + logf(fmaxf(l[r], 1e-30f));
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -294,8 +298,9 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs, in
 template <typename T, int DH>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int S, int T_,
-                     int H, int G, long long q_sb, long long q_ss, long long k_sb,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int S, int T_, int H, int G,
+                 long long q_sb, long long q_ss, long long k_sb,
                      long long k_ss, long long v_sb, long long v_ss, long long o_sb,
                      long long o_ss, int causal, int window, float softcap,
                      float scale) {
@@ -428,6 +433,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qpos[r] >= S) continue;
+    if (lse != nullptr && tq == 0)
+      lse[((long long)b * S + qpos[r]) * H + h] = m_row[r] + logf(fmaxf(l_row[r], 1e-30f));
     const float inv = 1.f / fmaxf(l_row[r], 1e-30f);
     T* orow = ob + qpos[r] * o_ss;
 #pragma unroll
@@ -439,7 +446,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int S,
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
                int T_, int H, int Kv, const long long* st, int causal, int window,
                float softcap, cudaStream_t stream) {
   constexpr size_t bytes = mma_smem_bytes<DH>();
@@ -453,13 +460,13 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   const float scale = 1.0f / sqrtf((float)DH);
   flash_fwd_mma_kernel<T, DH><<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, T_, H, H / Kv, st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<T*>(out), lse, S, T_, H, H / Kv, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
            int S, int T_, int H, int Kv, const long long* st, int causal,
            int window, float softcap, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DH>();
@@ -473,7 +480,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const float scale = 1.0f / sqrtf((float)DH);
   flash_fwd_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_, H, H / Kv,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_, H, H / Kv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], causal, window,
       softcap, scale);
   return (int)cudaGetLastError();
@@ -481,10 +488,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 template <typename T>
 int launch_dh(int Dh, const void* q, const void* k, const void* v, void* out,
-              int B, int S, int T_, int H, int Kv, const long long* st,
+              float* lse, int B, int S, int T_, int H, int Kv, const long long* st,
               int causal, int window, float softcap, cudaStream_t stream) {
 #define REPRO_FLASH(KIND, D) \
-  return KIND<T, D>(q, k, v, out, B, S, T_, H, Kv, st, causal, window, softcap, stream)
+  return KIND<T, D>(q, k, v, out, lse, B, S, T_, H, Kv, st, causal, window, softcap, stream)
   if constexpr (sizeof(T) == 2) {  // tensor cores up to Dh = 128
     switch (Dh) {
       case 16: REPRO_FLASH(launch_mma, 16);
@@ -508,13 +515,16 @@ int launch_dh(int Dh, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q (B, S, H, Dh), k/v (B, T, Kv, Dh), out (B, S, H, Dh); the head and
+// q (B, S, H, Dh), k/v (B, T, Kv, Dh), out (B, S, H, Dh); lse, when not
+// null, (B, S, H) float32 packed: each row's log-sum-exp of its scaled,
+// softcapped and masked scores, m + log(max(l, 1e-30)), as the
+// reference's flash custom VJP saves it for the backward.  The head and
 // feature strides are (Dh, 1); for 16-bit inputs every row is 16-byte
 // aligned.  strides = {q_b, q_s, k_b, k_s, v_b, v_s,
 // o_b, o_s} in elements.  dtype: 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError().
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int dtype, int B,
+    const void* q, const void* k, const void* v, void* out, void* lse, int dtype, int B,
     int S, int T_, int H, int Kv, int Dh, long long q_sb, long long q_ss,
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     long long o_sb, long long o_ss, int causal, int window, float softcap,
@@ -523,9 +533,9 @@ extern "C" int flash_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_dh<float>(Dh, q, k, v, out, B, S, T_, H, Kv, st, causal, window, softcap, s);
+      return launch_dh<float>(Dh, q, k, v, out, static_cast<float*>(lse), B, S, T_, H, Kv, st, causal, window, softcap, s);
     case 1:
-      return launch_dh<__nv_bfloat16>(Dh, q, k, v, out, B, S, T_, H, Kv, st, causal, window, softcap, s);
+      return launch_dh<__nv_bfloat16>(Dh, q, k, v, out, static_cast<float*>(lse), B, S, T_, H, Kv, st, causal, window, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

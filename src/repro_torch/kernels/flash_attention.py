@@ -6,8 +6,10 @@ Causal / sliding-window / softcapped GQA self-attention over positions
 ``repro/kernels/flash_attention.py:flash_attention_fwd`` (with its GQA
 fold ``flash_attention_gqa``).  The source's header says what bounds it
 and how it is laid out.  The plain version is
-``kernels.ref.flash_attention_ref``.  Forward only: the backward comes
-with the training slice as a ``torch.autograd.Function``.
+``kernels.ref.flash_attention_ref``.  Forward only: training wraps it
+in ``models.attention.FlashAttention`` (a ``torch.autograd.Function``
+whose backward is the reference's recompute backward in PyTorch ops),
+and asks it for each row's log-sum-exp, which that backward needs.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ def _lib():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                        L, L, L, L, L, L, L, L, I, I, ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
@@ -41,8 +43,10 @@ def flash_attention_fwd(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
-) -> torch.Tensor:
-    """Launch the CUDA kernel; out (B, S, H, Dh) in ``q``'s dtype.
+    return_lse: bool = False,
+):
+    """Launch the CUDA kernel; out (B, S, H, Dh) in ``q``'s dtype, and
+    with ``return_lse`` also each row's log-sum-exp (B, S, H) float32.
 
     Batch and sequence dimensions may be strided; heads and features
     must be packed.  bf16 runs on the tensor cores (Dh <= 128, rows
@@ -69,16 +73,19 @@ def flash_attention_fwd(
                          f"larger heads wait for an arch that has them "
                          f"(ROADMAP.md)")
     if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise ValueError("flash_attention_fwd is forward only; the "
-                         "backward kernel comes with the training slice")
+        raise ValueError("flash_attention_fwd is forward only; train "
+                         "through models.attention.FlashAttention")
     for t in (q, k, v):
         if t.stride(3) != 1 or t.stride(2) != Dh:
             raise ValueError("heads/features must be packed")
         if t.dtype == torch.bfloat16:  # the tensor-core kernel's vector loads
             _check_rows_aligned(t, (0, 1))
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         DTYPE_CODES[q.dtype], B, S, T, H, Kv, Dh,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
@@ -87,7 +94,7 @@ def flash_attention_fwd(
     )
     build.check(err, "flash_attention")
     flash_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: launches of the kernel since the count was last set to 0

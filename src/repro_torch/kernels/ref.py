@@ -44,11 +44,64 @@ def flash_attention_ref(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Causal/windowed/softcapped GQA self-attention over ``arange``
     positions — ``models.attention.attention`` with its dense/chunked
-    size dispatch, i.e. what the reference's prefill computes."""
+    size dispatch, i.e. what the reference's prefill computes.  With
+    ``return_lse`` also each row's log-sum-exp (B, S, H) float32 of its
+    scaled, softcapped and masked scores (mask value −1e30)."""
     q_pos = torch.arange(q.shape[1], device=q.device)
     k_pos = torch.arange(k.shape[1], device=q.device)
-    return attn_lib.attention(q, k, v, q_pos, k_pos, causal=causal,
-                              window=window, softcap=softcap)
+    out = attn_lib.attention(q, k, v, q_pos, k_pos, causal=causal,
+                             window=window, softcap=softcap)
+    if not return_lse:
+        return out
+    B, S, H, Dh = q.shape
+    Kv = k.shape[2]
+    qf = q.to(torch.float32).reshape(B, S, Kv, H // Kv, Dh)
+    s = torch.einsum("bskgd,btkd->bskgt", qf * attn_lib._scale(Dh),
+                     k.to(torch.float32))
+    s = attn_lib._softcap(s, softcap)
+    ok = attn_lib._allowed(q_pos, k_pos, causal, window)  # (S, T)
+    s = torch.where(ok[None, :, None, None], s, attn_lib.NEG_INF)
+    return out, torch.logsumexp(s, dim=-1).reshape(B, S, H)
+
+
+# ----------------------------------------------------------------------
+# coded combine: out (R, F) = C (R, K) @ G (K, F), dequantized
+# ----------------------------------------------------------------------
+def coded_combine_ref(coeff: torch.Tensor, grads: torch.Tensor
+                      ) -> torch.Tensor:
+    """out[r, f] = Σ_k coeff[r, k] · grads[k, f], float32: the encode
+    (eq. 22) and decode (eqs. 25/27) of the paper."""
+    return torch.einsum("rk,kf->rf", coeff.to(torch.float32),
+                        grads.to(torch.float32))
+
+
+def _dequant_combine(coeff, g, scales, block):
+    K, F = g.shape
+    g = g.reshape(K, F // block, block) * scales[:, :, None]
+    out = torch.einsum("rk,knb->rnb", coeff.to(torch.float32), g)
+    return out.reshape(coeff.shape[0], F)
+
+
+def coded_combine_q_ref(coeff, grads_q, scales, block: int):
+    """int8 payload (K, F) × one f32 scale per block, then ``C @ ·``."""
+    return _dequant_combine(coeff, grads_q.to(torch.float32), scales, block)
+
+
+def coded_combine_q4_ref(coeff, grads_q, scales, block: int):
+    """Packed int4 (K, F/2): value 2i in the low nibble of byte i,
+    sign-extended ``((p & 0xF) ^ 8) - 8``; then the q combine."""
+    K, F2 = grads_q.shape
+    p = grads_q.to(torch.int32) & 0xFF
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = (((p >> 4) & 0xF) ^ 8) - 8
+    g = torch.stack([lo, hi], dim=-1).reshape(K, 2 * F2)
+    return _dequant_combine(coeff, g.to(torch.float32), scales, block)
+
+
+def coded_combine_f8_ref(coeff, grads_q, scales, block: int):
+    """fp8-e4m3 payload (K, F), upcast exactly, × scale, then ``C @ ·``."""
+    return _dequant_combine(coeff, grads_q.to(torch.float32), scales, block)

@@ -1,0 +1,184 @@
+"""Train-step builders of the port.
+
+PyTorch counterpart of ``repro.launch.steps``:
+
+  * :func:`make_train_step` — the single-host step (mode ``off``):
+    microbatched gradient accumulation, global-norm clipping, the cosine
+    LR schedule and the optimizer update.  The HGC hook rides the batch:
+    per-example coded weights (coeff × λ) in ``batch["weights"]`` and the
+    fixed ``batch["denom"]`` make the gradient the decoded aggregate.
+  * :func:`_make_dist_train_step` — the coded step (modes ``coded``,
+    ``coded_int8``, ``coded_q``) on the one-card (pod, data) mesh: each
+    group's gradient of its own coeff-weighted loss IS its message G_ij
+    (eq. 22), decoded by the two-stage λ-weighted sum of
+    :mod:`repro_torch.dist.grad_sync` (eqs. 25/27), with the quantized +
+    error-feedback hop when ``tcfg.grad_compression`` is set.
+
+Steps update the params and the optimizer state in place and return
+them.  Tensor, sequence and pipeline parallelism and MoE are not ported
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch import _tree
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models import transformer as tf
+from repro_torch.optim import (
+    clip_by_global_norm_,
+    cosine_schedule,
+    global_norm,
+    make_optimizer,
+)
+
+PyTree = Any
+
+# per-arch optimizer defaults for the production configs (the reference's)
+ARCH_OPTIMIZER = {
+    "llama4-maverick-400b-a17b": "adafactor",
+    "gemma3-27b": "adafactor",
+}
+
+
+def default_optimizer_name(cfg: ModelConfig, tcfg: TrainConfig) -> str:
+    return ARCH_OPTIMIZER.get(cfg.name, tcfg.optimizer)
+
+
+def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
+    if tcfg.pp_stages > 1 or tcfg.microbatches or tcfg.seq_shard_activations:
+        raise NotImplementedError(
+            "pipeline and sequence parallelism are not ported to "
+            "repro_torch yet; see the dist regimes in ROADMAP.md")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE is not ported to repro_torch yet; see "
+            f"ROADMAP.md")
+
+
+def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """(gradient leaves in leaf order, metrics) of ``loss_and_metrics``."""
+    leaves = _tree.leaves(params)
+    with torch.enable_grad():
+        total, metrics = tf.loss_and_metrics(params, cfg, batch)
+        grads = torch.autograd.grad(total, leaves)
+    return list(grads), {k: v.detach() for k, v in metrics.items()}
+
+
+def _finish(params, opt_state, grads, optimizer, tcfg, lr_at, step,
+            metrics):
+    """Clip, schedule and apply the update in place; the shared tail of
+    both steps.  Returns the metrics."""
+    with torch.no_grad():
+        if tcfg.grad_clip > 0:
+            clip_by_global_norm_(grads, tcfg.grad_clip)
+        grad_norm = global_norm(grads)
+        lr = lr_at(step).to(grads[0].device)
+        optimizer.apply_(grads, opt_state, params, lr, tcfg.weight_decay)
+    metrics = dict(metrics)
+    metrics["lr"] = lr
+    metrics["grad_norm"] = grad_norm
+    return metrics
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    optimizer=None) -> Callable:
+    """``train_step(params, opt_state, batch, step) → (params, opt_state,
+    metrics)``; params and state are updated in place."""
+    _check_supported(cfg, tcfg)
+    if optimizer is None:
+        optimizer = make_optimizer(default_optimizer_name(cfg, tcfg))
+    lr_at = cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+
+    def grads_of(params, batch):
+        if not (tcfg.microbatch and tcfg.microbatch > 0):
+            grads, m = _grads(params, cfg, batch)
+            return grads, {"loss": m["loss"]}
+        B = batch["tokens"].shape[0]
+        mb = min(tcfg.microbatch, B)
+        n_micro = max(B // mb, 1)
+        if n_micro * mb != B:
+            raise ValueError(f"batch of {B} rows does not split into "
+                             f"microbatches of {mb}")
+        acc, lsum = None, None
+        for i in range(n_micro):
+            micro = {k: (v[i * mb:(i + 1) * mb]
+                         if v.ndim and v.shape[0] == B else v)
+                     for k, v in batch.items()}
+            g, m = _grads(params, cfg, micro)
+            if acc is None:
+                acc = [x.to(torch.float32) for x in g]
+                lsum = m["loss"]
+            else:
+                for a, x in zip(acc, g):
+                    a.add_(x)
+                lsum = lsum + m["loss"]
+        if "denom" in batch:
+            # fixed-denominator (coded) loss: microbatch losses SUM to
+            # the full-batch loss — no /n_micro
+            return acc, {"loss": lsum}
+        return [a / n_micro for a in acc], {"loss": lsum / n_micro}
+
+    def train_step(params, opt_state, batch, step):
+        grads, metrics = grads_of(params, batch)
+        metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
+                          step, metrics)
+        return params, opt_state, metrics
+
+    train_step.optimizer = optimizer
+    return train_step
+
+
+def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                          optimizer=None) -> Callable:
+    """The coded step on ``mesh`` (:class:`repro_torch.dist.mesh.OneCardMesh`).
+
+    Returns ``train_step(params, opt_state, batch, lam, residual, step)
+    → (params, opt_state, residual, metrics)``.  Group (i, j) takes its
+    rows of the batch — the examples of worker (i, j)'s assigned parts,
+    weighted by the coding coefficients only — and its gradient is its
+    message G_ij (eq. 22).  ``lam`` is the (pods, data) λ array, a
+    runtime operand: drops and replans change only its values.  With
+    ``tcfg.grad_compression`` set, ``residual`` is the list of per-pod EF
+    residual leaves ``(n_pods, *leaf.shape)``, updated in place; pass an
+    empty list otherwise.  The decoded loss is Σ_ij λ_ij L_ij.
+    """
+    from repro_torch.dist import grad_sync
+
+    _check_supported(cfg, tcfg)
+    if optimizer is None:
+        optimizer = make_optimizer(default_optimizer_name(cfg, tcfg))
+    lr_at = cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+    compressed = tcfg.grad_compression != "none"
+    if compressed:
+        from repro_torch.dist import compression
+
+        if tcfg.grad_compression not in compression.COMPRESSION_MODES:
+            raise ValueError(
+                f"grad_compression={tcfg.grad_compression!r} not in "
+                f"{('none',) + compression.COMPRESSION_MODES}")
+
+    def train_step(params, opt_state, batch, lam, residual, step):
+        B = batch["tokens"].shape[0]
+
+        def group_fn(pod, data):
+            rows = mesh.group_rows(pod, data, B)
+            local = {k: (v[rows] if v.ndim else v) for k, v in batch.items()}
+            grads, m = _grads(params, cfg, local)
+            return grads, m["loss"]
+
+        if compressed:
+            grads, loss = grad_sync.compressed_coded_psum(
+                mesh, group_fn, lam, residual,
+                block=tcfg.grad_compression_block,
+                mode=tcfg.grad_compression)
+        else:
+            grads, loss = grad_sync.coded_weighted_psum(mesh, group_fn, lam)
+        metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
+                          step, {"loss": loss})
+        return params, opt_state, residual, metrics
+
+    train_step.optimizer = optimizer
+    return train_step

@@ -1,0 +1,145 @@
+"""Coded training CLI of the port.
+
+PyTorch counterpart of ``repro.launch.train``, with the same flags plus
+``--device``: flags → ``CodedCluster`` + planner + ``CodedSession`` →
+``fit()``.  The ``--dist`` modes are the session's:
+
+  * ``off`` — single-host reference loop (λ in the batch weights),
+  * ``coded`` — the (pod, data) mesh on one card, two-stage coded decode
+    (eqs. 25/27), λ a runtime operand,
+  * ``coded_int8`` / ``coded_q`` — same, with the quantized + error-
+    feedback edge→master hop (``--grad-compression int8|int4|fp8``),
+    decoded by the fused dequant combine kernels.
+
+Runs on the card unless ``--device cpu`` is given.  Not ported yet (the
+flags raise, naming ROADMAP.md): ``--tp``/``--model-shards`` > 1,
+``--seq-shard``, ``--pp``, ``--microbatches``, ``--checkpoint-dir`` and
+``--resume``.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 4 --seq-len 16 --dist coded_q --grad-compression int4
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
+from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b", choices=list(ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--part-batch", type=int, default=1,
+                    help="examples per dataset part per iteration")
+    ap.add_argument("--scheme", default="hgc_jncss",
+                    choices=["hgc", "hgc_jncss", "uncoded",
+                             "hgc_grouped", "hgc_comm"],
+                    help="planning strategy (docs/planners.md)")
+    ap.add_argument("--s-e", type=int, default=1)
+    ap.add_argument("--s-w", type=int, default=1)
+    ap.add_argument("--n-edges", type=int, default=2)
+    ap.add_argument("--n-workers", type=int, default=4)
+    ap.add_argument("--cluster", default="homogeneous",
+                    choices=["homogeneous", "hetero"],
+                    help="simulated cluster model (hetero: one slow edge)")
+    ap.add_argument("--K", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--dist", default="off",
+                    choices=["off", "coded", "coded_int8", "coded_q"],
+                    help="aggregation mode: single-host reference, coded "
+                         "decode on the one-card (pod, data) mesh, or "
+                         "coded with the quantized + EF cross-pod hop")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="'model' mesh axis size (not ported: 1 only)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel degree (not ported: 0 or 1)")
+    ap.add_argument("--seq-shard", dest="seq_shard", action="store_const",
+                    const=True, default=None,
+                    help="sequence parallelism (not ported)")
+    ap.add_argument("--no-seq-shard", dest="seq_shard",
+                    action="store_const", const=False)
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (not ported: 1 only)")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="pipeline microbatches (not ported)")
+    ap.add_argument("--grad-block", type=int, default=64,
+                    help="quantization block on the edge→master hop")
+    ap.add_argument("--grad-compression", default="",
+                    choices=["", "int8", "int4", "fp8"],
+                    help="cross-pod codec for --dist coded_q (default "
+                         "int8)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="checkpoints (not ported)")
+    ap.add_argument("--checkpoint-every", type=int, default=25,
+                    help="checkpoint period (not ported)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume (not ported)")
+    ap.add_argument("--stop-after", type=int, default=0,
+                    help="exit cleanly after N steps without touching the "
+                         "LR schedule")
+    ap.add_argument("--replan-every", type=int, default=0,
+                    help="re-run the planner from observed delays every N "
+                         "steps")
+    ap.add_argument("--force-drop-edge", type=int, default=-1,
+                    help="force this edge to straggle at --force-drop-step")
+    ap.add_argument("--force-drop-step", type=int, default=-1)
+    ap.add_argument("--metrics-out", default="",
+                    help="write per-step losses as JSON")
+    ap.add_argument("--expect-zero-recompile", action="store_true",
+                    help="the port's step is eager: warns that there is "
+                         "nothing to count")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    tp = args.tp or args.model_shards
+    if args.dist == "off" and tp > 1:
+        raise SystemExit("--tp requires a --dist mode")
+    if args.dist == "off" and args.pp > 1:
+        raise SystemExit("--pp requires a --dist mode")
+    ctor = CodedCluster.hetero if args.cluster == "hetero" \
+        else CodedCluster.homogeneous
+    try:
+        session = CodedSession(
+            ctor(args.n_edges, args.n_workers), cfg,
+            planner=planner_for_scheme(args.scheme, args.s_e, args.s_w),
+            mode=args.dist, tp=tp, seq_shard=args.seq_shard, pp=args.pp,
+            microbatches=args.microbatches, seq_len=args.seq_len,
+            part_batch=args.part_batch, K=args.K, optimizer=args.optimizer,
+            lr=args.lr, total_steps=args.steps, grad_block=args.grad_block,
+            grad_compression=args.grad_compression, seed=args.seed,
+            scheme=args.scheme, checkpoint_dir=args.checkpoint_dir,
+            resume=args.resume, log_every=args.log_every,
+            device=args.device,
+        )
+    except ValueError as e:
+        raise SystemExit(f"[train] {e}")
+    report = session.fit(
+        args.steps, replan_every=args.replan_every,
+        force_drop_edge=args.force_drop_edge,
+        force_drop_step=args.force_drop_step, stop_after=args.stop_after,
+    )
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(report, f, indent=1)
+    if args.expect_zero_recompile and report["jit_cache_entries"] == -1:
+        # the reference's own "cannot tell" branch
+        print("[train] WARNING: jit cache size unavailable (the port's "
+              "step is eager); zero-recompile check skipped",
+              file=sys.stderr)
+    return session.params
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,9 @@ conventions and the same function names:
 All softmax math runs in float32 regardless of input dtype.  These are
 the plain versions: the serving path reaches the hand-written kernels
 through ``repro_torch.kernels.ops``, which falls to these functions only
-for tensors that lie on the CPU.
+for tensors that lie on the CPU.  Training attends through
+:class:`FlashAttention`, whose forward is the flash kernel and whose
+backward is the reference's recompute backward in PyTorch ops.
 """
 from __future__ import annotations
 
@@ -222,6 +224,84 @@ def attention(
         causal=causal, window=window, softcap=softcap, kv_chunk=kv_chunk,
         q_chunk=q_chunk if S >= q_chunk_threshold else 0,
     )
+
+
+# ----------------------------------------------------------------------
+# flash attention with the reference's recompute backward (training)
+# ----------------------------------------------------------------------
+def _flash_bwd(q, k, v, out, lse, do, causal: bool, window: int,
+               softcap: float, kv_chunk: int):
+    """Recompute backward of ``repro.models.attention._flash_vjp_bwd``
+    (``_flash_bwd_scan``): per kv chunk, p = exp(s − lse) from the saved
+    log-sum-exp; dK/dV summed over each GQA group, softcap's
+    ``1 − tanh²`` factor, masked entries (−1e30) contributing nothing."""
+    B, S, H, Dh = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    chunk = min(kv_chunk, T)
+    scale = _scale(Dh)
+    qf = (q.to(torch.float32) * scale).reshape(B, S, Kv, G, Dh)
+    dof = do.to(torch.float32).reshape(B, S, Kv, G, Dh)
+    delta = (dof * out.to(torch.float32).reshape(B, S, Kv, G, Dh)).sum(-1)
+    lse_t = lse.reshape(B, S, Kv, G).permute(0, 2, 3, 1)[..., None]
+    do_t = dof.permute(0, 2, 3, 1, 4)  # (B, Kv, G, S, Dh)
+    delta_t = delta.permute(0, 2, 3, 1)[..., None]  # (B, Kv, G, S, 1)
+    q_pos = torch.arange(S, device=q.device)
+    dq = torch.zeros((B, S, Kv, G, Dh), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, T, Kv, Dh), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for start in range(0, T, chunk):
+        kc = k[:, start:start + chunk].to(torch.float32)
+        vc = v[:, start:start + chunk].to(torch.float32)
+        kp = torch.arange(start, start + kc.shape[1], device=q.device)
+        s_raw = torch.einsum("bskgd,btkd->bkgst", qf, kc)
+        mask = _allowed(q_pos, kp, causal, window)[None, None, None]
+        s = torch.where(mask, _softcap(s_raw, softcap), NEG_INF)
+        p = torch.exp(s - lse_t)  # (B, Kv, G, S, t)
+        dv[:, start:start + chunk] = torch.einsum("bkgst,bkgsd->btkd", p,
+                                                  do_t)
+        dp = torch.einsum("bkgsd,btkd->bkgst", do_t, vc)
+        ds = p * (dp - delta_t)
+        if softcap and softcap > 0:
+            th = torch.tanh(s_raw / softcap)
+            ds = ds * (1.0 - th * th)
+        ds = torch.where(mask, ds, 0.0)
+        dq += torch.einsum("bkgst,btkd->bskgd", ds, kc)
+        dk[:, start:start + chunk] = torch.einsum("bkgst,bskgd->btkd", ds,
+                                                  qf)
+    dq = (dq * scale).reshape(B, S, H, Dh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Self-attention over positions ``0..S-1`` × ``0..T-1`` that saves
+    only (out, log-sum-exp) for its backward, as the reference's flash
+    custom VJP does.  Forward: ``kernels.ops.flash_attention`` (the CUDA
+    kernel on the card, its plain version on the CPU); backward:
+    :func:`_flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, kv_chunk):
+        from repro_torch.kernels import ops  # ops' plain versions import this module
+
+        out, lse = ops.flash_attention(q.detach(), k.detach(), v.detach(),
+                                       causal=causal, window=window,
+                                       softcap=softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, softcap, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, kv_chunk: int = 1024):
+    """Memory-O(S) attention with the recompute backward (GQA-aware)."""
+    return FlashAttention.apply(q, k, v, causal, window, softcap, kv_chunk)
 
 
 # ----------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Dense attention-only transformer of the port (serving subset).
+"""Dense attention-only transformer of the port (serving and training).
 
 PyTorch counterpart of ``repro.models.transformer`` for decoders whose
 layers are all "global"/"local" attention with a dense MLP (llama3):
@@ -10,7 +10,14 @@ layers are all "global"/"local" attention with a dense MLP (llama3):
   * self-attention goes through ``kernels.ops``: the prefill through the
     flash-attention kernel, each decode step through the decode-
     attention kernel (plain versions for CPU tensors),
-  * the decode cache is updated in place (see ``decode_step``).
+  * the decode cache is updated in place (see ``decode_step``),
+  * training differentiates ``loss_and_metrics`` with autograd: the
+    params are float32 leaves, ``cast_params`` makes the working copy
+    inside the graph (so gradients come back float32), self-attention
+    goes through ``models.attention.FlashAttention`` (the flash kernel
+    forward, the reference's recompute backward) and each layer is
+    rematerialized with ``torch.utils.checkpoint``, as ``_remat_wrap``
+    does with ``jax.checkpoint``.
 
 Kinds the slice does not cover (ssm, recurrent, MoE, encoder–decoder,
 M-RoPE) raise ``NotImplementedError``; ROADMAP.md queues them.
@@ -21,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -28,6 +36,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 
 PyTree = Any
+
+AUX_WEIGHT = 0.01  # MoE load-balancing weight (the reference's; dense: aux = 0)
 
 
 def _torch_dtype(name) -> torch.dtype:
@@ -87,6 +97,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     that copy too (32 GB for llama3-8b): every tensor of two or more
     dimensions (the matrices and the layer-stacked norm scales) in
     ``dtype`` (default ``cfg.dtype``), the final norm scale in float32.
+    Training passes ``dtype=torch.float32``: the f32 master copy.
     ``generator`` must live on ``device``; None seeds one with 0.
     """
     _check_supported(cfg)
@@ -170,8 +181,12 @@ def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     k = attn_lib.rotate(_split_heads(x @ p["wk"], Kv, Dh), *rope)
     v = _split_heads(x @ p["wv"], Kv, Dh)
     window = cfg.window if kind == "local" else 0
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              softcap=cfg.logit_softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        out = attn_lib.flash_attention(q, k, v, True, window,
+                                       cfg.logit_softcap, cfg.attn_chunk)
+    else:
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=cfg.logit_softcap)
     return out.reshape(B, S, H * Dh) @ p["wo"], (k, v)
 
 
@@ -180,6 +195,12 @@ def _mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+
+
+def _layer_out(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
+               rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """One layer's output without its cache entry (the training body)."""
+    return _layer_apply(p, x, kind, cfg, rope)[0]
 
 
 def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
@@ -221,6 +242,24 @@ def _embed(params, cfg, tokens):
     return table[tokens]
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``x2 @ w`` of 16-bit operands accumulated and returned in f32 (the
+    reference's ``preferred_element_type=f32`` dot).  The backward takes
+    the f32 cotangent down to the operands' dtype, as that dot's
+    transpose returns cotangents in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ w.T, x2.T @ g
+
+
 def _matmul_f32(x, w, cfg):
     """The vocab matmul accumulated and returned in f32 without an f32
     copy of the weights."""
@@ -229,7 +268,7 @@ def _matmul_f32(x, w, cfg):
         return x @ w
     if w.is_cuda:
         x2 = x.reshape(-1, x.shape[-1])
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        out = _MatmulF32.apply(x2, w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
 
@@ -253,6 +292,40 @@ def _layers(params, cfg):
                ("rest", f"r{k}"), None)
 
 
+def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor], return_cache: bool
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Embedding and the layer stack on cast params → (x, cache); each
+    layer rematerialized under autograd (``cfg.remat``)."""
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    rope = _rope(cfg, positions)
+    n_groups = cfg.n_layers // len(cfg.block_pattern)
+    KvDh = cfg.n_kv_heads * cfg.head_dim
+    cache: Dict[str, Dict] = {"groups": {}, "rest": {}}
+    if return_cache:
+        for k in range(len(cfg.block_pattern)):
+            cache["groups"][f"p{k}"] = {
+                n: torch.empty((n_groups, B, S, KvDh), dtype=x.dtype,
+                               device=x.device) for n in ("k", "v")}
+    remat = cfg.remat and torch.is_grad_enabled() and not return_cache
+    for lp, kind, (part, key), l in _layers(params, cfg):
+        if remat:
+            x = checkpoint(_layer_out, lp, x, kind, cfg, rope,
+                           use_reentrant=False)
+            continue
+        x, entry = _layer_apply(lp, x, kind, cfg, rope)
+        if return_cache:
+            if l is None:
+                cache[part][key] = entry
+            else:
+                cache[part][key]["k"][l] = entry["k"]
+                cache[part][key]["v"][l] = entry["v"]
+    return x, cache
+
+
 def forward(
     params: PyTree,
     cfg: ModelConfig,
@@ -268,31 +341,60 @@ def forward(
     """
     _check_supported(cfg)
     params = cast_params(params, cfg)
-    B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
-    if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
-    rope = _rope(cfg, positions)
-    n_groups = cfg.n_layers // len(cfg.block_pattern)
-    KvDh = cfg.n_kv_heads * cfg.head_dim
-    cache: Dict[str, Dict] = {"groups": {}, "rest": {}}
-    if return_cache:
-        for k in range(len(cfg.block_pattern)):
-            cache["groups"][f"p{k}"] = {
-                n: torch.empty((n_groups, B, S, KvDh), dtype=x.dtype,
-                               device=x.device) for n in ("k", "v")}
-    for lp, kind, (part, key), l in _layers(params, cfg):
-        x, entry = _layer_apply(lp, x, kind, cfg, rope)
-        if return_cache:
-            if l is None:
-                cache[part][key] = entry
-            else:
-                cache[part][key]["k"][l] = entry["k"]
-                cache[part][key]["v"][l] = entry["v"]
+    x, cache = _hidden(params, cfg, tokens, positions, return_cache)
     if last_only:
         x = x[:, -1:]
     logits = _unembed(params, cfg, x)
     return (logits, cache) if return_cache else logits
+
+
+# ----------------------------------------------------------------------
+# training loss
+# ----------------------------------------------------------------------
+def _ce_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood (B, S)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return lse - ll
+
+
+def head_loss_terms(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                    targets: torch.Tensor, weights: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unembed + weighted CE on the layer stack's output; ``params`` must
+    already be cast.  Returns the un-normalized ``(Σ nll·w, Σ w, aux)``
+    so the caller picks the denominator (dense: aux = 0; the port has no
+    rest layers after the stack)."""
+    logits = _unembed(params, cfg, x)
+    nll = _ce_nll(logits, targets)
+    w = weights if weights is not None else torch.ones_like(nll)
+    return (nll * w).sum(), w.sum(), torch.zeros((), device=x.device)
+
+
+def loss_and_metrics(params: PyTree, cfg: ModelConfig,
+                     batch: Dict[str, torch.Tensor],
+                     aux_weight: float = AUX_WEIGHT
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weighted token cross-entropy → ``(total, metrics)``.
+
+    ``batch["weights"]`` (B, S) carries padding masks AND the HGC coding
+    coefficients: the gradient of this loss IS the worker's encoded
+    message ``G_ij``.  ``batch["denom"]``, when given, is the fixed
+    normalizer that keeps the loss linear in the weights, which exact
+    coded aggregation needs; otherwise the weights' sum (at least 1).
+    """
+    _check_supported(cfg)
+    params = cast_params(params, cfg)
+    x, _ = _hidden(params, cfg, batch["tokens"], batch.get("positions"),
+                   return_cache=False)
+    nll_sum, w_sum, aux = head_loss_terms(params, cfg, x, batch["targets"],
+                                          batch.get("weights"))
+    denom = batch.get("denom")
+    if denom is None:
+        denom = torch.clamp(w_sum, min=1.0)
+    loss = nll_sum / denom
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux_loss": aux, "weight_sum": w_sum}
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,217 @@
+"""The reference's optimizers on nested dicts of tensors.
+
+PyTorch counterpart of ``repro.optim.optimizers``: plain tensor ops on
+the param tree (not ``torch.optim``), so each update is the reference's
+arithmetic.  ``Optimizer`` is three functions:
+
+    init(params)                          → state tree
+    update(grads, state, params, lr, wd)  → (updates, new_state)
+    apply_(grads, state, params, lr, wd)  → new_state
+
+``update`` is the reference's API (updates applied as ``p + u``).
+``apply_`` runs the same per-leaf arithmetic one leaf at a time, adds
+each update into its parameter in place, copies the leaf's new state
+into the old state's tensors and drops the leaf's gradient, so a step
+never holds a second copy of the params or the state: what lets the
+full-width model train on one card.  Its ``grads`` is a list in
+:func:`repro_torch._tree.leaves` order, emptied as it goes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from repro_torch import _tree
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    name: str
+    init: Callable[[PyTree], PyTree]
+    update: Callable[..., Tuple[PyTree, PyTree]]
+    apply_: Callable[..., PyTree]
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in _tree.leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return _tree.map(lambda g: g * scale.to(g.dtype), grads)
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
+                         ) -> List[torch.Tensor]:
+    """:func:`clip_by_global_norm` in place on a list of leaves (the same
+    arithmetic, no second copy of the gradient)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+    return grads
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int):
+    """``lr_at(step)`` → 0-dim float32 tensor, as the reference's f32
+    schedule."""
+
+    def lr_at(step):
+        step = torch.as_tensor(step, dtype=torch.float32)
+        warm = base_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * 0.5 * (1.0 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, cos)
+
+    return lr_at
+
+
+# ----------------------------------------------------------------------
+def _optimizer(name: str, slots: Tuple[str, ...], init_leaf, leaf,
+               counted: bool) -> Optimizer:
+    """An optimizer from its per-leaf rule.
+
+    ``init_leaf(p)`` → the leaf's state, a dict over ``slots``;
+    ``leaf(g, p, st, lr, wd, t)`` → ``(update, new_st)``.  The state tree
+    is ``{slot: tree of that slot}`` (+ ``"t"``, an int32 step count,
+    when ``counted``), laid out as the reference's.
+    """
+
+    def init(params):
+        per = [init_leaf(p) for p in _tree.leaves(params)]
+        state: Dict[str, Any] = {
+            s: _tree.unflatten_like(params, [d[s] for d in per])
+            for s in slots}
+        if counted:
+            dev = _tree.leaves(params)[0].device
+            state["t"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return state
+
+    def _per_leaf(state, params):
+        """``(param leaves, each leaf's state dict, the next t)``."""
+        flat_p = _tree.leaves(params)
+        per = [_tree.leaves_like(state[s], params) for s in slots]
+        sts = [{s: per[j][i] for j, s in enumerate(slots)}
+               for i in range(len(flat_p))]
+        return flat_p, sts, (state["t"] + 1 if counted else None)
+
+    def update(grads, state, params, lr, weight_decay=0.0):
+        flat_p, sts, t = _per_leaf(state, params)
+        outs = [leaf(g, p, st, lr, weight_decay, t)
+                for g, p, st in zip(_tree.leaves(grads), flat_p, sts)]
+        new_state = {s: _tree.unflatten_like(params, [n[s] for _, n in outs])
+                     for s in slots}
+        if counted:
+            new_state["t"] = t
+        return _tree.unflatten_like(params, [u for u, _ in outs]), new_state
+
+    def apply_(grads: List, state, params, lr, weight_decay=0.0):
+        flat_p, sts, t = _per_leaf(state, params)
+        for i, (p, st) in enumerate(zip(flat_p, sts)):
+            u, nst = leaf(grads[i], p, st, lr, weight_decay, t)
+            # the new state goes into the old tensors, so old and new are
+            # never both held beyond one leaf
+            grads[i] = None
+            with torch.no_grad():
+                p.add_(u)
+                _tree.map(lambda old, new: old.copy_(new), st, nst)
+        if counted:
+            state["t"] = t
+        return state
+
+    return Optimizer(name, init, update, apply_)
+
+
+def _f32(x):
+    return x.to(torch.float32)
+
+
+def sgd() -> Optimizer:
+    def leaf(g, p, st, lr, wd, t):
+        return -(lr * (_f32(g) + wd * _f32(p))).to(p.dtype), {}
+
+    return _optimizer("sgd", (), lambda p: {}, leaf, counted=False)
+
+
+def momentum(beta: float = 0.9) -> Optimizer:
+    def init_leaf(p):
+        return {"m": torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device)}
+
+    def leaf(g, p, st, lr, wd, t):
+        m = beta * st["m"] + _f32(g)
+        return -(lr * (m + wd * _f32(p))).to(p.dtype), {"m": m}
+
+    return _optimizer("momentum", ("m",), init_leaf, leaf, counted=False)
+
+
+def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+    def init_leaf(p):
+        z = lambda: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"m": z(), "v": z()}
+
+    def leaf(g, p, st, lr, wd, t):
+        g = _f32(g)
+        m = b1 * st["m"] + (1 - b1) * g
+        v = b2 * st["v"] + (1 - b2) * torch.square(g)
+        tf = t.to(torch.float32)
+        c1 = 1.0 - torch.pow(b1, tf)
+        c2 = 1.0 - torch.pow(b2, tf)
+        step = (m / c1) / (torch.sqrt(v / c2) + eps)
+        step = step + wd * _f32(p)
+        return -(lr * step).to(p.dtype), {"m": m, "v": v}
+
+    return _optimizer("adamw", ("m", "v"), init_leaf, leaf, counted=True)
+
+
+def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0) -> Optimizer:
+    """Factored second moments (Shazeer & Stern), β1 = 0: matrices keep
+    one row and one column accumulator over their trailing two dims."""
+
+    def init_leaf(p):
+        kw = dict(dtype=torch.float32, device=p.device)
+        if p.ndim >= 2:
+            return {"acc": {"vr": torch.zeros(p.shape[:-1], **kw),
+                            "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                              **kw)}}
+        return {"acc": {"v": torch.zeros(p.shape, **kw)}}
+
+    def leaf(g, p, st, lr, wd, t):
+        beta2 = 1.0 - torch.pow(t.to(torch.float32), -0.8)
+        acc = st["acc"]
+        gf = _f32(g)
+        g2 = torch.square(gf) + eps
+        if p.ndim >= 2:
+            vr = beta2 * acc["vr"] + (1 - beta2) * g2.mean(-1)
+            vc = beta2 * acc["vc"] + (1 - beta2) * g2.mean(-2)
+            denom = torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+            vhat = (vr[..., None] / denom[..., None]) * vc[..., None, :]
+            step = gf / torch.sqrt(vhat + eps)
+            new_acc = {"vr": vr, "vc": vc}
+        else:
+            v = beta2 * acc["v"] + (1 - beta2) * g2
+            step = gf / torch.sqrt(v + eps)
+            new_acc = {"v": v}
+        rms = torch.sqrt(torch.mean(torch.square(step)) + eps)
+        step = step / torch.clamp(rms / clip_thresh, min=1.0)
+        step = step + wd * _f32(p)
+        return (-(lr * step)).to(p.dtype), {"acc": new_acc}
+
+    return _optimizer("adafactor", ("acc",), init_leaf, leaf, counted=True)
+
+
+def make_optimizer(name: str, **kw) -> Optimizer:
+    return {
+        "sgd": sgd,
+        "momentum": momentum,
+        "adamw": adamw,
+        "adafactor": adafactor,
+    }[name](**kw)

@@ -4,14 +4,18 @@ Marked ``cuda``: without a CUDA device every test here skips (the check
 runs inside a fixture, so every pytest worker collects the same tests).
 On the card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_kernels_cuda.py``.  Tolerances: 1e-4 in float32 (only
-the summation order differs), 2e-2 in bfloat16 (one output rounding).
+the summation order differs), 2e-2 in bfloat16 (one output rounding);
+the coded-combine kernels 1e-5 of each output row's max |plain|.
 """
 import dataclasses
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch._tree import leaves as ops_leaves
+from repro_torch.dist import compression
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -101,8 +105,18 @@ def test_ops_dispatch_by_device_and_counts():
     ops.flash_attention(q.cpu(), k.cpu(), k.cpu())
     ops.decode_attention(q[:, :1], k, k, 5)
     ops.decode_attention(q[:, :1].cpu(), k.cpu(), k.cpu(), 5)
-    assert ops.launch_counts() == {"decode_attention": 1,
-                                   "flash_attention": 1}
+    c, g = torch.randn(1, 2, device="cuda"), torch.randn(2, 128,
+                                                        device="cuda")
+    ops.combine(c, g)
+    ops.combine(c.cpu(), g.cpu())
+    for mode in ("int8", "int4", "fp8"):
+        q8, s8, _ = compression.quantize(g[0], block=64, mode=mode)
+        qs, ss = torch.stack([q8, q8]), torch.stack([s8, s8])
+        ops.combine_compressed(mode, c, qs, ss, block=64)
+        ops.combine_compressed(mode, c.cpu(), qs.cpu(), ss.cpu(), block=64)
+    assert ops.launch_counts() == {
+        "decode_attention": 1, "flash_attention": 1, "coded_combine": 1,
+        "coded_combine_q": 1, "coded_combine_q4": 1, "coded_combine_f8": 1}
 
 
 def _to_cuda(tree):
@@ -134,3 +148,145 @@ def test_decode_step_launches_once_per_layer_and_matches_cpu():
             lg, cg = tf.decode_step(gpu, cfg, tok.cuda(), cg)
             torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     assert ops.launch_counts()["decode_attention"] == 6 * cfg.n_layers
+
+
+def _combine_case(gen, kind, R, K, F, block):
+    """(coeff, payload, scales) on the card, the payload as the codec
+    lays it out (F values per row; int4 packs two per byte)."""
+    c = torch.randn(R, K, generator=gen, device="cuda")
+    if kind == "f32":
+        return c, torch.randn(K, F, generator=gen, device="cuda"), None
+    scales = torch.rand(K, F // block, generator=gen, device="cuda") + 0.1
+    if kind == "int8":
+        q = torch.randint(-127, 128, (K, F), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    elif kind == "int4":
+        q = torch.randint(-128, 128, (K, F // 2), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    else:
+        q = (torch.randn(K, F, generator=gen, device="cuda") * 100).clamp(
+            -448, 448).to(torch.float8_e4m3fn)  # e4m3 has no inf
+    return c, q, scales
+
+
+_KERNEL = {"f32": "coded_combine", "int8": "coded_combine_q",
+           "int4": "coded_combine_q4", "fp8": "coded_combine_f8"}
+_PLAIN = {"f32": "coded_combine_ref", "int8": "coded_combine_q_ref",
+          "int4": "coded_combine_q4_ref", "fp8": "coded_combine_f8_ref"}
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8", "int4", "fp8"])
+def test_coded_combine_kernels_match_plain(kind):
+    from repro_torch.kernels import coded_combine as cc
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    kernel = getattr(cc, _KERNEL[kind])
+    plain = getattr(ref, _PLAIN[kind])
+    # F = 4162 with block 2: unaligned rows (scalar path), one scale per
+    # value; F = 64: shorter than one block of threads
+    grid = itertools.product([1, 8, 13], [2, 8, 64],
+                             [(64, 64), (4160, 64), (4224, 128),
+                              (4096, 256), (4162, 2), (2 ** 16 + 64, 64)])
+    for R, K, (F, block) in grid:
+        c, q, s = _combine_case(gen, kind, R, K, F, block)
+        before = kernel.launches
+        got = kernel(c, q) if kind == "f32" else kernel(c, q, s, block=block)
+        assert kernel.launches == before + 1
+        want = plain(c, q) if kind == "f32" else plain(c, q, s, block)
+        assert got.shape == want.shape == (R, F)
+        row_max = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        worst = ((got - want).abs() / row_max).max().item()
+        assert worst <= 1e-5, (kind, R, K, F, block, worst)
+
+
+def test_coded_combine_wrappers_reject_what_the_kernel_does_not_take():
+    from repro_torch.kernels import coded_combine as cc
+
+    c = torch.ones(1, 2, device="cuda")
+    with pytest.raises(ValueError, match="block"):
+        cc.coded_combine_q(c, torch.zeros(2, 100, dtype=torch.int8,
+                                          device="cuda"),
+                           torch.ones(2, 1, device="cuda"), block=64)
+    with pytest.raises(ValueError, match="payload must be"):
+        cc.coded_combine_q(c, torch.zeros(2, 64, device="cuda"),
+                           torch.ones(2, 1, device="cuda"), block=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        cc.coded_combine(c.cpu(), torch.zeros(2, 8))
+
+
+def test_flash_lse_and_training_backward_match_cpu():
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for S, window, softcap in ((64, 0, 0.0), (100, 16, 30.0)):
+        q = _randn(gen, 2, S, 8, 32, dtype=torch.float32)
+        k = _randn(gen, 2, S, 2, 32, dtype=torch.float32)
+        v = _randn(gen, 2, S, 2, 32, dtype=torch.float32)
+        do = _randn(gen, 2, S, 8, 32, dtype=torch.float32)
+        out, lse = flash_attention_fwd(q, k, v, window=window,
+                                       softcap=softcap, return_lse=True)
+        want, want_lse = ref.flash_attention_ref(q, k, v, window=window,
+                                                 softcap=softcap,
+                                                 return_lse=True)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+        grads = []
+        for dev in ("cuda", "cpu"):
+            leaves = [t.detach().to(dev).requires_grad_(True)
+                      for t in (q, k, v)]
+            attn.flash_attention(*leaves, True, window, softcap,
+                                 32).backward(do.to(dev))
+            grads.append([t.grad.cpu() for t in leaves])
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _params_off(card, cpu, init):
+    """Values of the trained params where the card's run and the CPU's
+    differ by more than 1e-4 of the leaf's largest change since ``init``
+    plus two float32 spacings of the value: ``(count, of all)``."""
+    off = total = 0
+    for key, want in cpu.items():
+        tol = (1e-4 * np.abs(want - init[key]).max()
+               + 2 * np.spacing(np.abs(want)))
+        off += int((np.abs(card[key] - want) > tol).sum())
+        total += want.size
+    return off, total
+
+
+def test_coded_q_session_on_the_card_matches_cpu_and_counts_launches():
+    from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
+    from repro_torch.checkpoint.params import params_to_numpy
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              dtype="float32")
+    init = params_to_numpy(tf.init_params(cfg, device="cpu",
+                                          dtype=torch.float32))
+    for codec, name in (("int8", "coded_combine_q"),
+                        ("int4", "coded_combine_q4"),
+                        ("fp8", "coded_combine_f8")):
+        losses, trained = {}, {}
+        for dev in ("cpu", "cuda"):
+            s = CodedSession(CodedCluster.homogeneous(2, 4), cfg,
+                             planner=planner_for_scheme("hgc", 1, 1),
+                             mode="coded_q", grad_compression=codec,
+                             seq_len=16, optimizer="sgd", lr=0.05,
+                             total_steps=3, verbose=False, params=init,
+                             device=dev)
+            ops.reset_launch_counts()
+            losses[dev] = s.fit(3)["losses"]
+            trained[dev] = params_to_numpy(s.params)
+            if dev == "cuda":
+                counts = ops.launch_counts()
+                assert counts[name] == 3 * len(ops_leaves(s.params))
+                # 8 groups x layers, each forward run twice (remat)
+                assert counts["flash_attention"] == 3 * 8 * cfg.n_layers * 2
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"],
+                                   rtol=2e-3, atol=0)
+        # A wrong decode (a wrong λ, a dropped pod, no update) moves most
+        # values by a share of their change.  Where the card's and the
+        # CPU's partial differ by an ulp, a value may round to the next
+        # code; error feedback carries that back, so it stays rare.
+        off, total = _params_off(trained["cuda"], trained["cpu"], init)
+        assert off <= 1e-3 * total, (codec, off, total)
