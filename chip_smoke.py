@@ -19,13 +19,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      leaf, block 64, for the int8/int4/fp8 hop; R = 8 and R = 1 by
      K = 8 × the 117M-value ``mlp.wd`` leaf for the f32 encode/decode,
      beside ``torch.mm`` with TF32 off); the flash kernel's per-row
-     log-sum-exp against the plain version's.  For attention, besides the grid's
+     log-sum-exp against the plain version's, and the flash kernel timed
+     at the training shape too (S = 512, with its log-sum-exp); the
+     decode kernel's split of the cache sweep at the serve shape is
+     printed.  For attention, besides the grid's
      tolerance, every output row (the Dh features of one query and head)
      must be within a share of its own max |plain| (decode 1e-2, flash
      2e-2: one bf16 rounding is at most 2^-7 of it); timed beside the
      plain version, the least time the card could take (bound) and one
      PyTorch library call (``scaled_dot_product_attention``, timed only
-     as a yardstick).
+     as a yardstick).  The attention kernels and SDPA are timed as
+     calls captured in a CUDA graph (device time: from Python the ~20 us
+     decode would time the host), the plain versions and the combine
+     kernels back to back with CUDA events.
   3. full-width parity: llama3-8b at full width cut to 2 layers, float32,
      seeded weights on the card and on the CPU; bulk prefill of 2 × 64
      tokens then 8 greedy decode steps on the card, the CPU run
@@ -110,6 +116,36 @@ def timed_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n: int = 60, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``n`` calls captured in one CUDA
+    graph and replayed, so that no host launch cost sits between the
+    kernels (back to back from Python, a ~20 us kernel would time the
+    host's wrapper instead)."""
+    import torch
+
+    fn()  # warm up, and allocate what the first call allocates
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * n)
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_mem = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -153,11 +189,16 @@ def phase_build():
     for name in build.sources():  # what -Xptxas -v reported per kernel
         text = (out / f"{name}.log").read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
-                                             text)]
+        spilled = [  # kernel<template args>, from the mangled names
+            "{}<{}>".format(*re.search(r"\d+([a-z_]+_kernel)I(\w+?)EEv",
+                                       fn).group(1, 2))
+            for fn, n in re.findall(
+                r"Compiling entry function '(\S+)'[^\n]*\n[^\n]*\n"
+                r"\s+\d+ bytes stack frame, (\d+) bytes spill stores", text)
+            if int(n) > 0]
         log(f"[build] {name}: {len(regs)} kernels, registers "
-            f"{min(regs)}..{max(regs)}, {sum(s > 0 for s in spills)} "
-            f"with spills")
+            f"{min(regs)}..{max(regs)}, {len(spilled)} with spills "
+            f"{' '.join(spilled)}")
     for name in build.sources():
         build.load(name)
 
@@ -233,7 +274,10 @@ def _time_decode(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_fwd,
+        split_plan,
+    )
 
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -272,12 +316,17 @@ def _time_decode(torch):
     def rot(f):
         return lambda: f(next(it) % n_sets)
 
-    kernel_ms = timed_ms(rot(lambda i: decode_attention_fwd(
-        qs[i], ks[i], vs[i], qp)), 300)
+    kernel_ms = graph_ms(rot(lambda i: decode_attention_fwd(
+        qs[i], ks[i], vs[i], qp)))
     plain_ms = timed_ms(rot(lambda i: ref.decode_attention_ref(
         qs[i], ks[i], vs[i], qp)), 100)
-    lib_ms = timed_ms(rot(lib), 300)
+    lib_ms = graph_ms(rot(lib))
     n_valid = int(mask.sum())
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split, chunk = split_plan(CACHE, B * KV, n_sm)
+    log(f"[kernels] decode_attention at the serve shapes: the sweep of each "
+        f"of the {B * KV} (sequence, kv head) pairs is split {n_split} ways "
+        f"({chunk} slots each): a grid of {B * KV * n_split} blocks")
     nbytes = (2 * B * n_valid * KV * DH + 2 * B * H * DH) * 2 + 4
     flops = 4 * B * H * n_valid * DH
     bms, by = bound_ms(nbytes, flops, "bfloat16")
@@ -285,9 +334,11 @@ def _time_decode(torch):
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), row_err
 
 
-def _time_flash(torch):
-    """Flash forward at the prefill's shapes (bf16, causal); q/k/v/o are
-    84 MB, more than the L2 holds."""
+def _time_flash(torch, S=PROMPT, with_lse=False):
+    """Flash forward at a main path's shapes (bf16, causal): the prefill's
+    (S = 1024; q/k/v/o are 84 MB, more than the L2 holds) or, with the
+    log-sum-exp the training forward saves, one training group's
+    (S = 512)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -295,14 +346,18 @@ def _time_flash(torch):
 
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(8)
-    q = torch.randn(B, PROMPT, H, DH, generator=gen, device="cuda").to(dt)
-    k = torch.randn(B, PROMPT, KV, DH, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, PROMPT, KV, DH, generator=gen, device="cuda").to(dt)
-    got = flash_attention_fwd(q, k, v).float()
-    want = ref.flash_attention_ref(q, k, v).float()
+    q = torch.randn(B, S, H, DH, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, KV, DH, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, KV, DH, generator=gen, device="cuda").to(dt)
+    got = flash_attention_fwd(q, k, v, return_lse=with_lse)
+    want = ref.flash_attention_ref(q, k, v, return_lse=with_lse)
+    if with_lse:
+        (got, lse), (want, want_lse) = got, want
+        torch.testing.assert_close(lse, want_lse, rtol=2e-2, atol=2e-2)
+    got, want = got.float(), want.float()
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
     err = (got - want).abs().max().item()
-    row_err = check_rows(got, want, 2e-2, "flash at the serve shapes")
+    row_err = check_rows(got, want, 2e-2, f"flash at S={S}")
 
     def lib():
         return F.scaled_dot_product_attention(
@@ -311,11 +366,14 @@ def _time_flash(torch):
 
     torch.testing.assert_close(lib().transpose(1, 2).float(), want,
                                rtol=2e-2, atol=2e-2)
-    kernel_ms = timed_ms(lambda: flash_attention_fwd(q, k, v), 20)
-    plain_ms = timed_ms(lambda: ref.flash_attention_ref(q, k, v), 5)
-    lib_ms = timed_ms(lib, 20)
-    nbytes = (2 * B * PROMPT * H * DH + 2 * B * PROMPT * KV * DH) * 2
-    flops = 4 * B * H * DH * (PROMPT * PROMPT + PROMPT) / 2
+    kernel_ms = graph_ms(
+        lambda: flash_attention_fwd(q, k, v, return_lse=with_lse), 20)
+    plain_ms = timed_ms(
+        lambda: ref.flash_attention_ref(q, k, v, return_lse=with_lse), 5)
+    lib_ms = graph_ms(lib, 20)
+    nbytes = (2 * B * S * H * DH + 2 * B * S * KV * DH) * 2 \
+        + (B * S * H * 4 if with_lse else 0)
+    flops = 4 * B * H * DH * (S * S + S) / 2
     bms, by = bound_ms(nbytes, flops, "bfloat16")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), row_err
@@ -496,6 +554,12 @@ def phase_kernels():
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), sdpa "
             f"{r['library_ms']:.4f} ms")
+    r, row_err = _time_flash(torch, S=TRAIN_SEQ, with_lse=True)
+    log(f"[kernels] flash_attention at the training shapes (S={TRAIN_SEQ}, "
+        f"with log-sum-exp): max abs err {r['max_abs_err']:.3g}, worst row "
+        f"{row_err:.3g} of its max; kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f} us "
+        f"({r['bound_by']}), sdpa {r['library_ms']:.4f} ms")
     torch.cuda.empty_cache()
     shapes = [("f32", 8, 8, WD_F, 1), ("f32", 1, 8, WD_F, 1),
               ("int8", 1, 2, EMBED_F, HOP_BLOCK),

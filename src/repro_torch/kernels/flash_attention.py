@@ -24,6 +24,9 @@ from repro_torch.kernels.decode_attention import (
     _check_rows_aligned,
 )
 
+#: the C entry's code for a TMA descriptor the CUDA driver refused
+TENSOR_MAP_ERROR = 1000
+
 
 def _lib():
     lib = build.load("flash_attention")
@@ -50,8 +53,10 @@ def flash_attention_fwd(
 
     Batch and sequence dimensions may be strided; heads and features
     must be packed.  bf16 runs on the tensor cores (Dh <= 128, rows
-    16-byte aligned); float32 runs on the f32 FMA kernel, never through
-    TF32.
+    16-byte aligned): Dh 64 and 128 on the wgmma kernel, whose TMA
+    descriptors the C entry builds from these strides, Dh 16 and 32 on
+    the mma.sync kernel; float32 runs on the f32 FMA kernel, never
+    through TF32.
     """
     B, S, H, Dh = q.shape
     T, Kv = k.shape[1], k.shape[2]
@@ -92,6 +97,10 @@ def flash_attention_fwd(
         int(bool(causal)), int(window), float(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if err == TENSOR_MAP_ERROR:
+        raise RuntimeError("flash_attention: the CUDA driver refused a TMA "
+                           "descriptor (cuTensorMapEncodeTiled) for strides "
+                           f"q {q.stride()} k {k.stride()} v {v.stride()}")
     build.check(err, "flash_attention")
     flash_attention_fwd.launches += 1
     return (out, lse) if return_lse else out

@@ -81,6 +81,73 @@ def test_flash_kernel_matches_plain(dtype):
                                    atol=tol)
 
 
+def _worst_row(got, want):
+    """Worst output row's max |got - want| over that row's max |want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().amax(-1)
+            / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("pos_kind", ["empty", "wrapped"])
+def test_decode_kernel_split_sweep_at_the_serve_shape(pos_kind):
+    """The split sweep at llama3-8b's serving shape (bf16, a view of the
+    decode cache's (B, C, Kv·Dh) buffer): q_pos = 0 leaves every split but
+    the first without a valid slot; the wrapped position fills them all."""
+    from repro_torch.kernels.decode_attention import split_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, C, Kv, G, Dh = 4, 1057, 8, 4, 128
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split, chunk = split_plan(C, B * Kv, n_sm)
+    assert n_split > 1 and (n_split - 1) * chunk < C <= n_split * chunk
+    pos = {"empty": 0, "wrapped": 2 * C + 3}[pos_kind]
+    q = _randn(gen, B, 1, Kv * G, Dh, dtype=torch.bfloat16)
+    k = _randn(gen, B, C, Kv * Dh, dtype=torch.bfloat16).view(B, C, Kv, Dh)
+    v = _randn(gen, B, C, Kv * Dh, dtype=torch.bfloat16).view(B, C, Kv, Dh)
+    qp = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    for _ in range(3):  # the merge counters must be left at zero
+        got = decode_attention_fwd(q, k, v, qp)
+        want = ref.decode_attention_ref(q, k, v, qp)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        assert _worst_row(got, want) <= 1e-2
+
+
+def _flash_case(gen, case, Dh):
+    """(q, k, v, return_lse) of one wgmma-kernel case, bf16, G = 4."""
+    B, S, Kv, G = 2, 1000, 2, 4
+    if case == "strided":  # q a batch-strided view of a larger buffer
+        S = 256
+        big = _randn(gen, 2 * B, S, Kv * G, Dh, dtype=torch.bfloat16)
+        q = big[::2]
+        assert not q.is_contiguous()
+    else:
+        q = _randn(gen, B, S, Kv * G, Dh, dtype=torch.bfloat16)
+    k = _randn(gen, B, S, Kv, Dh, dtype=torch.bfloat16)
+    v = _randn(gen, B, S, Kv, Dh, dtype=torch.bfloat16)
+    return q, k, v, case == "lse"
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("case", ["ragged", "strided", "lse"])
+def test_flash_wgmma_kernel_matches_plain(case, Dh):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, with_lse = _flash_case(gen, case, Dh)
+    for causal, window, softcap in ((True, 0, 0.0), (True, 100, 30.0),
+                                    (False, 0, 0.0)):
+        got = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, return_lse=with_lse)
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, softcap=softcap,
+                                       return_lse=with_lse)
+        if with_lse:
+            (got, lse), (want, want_lse) = got, want
+            torch.testing.assert_close(lse, want_lse, rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        assert _worst_row(got, want) <= 2e-2, (case, Dh, causal, window)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(1, 8, 4, 48, device="cuda")
     with pytest.raises(ValueError, match="Dh"):
