@@ -64,6 +64,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
      encode → decode of the 8 per-part gradients of the full-width
      ``groups.p0.mlp.wd`` leaf under a sampled straggler pattern equals
      their sum within 1e-5 · max|Σ g|.
+  7. checkpoint, kill, resume, serve, at the phase-6 config (adamw,
+     coded_q int8, edge 1 dropped at step 2, total_steps 4): an
+     uninterrupted run of 4 steps; a run that checkpoints at step 2
+     (``keep_checkpoints=1``, on the local disk with the most free space;
+     ~29.7 GB: params, adamw m and v, two pods' EF residuals) and is
+     killed there (``stop_after=2``); a fresh session resumed from it,
+     whose restored params, m, v, t and EF residual rows equal the
+     checkpoint's arrays bit for bit (and streams and detector its JSON),
+     and whose steps 2–3 equal the uninterrupted run's losses bit for
+     bit; exact launches per step as in phase 6.  Then
+     ``session.generate`` (batch 4, 64-token prompts, 8 new tokens):
+     flash once per layer, decode once per layer per step, tokens equal
+     to ``api.serving.generate`` on the same params.  The embedding
+     backward (``F.embedding``, deterministic) is timed beside the
+     indexing backward at one training group's shape.
+  8. an orchestrated episode at the same config on ``CodedCluster.
+     hetero(2, 4)`` with worker processes (spawn) and the schedule
+     ``kill:w0.1@3,slow:e1@5x2:4.0`` over 8 rounds: the killed worker
+     found by heartbeats alone, at least one replan, no decode fallback,
+     finite losses, exact launches per trained round, and no worker
+     process with torch loaded (read from its ``/proc/<pid>/maps``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -71,10 +92,13 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -981,6 +1005,347 @@ def _profile_step(torch, profile, ProfilerActivity, session, step,
             f"{sum(hits.values()):.3f} ms in {len(hits)} instantiation(s)")
 
 
+CKPT_STEPS, KILL_AT = 4, 2
+GEN_B, GEN_PROMPT, GEN_NEW = 4, 64, 8
+ORCH_ROUNDS, ORCH_INJECT = 8, "kill:w0.1@3,slow:e1@5x2:4.0"
+
+
+def _train_kw():
+    """The phase-6 training settings (phases 6-8 share them)."""
+    return dict(seq_len=TRAIN_SEQ, part_batch=1, optimizer="adamw",
+                grad_block=HOP_BLOCK, verbose=False)
+
+
+def _train_cfg():
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config("llama3-8b"), n_layers=TRAIN_LAYERS)
+
+
+def _counted_steps(session, first, last, want, totals, **fit):
+    """Steps ``first..last-1`` one ``fit`` call each (``stop_after`` the
+    step's end), each with exactly ``want`` launches; → host ms each."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    step_ms = []
+    for step in range(first, last):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.fit(CKPT_STEPS, stop_after=step + 1, **fit)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = ops.launch_counts()
+        got = {k: v for k, v in counts.items() if v}
+        if got != want:
+            raise AssertionError(f"step {step}: launches {got}, expected "
+                                 f"{want}")
+        for k, v in counts.items():
+            totals[k] += v
+    return step_ms
+
+
+def _checkpoint_dir(need: int) -> Path:
+    """A fresh directory on whichever local disk has the most free space:
+    the checkout's ``build/`` or the temporary directory."""
+    free = {}
+    for d in (ROOT / "build", Path(tempfile.gettempdir())):
+        d.mkdir(parents=True, exist_ok=True)
+        free[d] = shutil.disk_usage(d).free
+    best = max(free, key=free.get)
+    log("[ckpt] free disk: " + ", ".join(
+        f"{d} {n / 1e9:.1f} GB" for d, n in free.items()))
+    if free[best] < need:
+        raise AssertionError(f"the checkpoint needs {need / 1e9:.1f} GB; "
+                             f"the disk with the most space, {best}, has "
+                             f"{free[best] / 1e9:.1f} GB free")
+    return Path(tempfile.mkdtemp(prefix="ckpt.", dir=best))
+
+
+def _bits_equal(torch, got, want: "np.ndarray") -> bool:
+    want = torch.from_numpy(want).to(got.device)
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.detach().reshape(-1).view(torch.uint8),
+                            want.reshape(-1).view(torch.uint8)))
+
+
+def _check_restored(torch, session, step_dir: Path) -> int:
+    """The resumed session's state against the checkpoint's arrays, bit
+    for bit, one array at a time; its streams and detector against the
+    checkpoint's JSON.  → the number of arrays compared."""
+    from repro_torch import _tree
+    from repro_torch.checkpoint.params import _flatten
+    from repro_torch.checkpoint.store import read_npz
+
+    live = _flatten({"params": session.params,
+                     "opt_state": session.opt_state})
+    live.update({"ef_residual/" + k: v for k, v in _flatten(
+        _tree.unflatten_like(session.params, session.residual)).items()})
+    n = 0
+    for name in ("state.npz", "extra.npz"):  # CRC-checked, as np.load's
+        for key, arr in read_npz(str(step_dir / name)).items():
+            if not _bits_equal(torch, live.pop(key), arr):
+                raise AssertionError(f"restored {key} differs from the "
+                                     f"checkpoint's {name}")
+            n += 1
+    if live:
+        raise AssertionError(f"not in the checkpoint: {sorted(live)[:4]}")
+    meta = json.loads((step_dir / "meta.json").read_text())["extra"]
+    if [s.state_dict() for s in session.streams] != meta["streams"]:
+        raise AssertionError("restored streams differ from the checkpoint")
+    if session.cluster.detector.state_dict() != meta["detector"]:
+        raise AssertionError("restored detector differs from the checkpoint")
+    return n
+
+
+def _embedding_backward(torch):
+    """The embedding's backward at one training group's shape (4 × 512
+    token ids into the bf16 128256 × 4096 table): ``F.embedding``, which
+    the port uses, beside the indexing backward.  Distinct results over
+    5 runs of each on ids where every other one repeats (what the
+    accumulation order could change), and ms per call (forward +
+    backward, CUDA events) on uniform ids, as the token streams draw
+    them."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    uniform = torch.randint(0, 128256, (4, TRAIN_SEQ), generator=gen,
+                            device="cuda")
+    repeated = uniform.clone()
+    repeated[:, ::2] = repeated[:, :1]
+    table = torch.randn(128256, 4096, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    g = torch.randn(4, TRAIN_SEQ, 4096, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = {}
+    for name, fwd in (("F.embedding", F.embedding),
+                      ("table[tokens]", lambda t, w: w[t])):
+        def call(tok):
+            return torch.autograd.grad(fwd(tok, table), [table], g)[0]
+
+        fps = {int(call(repeated).view(torch.int16).long().sum())
+               for _ in range(5)}
+        out[name] = (len(fps), timed_ms(lambda: call(uniform), 20))
+    del table, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_checkpoint():
+    """Train → checkpoint → kill → resume → serve (the phase-6 config);
+    → the launches of its counted steps and of ``session.generate``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.api import serving
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    cfg, kw = _train_cfg(), _train_kw()
+    kw["total_steps"] = CKPT_STEPS
+    fit = dict(force_drop_edge=1, force_drop_step=2)
+    totals = {name: 0 for name in ops.KERNELS}
+    t0 = time.perf_counter()
+    whole = _session(cfg, "coded_q", "int8", "cuda", **kw)
+    n_leaves = len(_tree.leaves(whole.params))
+    n_params = sum(p.numel() for p in _tree.leaves(whole.params))
+    want = {"coded_combine_q": n_leaves,
+            "flash_attention": GROUPS * TRAIN_LAYERS * 2}
+    whole_ms = _counted_steps(whole, 0, CKPT_STEPS, want, totals, **fit)
+    losses = list(whole.losses)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ckpt] uninterrupted: losses {losses}, host ms per step "
+        f"{[round(x, 1) for x in whole_ms]} ({time.perf_counter() - t0:.1f}"
+        f" s)")
+
+    n_pods = 2  # the residual's rows: params, m, v and 2 pods' residuals
+    need = int(1.1 * 4 * n_params * (3 + n_pods))
+    ck = _checkpoint_dir(need)
+    free_before = shutil.disk_usage(ck).free
+    killed = _session(cfg, "coded_q", "int8", "cuda", checkpoint_dir=str(ck),
+                      checkpoint_every=KILL_AT, keep_checkpoints=1, **kw)
+    saves = []
+    save = killed.save_checkpoint
+
+    def timed_save(step=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = save(step)
+        saves.append(time.perf_counter() - t)
+        return path
+
+    killed.save_checkpoint = timed_save
+    _counted_steps(killed, 0, KILL_AT, want, totals, **fit)
+    if killed.losses != losses[:KILL_AT] or len(saves) != 1:
+        raise AssertionError(f"killed run: losses {killed.losses}, saves "
+                             f"{saves}")
+    step_dir = ck / f"step_{KILL_AT:010d}"
+    nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    free_saved = shutil.disk_usage(ck).free
+    del killed, save
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    resumed = _session(cfg, "coded_q", "int8", "cuda", checkpoint_dir=str(ck),
+                       resume=True, **kw)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if resumed._step != KILL_AT:
+        raise AssertionError(f"resumed at step {resumed._step}")
+    t0 = time.perf_counter()
+    n_arrays = _check_restored(torch, resumed, step_dir)
+    log(f"[ckpt] checkpoint of step {KILL_AT}: {nbytes:,} bytes in "
+        f"{len(list(step_dir.iterdir()))} files; save {saves[0]:.2f} s "
+        f"({nbytes / saves[0] / 1e9:.2f} GB/s), restore (a fresh session "
+        f"resumed) {restore_s:.2f} s ({nbytes / restore_s / 1e9:.2f} GB/s);"
+        f" {n_arrays} arrays restored bit for bit, streams and detector "
+        f"equal ({time.perf_counter() - t0:.1f} s to check); free disk "
+        f"{free_before / 1e9:.1f} GB before, {free_saved / 1e9:.1f} GB "
+        f"with the checkpoint")
+    resumed_ms = _counted_steps(resumed, KILL_AT, CKPT_STEPS, want, totals,
+                                **fit)
+    if resumed.losses != losses[KILL_AT:]:
+        raise AssertionError(f"resumed losses {resumed.losses} != the "
+                             f"uninterrupted run's {losses[KILL_AT:]}")
+    log(f"[ckpt] resumed steps {KILL_AT}..{CKPT_STEPS - 1}: losses "
+        f"{resumed.losses} equal the uninterrupted run's bit for bit; host "
+        f"ms per step {[round(x, 1) for x in resumed_ms]}; launches per "
+        f"step {want}")
+
+    gen = np.random.default_rng(1)
+    prompts = gen.integers(0, cfg.vocab, (GEN_B, GEN_PROMPT), dtype=np.int64)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = resumed.generate(prompts, GEN_NEW)
+    gen_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    want_gen = {"flash_attention": TRAIN_LAYERS,
+                "decode_attention": TRAIN_LAYERS * GEN_NEW}
+    if counts != want_gen:
+        raise AssertionError(f"generate launches {counts}, expected "
+                             f"{want_gen}")
+    for k, v in counts.items():
+        totals[k] += v
+    with torch.inference_mode():
+        served = serving.generate(tf.cast_params(resumed.params, cfg), cfg,
+                                  prompts, GEN_NEW, device="cuda")
+    if toks.shape != (GEN_B, GEN_NEW) or not np.array_equal(toks, served):
+        raise AssertionError(f"session.generate {toks.tolist()} != "
+                             f"serving.generate {served.tolist()}")
+    log(f"[ckpt] session.generate on the resumed session: {GEN_B} x "
+        f"{GEN_PROMPT}-token prompts, {GEN_NEW} new tokens in "
+        f"{gen_ms:.1f} ms; launches {counts}; tokens equal "
+        f"api.serving.generate's; tokens[0] {toks[0].tolist()}")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ck)
+    emb = _embedding_backward(torch)
+    for name, (distinct, ms) in emb.items():
+        log(f"[ckpt] embedding backward, {name}: {distinct} distinct "
+            f"result(s) over 5 runs, {ms:.4f} ms per call")
+    delta = emb["F.embedding"][1] - emb["table[tokens]"][1]
+    log(f"[ckpt] F.embedding costs {delta:+.4f} ms a call, "
+        f"{GROUPS * delta:+.4f} ms a step ({GROUPS} groups)")
+    if emb["F.embedding"][0] != 1:
+        raise AssertionError("F.embedding's backward is not deterministic")
+    return totals
+
+
+def _torch_loaded(pid: int) -> bool:
+    """Whether process ``pid`` has torch's libraries mapped; numpy's core
+    extension must be (the worker is alive and the maps are readable)."""
+    maps = Path(f"/proc/{pid}/maps").read_text()
+    if "_multiarray_umath" not in maps:
+        raise AssertionError(f"worker {pid}: numpy not in its maps")
+    return "libtorch" in maps or "/torch/lib/" in maps
+
+
+def phase_orchestrate():
+    """An orchestrated coded_q int8 episode at the phase-6 config with
+    spawned worker processes; → the launches of its trained rounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
+    from repro_torch.kernels import ops
+    from repro_torch.orchestrator import (
+        InjectionSchedule,
+        Orchestrator,
+        OrchestratorConfig,
+    )
+
+    t0 = time.perf_counter()
+    session = CodedSession(CodedCluster.hetero(2, 4), _train_cfg(),
+                           planner=planner_for_scheme("hgc", 1, 1),
+                           mode="coded_q", grad_compression="int8",
+                           device="cuda", total_steps=ORCH_ROUNDS,
+                           **_train_kw())
+    want = {"coded_combine_q": len(_tree.leaves(session.params)),
+            "flash_attention": GROUPS * TRAIN_LAYERS * 2}
+    orch = Orchestrator(session, OrchestratorConfig(steps=ORCH_ROUNDS,
+                                                    backend="process"),
+                        schedule=InjectionSchedule.parse(ORCH_INJECT))
+    totals = {name: 0 for name in ops.KERNELS}
+    round_ms = []
+    orch.pool.start()
+    try:
+        log(f"[orch] session and {len(orch.pool.alive)} spawned workers up "
+            f"in {time.perf_counter() - t0:.1f} s")
+        for _ in range(ORCH_ROUNDS):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = orch.run_round(session._step)
+            torch.cuda.synchronize()
+            round_ms.append(1e3 * (time.perf_counter() - t0))
+            counts = ops.launch_counts()
+            got = {k: v for k, v in counts.items() if v}
+            if got != want:
+                raise AssertionError(f"round {len(round_ms) - 1}: launches "
+                                     f"{got}, expected {want} ({rec})")
+            for k, v in counts.items():
+                totals[k] += v
+        live = sorted(orch.pool.alive)
+        loaded = [f for f in live
+                  if _torch_loaded(orch.pool._handles[f].pid)]
+    finally:
+        orch.pool.close()
+    summary = orch.finalize(ORCH_ROUNDS)
+    c = summary["counters"]
+    dead = orch.registry.dead_workers()
+    n_dead = summary["event_counts"].get("worker_dead", 0)
+    log(f"[orch] {ORCH_ROUNDS} rounds of {ORCH_INJECT}: counters {c}; "
+        f"events {summary['event_counts']}; dead workers {dead}; losses "
+        f"{[round(x, 5) for x in session.losses]}; master ms per round "
+        f"{[round(x, 1) for x in round_ms]}; jit cache entries "
+        f"{summary['jit_cache_entries']}; launches per round {want}")
+    if dead != [1] or n_dead != 1:
+        raise AssertionError(f"dead workers {dead}, {n_dead} worker_dead "
+                             f"events")
+    if c["replans"] < 1 or c["decode_fallbacks"] != 0:
+        raise AssertionError(f"counters {c}")
+    if len(session.losses) != ORCH_ROUNDS \
+            or not np.isfinite(session.losses).all():
+        raise AssertionError(f"losses {session.losses}")
+    if loaded:
+        raise AssertionError(f"workers {loaded} loaded torch")
+    log(f"[orch] no worker process has torch loaded ({len(live)} live "
+        f"workers' maps read)")
+    del orch, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -997,15 +1362,27 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
     t0 = time.perf_counter()
-    phase_device()
-    phase_build()
-    rows = phase_kernels()
-    phase_parity()
-    counts = phase_serve()
-    phase_train_parity()
-    train_counts = phase_train()
-    log(f"[done] launches on the main paths: serve {counts}, train "
-        f"{ {k: v for k, v in train_counts.items() if v} }")
+
+    def phase(fn):
+        t = time.perf_counter()
+        out = fn()
+        log(f"[phase] {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    phase(phase_device)
+    phase(phase_build)
+    rows = phase(phase_kernels)
+    phase(phase_parity)
+    counts = phase(phase_serve)
+    phase(phase_train_parity)
+    train_counts = phase(phase_train)
+    ckpt_counts = phase(phase_checkpoint)
+    orch_counts = phase(phase_orchestrate)
+    paths = {"train": train_counts, "checkpoint": ckpt_counts,
+             "orchestrate": orch_counts}
+    log(f"[done] launches on the main paths: serve {counts}, " + ", ".join(
+        f"{name} { {k: v for k, v in c.items() if v} }"
+        for name, c in paths.items()))
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"decode_attention": (csrc + "decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:131"),
@@ -1015,7 +1392,8 @@ def main() -> int:
         sources[name] = (csrc + "coded_combine.cu", replaces)
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1],
-                    launches=counts.get(name, 0) + train_counts[name], **r)
+                    launches=counts.get(name, 0)
+                    + sum(c[name] for c in paths.values()), **r)
                for name, r in rows.items()]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,11 +2,28 @@
 
   * :class:`CodedCluster` — topology + runtime model + straggler detector,
   * the :class:`Planner` strategies and :func:`planner_for_scheme`,
-  * :class:`CodedSession` — coded training on one device.
+  * :class:`CodedSession` — coded training on one device, checkpoints
+    and kill/resume, shrink, eval and generate,
+  * re-exports of the stable core/dist vocabulary (``Topology``,
+    ``HGCCode``, ``replan``, …), as the reference's ``repro.api`` has
+    them (its ``simulate_training`` is not ported yet; ROADMAP.md).
 
 ``repro_torch.api.serving`` (prefill/decode) is a submodule, not pulled
 in here.
 """
+from repro_torch.core import jncss, tradeoff
+from repro_torch.core.grouping import GroupedHGCCode, GroupTolerance
+from repro_torch.core.hgc import HGCCode
+from repro_torch.core.runtime_model import ClusterParams, paper_cluster
+from repro_torch.core.topology import Tolerance, Topology
+from repro_torch.dist.elastic import (
+    Plan,
+    StragglerDetector,
+    price_tolerance,
+    replan,
+    shrink_topology,
+)
+
 from repro_torch.api.cluster import CodedCluster, sample_straggler_pattern
 from repro_torch.api.planner import (
     CommBudgetPlanner,
@@ -21,9 +38,11 @@ from repro_torch.api.planner import (
 from repro_torch.api.session import CodedSession, ReplanError, build_coded_batch
 
 __all__ = [
+    # the object model
     "CodedCluster",
     "CodedSession",
     "ReplanError",
+    "Plan",
     "Planner",
     "JNCSSPlanner",
     "FixedPlanner",
@@ -34,4 +53,18 @@ __all__ = [
     "planner_for_scheme",
     "build_coded_batch",
     "sample_straggler_pattern",
+    # stable re-exported vocabulary
+    "Topology",
+    "Tolerance",
+    "GroupTolerance",
+    "HGCCode",
+    "GroupedHGCCode",
+    "ClusterParams",
+    "paper_cluster",
+    "StragglerDetector",
+    "replan",
+    "shrink_topology",
+    "price_tolerance",
+    "jncss",
+    "tradeoff",
 ]

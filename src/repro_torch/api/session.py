@@ -15,10 +15,13 @@ the session's mode:
   * ``"coded_q"``    — same hop with the codec ``grad_compression``
     selects (int8 default, int4 packed nibbles, or fp8-e4m3).
 
-Not ported yet (each raises, naming ROADMAP.md): checkpoints and resume,
-``shrink``, ``eval_step``, ``generate`` (the serving path is
-``repro_torch.api.serving``), and the TP/SP/PP options.  The session
-runs on the card unless ``device="cpu"`` is given.
+Beside training: the checkpoint round trip in the reference's layout
+(``checkpoint_dir`` / ``resume``; bit-for-bit kill/resume, and a
+reference checkpoint resumes here), ``shrink`` past permanent failures,
+``eval_step``, and ``generate`` (``cluster=None`` builds a serve-only
+session).  Not ported yet (they raise, naming ROADMAP.md): the TP/SP/PP
+options.  The session runs on the card unless ``device="cpu"`` is
+given.
 
 Quickstart::
 
@@ -40,12 +43,20 @@ import torch
 
 from repro_torch import _tree
 from repro_torch._device import resolve_device
+from repro_torch.api import serving
 from repro_torch.api.cluster import CodedCluster, sample_straggler_pattern
 from repro_torch.api.planner import Planner, get_planner
-from repro_torch.checkpoint.params import params_from_numpy
+from repro_torch.checkpoint.params import (
+    _flatten,
+    params_from_numpy,
+    tensor_from_numpy,
+)
+from repro_torch.checkpoint.store import CheckpointStore, config_hash
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.hgc import HGCCode
+from repro_torch.core.topology import Tolerance
 from repro_torch.data.pipeline import TokenStream
+from repro_torch.dist.elastic import Plan, price_tolerance
 from repro_torch.models import transformer as tf
 from repro_torch.optim import make_optimizer
 
@@ -60,9 +71,10 @@ def _not_ported(what: str):
 
 
 class ReplanError(RuntimeError):
-    """A replan produced a plan the deployed session cannot run; the
-    session keeps its previous code.  ``constraint`` names what broke
-    (``"uniform_load"`` or ``"topology"``), ``topo`` the topology."""
+    """A replan or shrink produced a plan the deployed session cannot
+    run; the session keeps its previous code.  ``constraint`` names what
+    broke (``"uniform_load"``, ``"topology"`` or, from :meth:`CodedSession.
+    shrink`, ``"plan"``), ``topo`` the surviving topology."""
 
     def __init__(self, message: str, *, constraint: str, topo):
         super().__init__(message)
@@ -73,6 +85,20 @@ class ReplanError(RuntimeError):
 def _step_rng(seed: int, step: int) -> np.random.Generator:
     """Per-step straggler RNG (history-independent, as the reference's)."""
     return np.random.default_rng(np.random.SeedSequence([seed, 7919, step]))
+
+
+def _code_desc(code) -> Dict:
+    """The checkpointed code descriptor: enough to rebuild the deployed
+    code deterministically (grouped codes add their per-edge vector)."""
+    d = {"s_e": code.tol.s_e, "s_w": code.tol.s_w, "K": code.K}
+    vec = getattr(code.tol, "s_w_vec", None)
+    if vec is not None:
+        d["s_w_vec"] = [int(s) for s in vec]
+    return d
+
+
+def _serve_only():
+    return RuntimeError("serve-only session (cluster=None) cannot train")
 
 
 def build_coded_batch(code: HGCCode, streams, fast_e, fast_w, seq_len,
@@ -118,12 +144,15 @@ def _extend_streams(streams, K: int, vocab: int, part_batch: int,
 
 
 class CodedSession:
-    """One coded training session over a :class:`CodedCluster`.
+    """One coded train/serve session over a :class:`CodedCluster`.
 
-    ``params``: initial weights as a flat ``{key: ndarray}`` map in the
-    reference's checkpoint layout (``checkpoint.params``) — e.g. the
-    reference session's own initial params; None draws them from
-    ``seed`` (the port's initializer, not the reference's).
+    ``cluster=None`` builds a serve-only session (no plan, no data
+    streams, no train step).  ``params``: initial weights as a flat
+    ``{key: ndarray}`` map in the reference's checkpoint layout
+    (``checkpoint.params``) — e.g. the reference session's own initial
+    params; None draws them from ``seed`` (the port's initializer, not
+    the reference's).  A resumed session takes its weights from the
+    checkpoint instead.
     """
 
     def __init__(
@@ -150,6 +179,8 @@ class CodedSession:
         seed: int = 0,
         scheme: Optional[str] = None,
         checkpoint_dir: str = "",
+        checkpoint_every: int = 25,
+        keep_checkpoints: int = 3,
         resume: bool = False,
         log_every: int = 10,
         verbose: bool = True,
@@ -158,15 +189,11 @@ class CodedSession:
     ):
         if mode not in MODES:
             raise ValueError(f"unknown session mode {mode!r}")
-        if cluster is None:
-            raise _not_ported("a serve-only session (cluster=None; serve "
-                              "through repro_torch.api.serving)")
         if max(int(tp), 1) > 1 or seq_shard or max(int(pp), 1) > 1 \
                 or microbatches:
             raise _not_ported("tensor, sequence and pipeline parallelism "
-                              "(tp / seq_shard / pp / microbatches)")
-        if checkpoint_dir or resume:
-            raise _not_ported("checkpointing (checkpoint_dir / resume)")
+                              "(tp / seq_shard / pp / microbatches: the "
+                              "dist regimes)")
         if mode == "coded_int8":
             if grad_compression and grad_compression != "int8":
                 raise ValueError(
@@ -197,6 +224,7 @@ class CodedSession:
         self.log_every = log_every
         self.verbose = verbose
         self.losses: List[float] = []
+        self._serve_cache: Dict = {}
 
         if params is not None:
             self.params = params_from_numpy(params, self.device,
@@ -205,6 +233,12 @@ class CodedSession:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.params = tf.init_params(cfg, gen, device=self.device,
                                          dtype=torch.float32)
+        if cluster is None:  # serve-only: no optimizer, no plan
+            self.plan = self.code = self.tcfg = None
+            self._optimizer = self.opt_state = self.store = None
+            self._step = 0
+            self._mesh = None
+            return
         for p in _tree.leaves(self.params):
             p.requires_grad_(True)
         self._optimizer = make_optimizer(optimizer)
@@ -245,17 +279,106 @@ class CodedSession:
         self.streams: List[TokenStream] = []
         _extend_streams(self.streams, self.code.K, cfg.vocab, part_batch,
                         seq_len, seed)
+        # ---- init / resume -------------------------------------------
         self.opt_state = self._optimizer.init(self.params)
         self._step = 0
+        self.store = None
+        self._restored_extra: Dict = {}
+        if checkpoint_dir:
+            # hash the MODEL config only: run hyperparameters (total_steps,
+            # the LR schedule) legitimately change across restarts
+            self.store = CheckpointStore(checkpoint_dir,
+                                         keep=keep_checkpoints,
+                                         cfg_hash=config_hash(cfg))
+            if resume and self.store.latest_step() is not None:
+                self._resume()
+        self.checkpoint_every = checkpoint_every
         self._setup_train_step()
+
+    # ------------------------------------------------------------------
+    # restore
+    # ------------------------------------------------------------------
+    def _resume(self):
+        start, state, extra = self.store.restore()
+        self._restored_extra = extra
+        self.params = params_from_numpy(_flatten(state["params"]),
+                                        self.device, dtype=torch.float32)
+        for p in _tree.leaves(self.params):
+            p.requires_grad_(True)
+        if "opt_state" in state:
+            # stateless optimizers (sgd) flatten to an empty subtree: the
+            # freshly initialized state is already right then
+            self.opt_state = _tree.map(
+                lambda a: tensor_from_numpy(a, self.device),
+                state["opt_state"])
+        del state
+        cl = extra.get("cluster")
+        if cl and (cl.get("dead_edges") or cl.get("dead_workers")):
+            # the run had shrunk past permanent failures before the kill
+            self.cluster = self.cluster.restored(cl)
+            if self.verbose:
+                print(f"[train] restored shrunk topology "
+                      f"m={self.cluster.topo.m}")
+        ck = extra.get("code")
+        if ck and (ck != _code_desc(self.code)
+                   or self.code.topo != self.cluster.topo):
+            # the run had replanned before the kill: rebuild the deployed
+            # code deterministically (same seed ⇒ same code)
+            if "s_w_vec" in ck:
+                from repro_torch.core.grouping import (
+                    GroupedHGCCode,
+                    GroupTolerance,
+                    price_grouped,
+                )
+
+                self.code = GroupedHGCCode.build(
+                    self.cluster.topo,
+                    GroupTolerance(ck["s_e"], tuple(ck["s_w_vec"])),
+                    K=ck["K"], seed=self.seed)
+                priced = price_grouped(self.cluster.params, self.code.tol,
+                                       self.code.loads)
+            else:
+                self.code = HGCCode.build(
+                    self.cluster.topo, Tolerance(ck["s_e"], ck["s_w"]),
+                    K=ck["K"], seed=self.seed,
+                    construction=getattr(self.planner, "construction",
+                                         "random"))
+                priced = price_tolerance(self.cluster.params, self.code.tol,
+                                         self.code.load)
+            # keep the plan (the public λ provider) in step with the code
+            self.plan = Plan(code=self.code, tol=self.code.tol,
+                             K=self.code.K, expected_iteration_ms=priced,
+                             jncss=None)
+            if self.verbose:
+                print(f"[train] restored replanned code (s_e={ck['s_e']}, "
+                      f"s_w={ck['s_w']}, K={ck['K']})")
+        saved_streams = extra["streams"]
+        # the saved list may exceed code.K (a replan once grew K and later
+        # shrank it: streams are never discarded)
+        _extend_streams(self.streams, max(self.code.K, len(saved_streams)),
+                        self.cfg.vocab, self.part_batch, self.seq_len,
+                        self.seed)
+        for k, sd in enumerate(saved_streams):
+            self.streams[k].load_state_dict(sd)
+        if "detector" in extra:
+            self.cluster.detector.load_state_dict(extra["detector"])
+        self._step = start
+        if self.verbose:
+            print(f"[train] resumed from step {start}")
 
     # ------------------------------------------------------------------
     # the train step of the mode
     # ------------------------------------------------------------------
     def _setup_train_step(self):
+        """The train step of the mode; in the coded modes the one-card
+        mesh and the per-pod EF residuals (one list entry per param leaf,
+        in leaf order)."""
         from repro_torch.launch import steps as steps_lib
 
         topo = self.cluster.topo
+        # a rebuild after shrink() carries the surviving pods' EF residual
+        # rows through; the first build starts empty
+        carry = getattr(self, "residual", [])
         self.residual: List[torch.Tensor] = []
         if self.mode == "off":
             self._mesh = None
@@ -276,8 +399,19 @@ class CodedSession:
                   f"× data={topo.m[0]}) on {self.device}, "
                   f"grad_compression={self.tcfg.grad_compression}")
         if self.tcfg.grad_compression != "none":
-            self.residual = _tree.leaves(
-                compression.init_pod_residuals(self.params, topo.n))
+            if carry:
+                self.residual = carry
+            elif "ef_residual" in self._restored_extra:
+                # consume the checkpoint payload (a tree keyed like the
+                # params): a later rebuild must carry the LIVE residual,
+                # not roll back to this one
+                saved = self._restored_extra.pop("ef_residual")
+                self.residual = [
+                    tensor_from_numpy(r, self.device).float()
+                    for r in _tree.leaves_like(saved, self.params)]
+            else:
+                self.residual = _tree.leaves(
+                    compression.init_pod_residuals(self.params, topo.n))
         self.train_step = steps_lib._make_dist_train_step(
             self.cfg, self.tcfg, self._mesh, optimizer=self._optimizer)
 
@@ -288,11 +422,21 @@ class CodedSession:
             return
         loads = getattr(code, "loads", None)
         if loads is not None and len(set(loads)) > 1:
+            counts: Dict[int, int] = {}
+            for d in loads:
+                counts[int(d)] = counts.get(int(d), 0) + 1
+            majority = max(counts, key=lambda d: (counts[d], -d))
+            edge, load = next((i, int(d)) for i, d in enumerate(loads)
+                              if int(d) != majority)
             raise ValueError(
                 f"dist mode {self.mode!r} splits the coded batch evenly "
                 f"over the (pod, data) mesh, which requires every worker "
-                f"to carry the same load; this grouped plan has per-edge "
-                f"loads {tuple(loads)} (docs/planners.md)")
+                f"to carry the same load — but this grouped plan gives "
+                f"edge {edge} load D={load} while the majority of edges "
+                f"carry D={majority} (per-edge loads: {tuple(loads)}). "
+                f"Use a uniform planner, regroup the cluster so loads "
+                f"match, or run mode='off'; see docs/planners.md "
+                f"(grouped codes under dist modes)")
 
     # ------------------------------------------------------------------
     # training
@@ -355,6 +499,8 @@ class CodedSession:
         """One train step under an EXTERNALLY observed completion set —
         the orchestrator's entry point (``fast_w`` indexed by edge for
         ALL edges); only the λ operand changes."""
+        if self.cluster is None:
+            raise _serve_only()
         topo = self.cluster.topo
         need_e = topo.n - self.code.tol.s_e
         if len(set(fast_e)) < need_e:
@@ -377,14 +523,20 @@ class CodedSession:
     def step(self, batch=None) -> Dict:
         """One training iteration at the session's current step index
         (a straggler pattern sampled from the cluster model)."""
+        if self.cluster is None:
+            raise _serve_only()
         return self._iteration(self._step, batch=batch)
 
     def fit(self, steps: Optional[int] = None, *, replan_every: int = 0,
             force_drop_edge: int = -1, force_drop_step: int = -1,
             stop_after: int = 0) -> Dict:
         """The managed loop: straggler simulation → coded step → detector
-        feedback → elastic replan.  ``steps`` is the global target step
-        (default ``total_steps``); ``stop_after`` exits after N steps."""
+        feedback → elastic replan → checkpoint.  ``steps`` is the global
+        target step (default ``total_steps``); a resumed session goes on
+        from its restored step.  ``stop_after`` simulates a kill: exit
+        after N total steps without touching the LR schedule."""
+        if self.cluster is None:
+            raise _serve_only()
         total = steps if steps is not None else self.tcfg.total_steps
         start = self._step
         t0 = time.time()
@@ -404,9 +556,14 @@ class CodedSession:
                       f"stragglers: edges={drop}")
             if replan_every and (step + 1) % replan_every == 0:
                 self.replan()
+            # checkpoint AFTER a possible replan, so the saved (tolerance,
+            # K) is what the surviving run would train with
+            if self.store and (step + 1) % self.checkpoint_every == 0:
+                self.save_checkpoint(step + 1)
             if stop_after and step + 1 >= stop_after:
                 if self.verbose:
-                    print(f"[train] stopping after step {step}")
+                    print(f"[train] stopping after step {step} (simulated "
+                          f"kill)")
                 break
         if self.verbose:
             wall = time.time() - t0
@@ -432,11 +589,7 @@ class CodedSession:
             self.cluster.updated_params(self.code.load), self.code.K,
             seed=self.seed, reuse=self.code)
         if plan.code is not self.code:
-            try:
-                self._require_dist_uniform_load(plan.code)
-            except ValueError as err:
-                raise ReplanError(str(err), constraint="uniform_load",
-                                  topo=self.cluster.topo) from err
+            self._check_deployable(plan.code)
             if self.verbose:
                 print(f"[train] replan: tolerance → (s_e={plan.tol.s_e}, "
                       f"s_w={plan.tol.s_w}), K={plan.K}, "
@@ -447,18 +600,81 @@ class CodedSession:
                             self.part_batch, self.seq_len, self.seed)
         return self.plan
 
+    def _check_deployable(self, code) -> None:
+        """A REPLACEMENT code the deployed session cannot run raises a
+        structured :class:`ReplanError` (at construction a plain
+        ``ValueError``: there is no plan to fall back to)."""
+        try:
+            self._require_dist_uniform_load(code)
+        except ValueError as err:
+            raise ReplanError(str(err), constraint="uniform_load",
+                              topo=self.cluster.topo) from err
+
     def shrink(self, dead_edges=(), dead_workers=()):
-        raise _not_ported("CodedSession.shrink")
+        """Drop PERMANENTLY failed nodes, replan on the survivors, and go
+        on training.  In the coded modes the one-card mesh is rebuilt
+        with the new pod count and the surviving pods keep their own EF
+        residual rows; the shrink record rides checkpoints."""
+        old_topo = self.cluster.topo
+        old_cluster = self.cluster
+        keep = [i for i in range(old_topo.n) if i not in set(dead_edges)]
+        self.cluster = self.cluster.shrink(dead_edges, dead_workers)
+        try:
+            plan = self.planner.plan(self.cluster.params, self.code.K,
+                                     seed=self.seed)
+            self._check_deployable(plan.code)
+        except ReplanError:
+            self.cluster = old_cluster
+            raise
+        except ValueError as err:
+            # the survivors cannot host ANY compatible plan: keep the
+            # pre-shrink session intact and report what broke
+            self.cluster = old_cluster
+            raise ReplanError(
+                str(err), constraint="plan",
+                topo=old_cluster.shrink(dead_edges, dead_workers).topo,
+            ) from err
+        self.plan = plan
+        self.code = plan.code
+        _extend_streams(self.streams, self.code.K, self.cfg.vocab,
+                        self.part_batch, self.seq_len, self.seed)
+        if self.verbose:
+            print(f"[train] shrink: topology → m={self.cluster.topo.m}, "
+                  f"(s_e={self.code.tol.s_e}, s_w={self.code.tol.s_w}), "
+                  f"K={self.code.K}")
+        if self._mesh is not None:
+            if self.residual:  # surviving pods keep their own rows
+                idx = torch.as_tensor(keep, device=self.device)
+                self.residual = [r.index_select(0, idx)
+                                 for r in self.residual]
+            self._setup_train_step()
+        return self.plan
 
+    # ------------------------------------------------------------------
+    # checkpointing / reporting
+    # ------------------------------------------------------------------
     def save_checkpoint(self, step: Optional[int] = None) -> str:
-        raise _not_ported("CodedSession.save_checkpoint")
-
-    def eval_step(self, batch) -> Dict[str, float]:
-        raise _not_ported("CodedSession.eval_step")
-
-    def generate(self, *args, **kwargs):
-        raise _not_ported("CodedSession.generate (serve with "
-                          "repro_torch.api.serving)")
+        """Save params, optimizer state and the elastic state (streams,
+        detector, deployed code, shrink record, EF residuals keyed like
+        the params) in the reference's layout."""
+        if self.store is None:
+            raise RuntimeError("session has no checkpoint_dir")
+        # the detector rides the top-level key only (one source of truth)
+        cluster_state = self.cluster.state_dict()
+        cluster_state.pop("detector", None)
+        extra = {
+            "streams": [s.state_dict() for s in self.streams],
+            "detector": self.cluster.detector.state_dict(),
+            "code": _code_desc(self.code),
+            "cluster": cluster_state,
+        }
+        if self.tcfg.grad_compression != "none" and self._mesh is not None:
+            extra["ef_residual"] = _tree.unflatten_like(self.params,
+                                                        self.residual)
+        return self.store.save(
+            self._step if step is None else step,
+            {"params": self.params, "opt_state": self.opt_state},
+            extra=extra)
 
     def jit_cache_entries(self) -> int:
         """-1: the port's step is eager, so there is no executable cache
@@ -473,3 +689,44 @@ class CodedSession:
             "losses": self.losses,
             "jit_cache_entries": self.jit_cache_entries(),
         }
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    def eval_step(self, batch) -> Dict[str, float]:
+        """Loss/metrics of one batch under the current params (no update,
+        no coding — plain evaluation)."""
+        batch = self._to_device(batch)
+        with torch.no_grad():
+            _, metrics = tf.loss_and_metrics(self.params, self.cfg, batch)
+        return {k: float(v) for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
+    def _serve_fns(self, max_len: int, exact: bool):
+        """The (prefill, decode) pair of ``repro_torch.api.serving``,
+        built once per ``(max_len, exact)``."""
+        key = (max_len, exact)
+        if key not in self._serve_cache:
+            self._serve_cache[key] = (
+                serving.make_prefill_fn(self.cfg, max_len, exact=exact),
+                serving.make_decode_fn(self.cfg))
+        return self._serve_cache[key]
+
+    @torch.inference_mode()
+    def generate(self, prompts, gen_len: int, max_len: Optional[int] = None,
+                 *, greedy: bool = True, seed: int = 0,
+                 exact_handoff: bool = False) -> np.ndarray:
+        """Batched generation from the session's params: bulk prefill →
+        decode loop → (B, gen_len) int32 tokens (numpy).  The float32
+        master params serve in the model's compute dtype (``cfg.dtype``),
+        the one dtype the decode kernel reads q and the cache in."""
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                                  device=self.device)
+        max_len = max_len or int(prompts.shape[1]) + gen_len + 1
+        prefill_fn, decode_fn = self._serve_fns(max_len, exact_handoff)
+        params = tf.cast_params(self.params, self.cfg)
+        return serving.generate_tokens(
+            params, self.cfg, prompts, gen_len, prefill_fn=prefill_fn,
+            decode_fn=decode_fn, greedy=greedy, seed=seed)

@@ -49,6 +49,16 @@ def _unflatten(flat: Dict[str, Any]) -> Any:
     return fix(root)
 
 
+def tensor_from_numpy(arr, device) -> torch.Tensor:
+    """``arr`` as a tensor on ``device`` that shares no memory with it
+    (the port updates params and optimizer state in place).  A CUDA
+    tensor is a copy anyway, so a writable array goes up directly."""
+    arr = np.asarray(arr)
+    if torch.device(device).type == "cpu" or not arr.flags.writeable:
+        arr = np.array(arr)  # own, writable copy
+    return torch.from_numpy(arr).to(device)
+
+
 def params_from_numpy(flat: Dict[str, np.ndarray], device,
                       dtype: torch.dtype = torch.float32) -> Any:
     """Flat ``{key: ndarray}`` → nested dict of tensors on ``device``.
@@ -59,10 +69,10 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device,
     """
     out = {}
     for key, arr in flat.items():
-        t = torch.from_numpy(np.array(arr))  # own, writable copy
+        t = tensor_from_numpy(arr, device)
         if t.is_floating_point():
             t = t.to(dtype if t.ndim >= 2 else torch.float32)
-        out[key] = t.to(device)
+        out[key] = t
     return _unflatten(out)
 
 

@@ -11,14 +11,24 @@ PyTorch counterpart of ``repro.launch.train``, with the same flags plus
     feedback edge→master hop (``--grad-compression int8|int4|fp8``),
     decoded by the fused dequant combine kernels.
 
-Runs on the card unless ``--device cpu`` is given.  Not ported yet (the
-flags raise, naming ROADMAP.md): ``--tp``/``--model-shards`` > 1,
-``--seq-shard``, ``--pp``, ``--microbatches``, ``--checkpoint-dir`` and
-``--resume``.
+Checkpoints are atomic and in the reference's layout: a run killed
+with ``--stop-after`` and rerun with ``--resume`` and the SAME
+``--steps`` (``total_steps`` sets the LR schedule) reproduces the
+uninterrupted run's losses bit for bit.  Runs on the card unless
+``--device cpu`` is given.  Not ported yet (the flags raise, naming
+ROADMAP.md): ``--tp``/``--model-shards`` > 1, ``--seq-shard``, ``--pp``
+and ``--microbatches``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 4 --seq-len 16 --dist coded_q --grad-compression int4
+  # kill after 2 steps, then resume to step 4
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 4 --seq-len 16 --dist coded_q --checkpoint-dir /tmp/ck \\
+      --checkpoint-every 2 --stop-after 2
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 4 --seq-len 16 --dist coded_q --checkpoint-dir /tmp/ck \\
+      --checkpoint-every 2 --resume
 """
 from __future__ import annotations
 
@@ -78,14 +88,17 @@ def main(argv=None):
                     help="cross-pod codec for --dist coded_q (default "
                          "int8)")
     ap.add_argument("--checkpoint-dir", default="",
-                    help="checkpoints (not ported)")
+                    help="directory of the atomic checkpoints")
     ap.add_argument("--checkpoint-every", type=int, default=25,
-                    help="checkpoint period (not ported)")
+                    help="checkpoint period in steps")
     ap.add_argument("--resume", action="store_true",
-                    help="resume (not ported)")
+                    help="resume from the latest checkpoint in "
+                         "--checkpoint-dir")
     ap.add_argument("--stop-after", type=int, default=0,
-                    help="exit cleanly after N steps without touching the "
-                         "LR schedule")
+                    help="simulate a kill: exit cleanly after N steps "
+                         "without touching the LR schedule (--steps still "
+                         "sets total_steps, so a later --resume run "
+                         "reproduces the uninterrupted trajectory)")
     ap.add_argument("--replan-every", type=int, default=0,
                     help="re-run the planner from observed delays every N "
                          "steps")
@@ -120,8 +133,8 @@ def main(argv=None):
             lr=args.lr, total_steps=args.steps, grad_block=args.grad_block,
             grad_compression=args.grad_compression, seed=args.seed,
             scheme=args.scheme, checkpoint_dir=args.checkpoint_dir,
-            resume=args.resume, log_every=args.log_every,
-            device=args.device,
+            checkpoint_every=args.checkpoint_every, resume=args.resume,
+            log_every=args.log_every, device=args.device,
         )
     except ValueError as e:
         raise SystemExit(f"[train] {e}")

@@ -238,8 +238,13 @@ def cast_params(params: PyTree, cfg: ModelConfig) -> PyTree:
 
 
 def _embed(params, cfg, tokens):
+    """Row lookup.  ``F.embedding`` rather than ``table[tokens]``: the
+    indexing backward accumulates repeated ids in a thread-dependent
+    order on the CPU, and kill/resume must repeat a run bit for bit;
+    ``F.embedding``'s backward sums them in a fixed order on the CPU and
+    on the card."""
     table = params["embed"]["table"].to(_torch_dtype(cfg.dtype))
-    return table[tokens]
+    return F.embedding(tokens, table)
 
 
 class _MatmulF32(torch.autograd.Function):

@@ -81,6 +81,14 @@ def test_entry_points_refuse_cpu_without_cuda(monkeypatch):
         serving.generate(params, cfg, [[1, 2, 3]], 2)
     toks = serving.generate(params, cfg, [[1, 2, 3]], 2, device="cpu")
     assert toks.shape == (1, 2)
+    from repro_torch.api import CodedSession
+    from repro_torch.launch import orchestrate, train
+
+    for entry in (lambda: CodedSession(None, cfg, verbose=False),
+                  lambda: train.main(["--smoke"]),
+                  lambda: orchestrate.main(["--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
 
 
 def test_registry_names_roadmap_for_unported_archs():

@@ -357,3 +357,40 @@ def test_coded_q_session_on_the_card_matches_cpu_and_counts_launches():
         # code; error feedback carries that back, so it stays rare.
         off, total = _params_off(trained["cuda"], trained["cpu"], init)
         assert off <= 1e-3 * total, (codec, off, total)
+
+
+def test_kill_resume_on_the_card_is_bit_for_bit(tmp_path):
+    """A small float32 coded_q int8 session on the card, killed after a
+    checkpoint at step 2 and resumed, equals an uninterrupted card run:
+    losses, and the trained params, optimizer state and EF residuals."""
+    from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
+    from repro_torch.checkpoint.params import _flatten
+    from repro_torch.configs.registry import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              dtype="float32")
+    kw = dict(planner=planner_for_scheme("hgc", 1, 1), mode="coded_q",
+              grad_compression="int8", seq_len=16, optimizer="adamw",
+              total_steps=4, verbose=False, device="cuda")
+    fit = dict(force_drop_edge=1, force_drop_step=2)
+
+    def state(s):
+        flat = _flatten({"params": s.params, "opt_state": s.opt_state,
+                         "residual": s.residual})
+        return {k: v.detach().cpu() for k, v in flat.items()}
+
+    whole = CodedSession(CodedCluster.homogeneous(2, 4), cfg, **kw)
+    whole.fit(4, **fit)
+    ck = str(tmp_path / "ck")
+    killed = CodedSession(CodedCluster.homogeneous(2, 4), cfg,
+                          checkpoint_dir=ck, checkpoint_every=2, **kw)
+    killed.fit(4, stop_after=2, **fit)
+    resumed = CodedSession(CodedCluster.homogeneous(2, 4), cfg,
+                           checkpoint_dir=ck, resume=True, **kw)
+    assert resumed._step == 2 and resumed.params["embed"]["table"].is_cuda
+    resumed.fit(4, **fit)
+    assert killed.losses + resumed.losses == whole.losses
+    a, b = state(whole), state(resumed)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

@@ -1,0 +1,163 @@
+"""The reference sessions the port's session tests are held against.
+
+One subprocess runs the reference ``CodedSession`` (the coded modes on an
+8-device host mesh: ``XLA_FLAGS`` must be set before jax is imported,
+and a pytest worker may already hold jax) on the llama3-8b smoke config
+in float32, and writes into one directory:
+
+  * ``params.npz`` — the initial params by flat key (every session here
+    starts from them: they are ``init_params(PRNGKey(0), cfg)``),
+  * ``losses.json`` — the losses of each run, by name:
+    ``off``/``coded``/``coded_qint8``/… (4 sgd steps, edge 1 dropped at
+    step 2); ``killed`` and ``resumed`` (adamw coded_q int8 with a
+    checkpoint at step 2, killed there, resumed from a copy of the
+    directory to step 4); ``shrink`` (coded_int8 on a 3 × 2 cluster, 3
+    steps, edge 1 shrunk away, on to step 6),
+  * ``ck/`` — the killed run's checkpoint directory (step 2),
+  * ``shrink_residual.npz`` — the first residual leaf before and after
+    the shrink,
+  * ``serve.npz`` / ``serve.json`` — an eval batch with its
+    ``eval_step`` metrics, and prompts with their greedy f32 tokens
+    from a serve-only session.
+
+Test files in several pytest-xdist workers share one run: the first to
+take the lock runs it, the others wait for its ``done`` marker.
+"""
+import fcntl
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+RUNS = [("off", ""), ("coded", ""), ("coded_q", "int8"), ("coded_q", "int4"),
+        ("coded_q", "fp8")]
+SESSION = dict(seq_len=16, optimizer="sgd", lr=0.05, total_steps=4, seed=0)
+FIT = dict(force_drop_edge=1, force_drop_step=2)
+# the checkpointed adamw run (killed after step 2, resumed to step 4)
+CKPT = dict(seq_len=16, optimizer="adamw", lr=0.01, total_steps=4, seed=0,
+            checkpoint_every=2, keep_checkpoints=1)
+# tests/test_api_session.py's shrink run, in float32
+SHRINK = dict(seq_len=16, optimizer="sgd", lr=0.05, total_steps=6, seed=0)
+GEN = 6
+#: intra-op threads for the port's tiny models: with several pytest-xdist
+#: workers, more threads than that per worker only contend for the cores
+THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Import into a test module to run its torch work on ``THREADS``
+    threads (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, THREADS))
+    yield
+    torch.set_num_threads(n)
+
+
+def subprocess_env(**extra) -> dict:
+    """The environment of a port subprocess: ``src`` on the path and
+    ``THREADS`` OpenMP threads."""
+    return dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                OMP_NUM_THREADS=str(THREADS), **extra)
+
+_SCRIPT = """
+import dataclasses, json, shutil, sys
+import jax
+import numpy as np
+from repro.api import CodedCluster, CodedSession, planner_for_scheme
+from repro.checkpoint.store import _flatten
+from repro.configs.registry import get_smoke_config
+out, runs, kw, fit, ck, shrink, gen = sys.argv[1], *map(json.loads,
+                                                        sys.argv[2:8])
+cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
+
+
+def session(cluster, mode, comp, planner=None, **extra):
+    return CodedSession(cluster, cfg,
+                        planner=planner or planner_for_scheme("hgc", 1, 1),
+                        mode=mode, grad_compression=comp, verbose=False,
+                        **extra)
+
+
+losses = {}
+for mode, comp in runs:
+    s = session(CodedCluster.homogeneous(2, 4), mode, comp, **kw)
+    if not losses:
+        np.savez(out + "/params.npz",
+                 **{k: np.asarray(v) for k, v in _flatten(s.params).items()})
+    losses[mode + comp] = s.fit(4, **fit)["losses"]
+
+s = session(CodedCluster.homogeneous(2, 4), "coded_q", "int8",
+            checkpoint_dir=out + "/ck", **ck)
+losses["killed"] = s.fit(4, stop_after=2, **fit)["losses"]
+shutil.copytree(out + "/ck", out + "/ck_resumed")
+s = session(CodedCluster.homogeneous(2, 4), "coded_q", "int8",
+            checkpoint_dir=out + "/ck_resumed", resume=True, **ck)
+losses["resumed"] = s.fit(4, **fit)["losses"]
+
+s = session(CodedCluster.hetero(3, 2), "coded_int8", "", planner="fixed",
+            **shrink)
+s.fit(3)
+before = np.asarray(jax.tree.leaves(s.residual)[0])
+s.shrink(dead_edges=[1])
+after = np.asarray(jax.tree.leaves(s.residual)[0])
+s.fit(6)
+losses["shrink"] = s.losses
+np.savez(out + "/shrink_residual.npz", before=before, after=after)
+
+rng = np.random.default_rng(0)
+batch = {"tokens": rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32),
+         "targets": rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32),
+         "weights": rng.random((2, 16)).astype(np.float32)}
+prompts = rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)
+s = CodedSession(None, cfg, verbose=False)
+serve = {"eval": s.eval_step(batch),
+         "tokens": np.asarray(s.generate(prompts, gen)).tolist()}
+np.savez(out + "/serve.npz", prompts=prompts, **batch)
+json.dump(serve, open(out + "/serve.json", "w"))
+json.dump(losses, open(out + "/losses.json", "w"))
+"""
+
+
+def _run(out: Path) -> None:
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    args = [json.dumps(x) for x in (RUNS, SESSION, FIT, CKPT, SHRINK, GEN)]
+    r = subprocess.run([sys.executable, "-c", _SCRIPT, str(out), *args],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError("reference sessions failed:\n"
+                           + r.stdout[-2000:] + r.stderr[-2000:])
+
+
+def reference_dir(tmp_path_factory) -> Path:
+    """The directory of the reference run, made once per test session
+    (once across the pytest-xdist workers of one run)."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    base = tmp_path_factory.getbasetemp()
+    out = base.parent / f"torch_reference_{uid}" if uid else \
+        base / "torch_reference"
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if (out / "failed").exists():
+                raise RuntimeError((out / "failed").read_text())
+            if not (out / "done").exists():
+                try:
+                    _run(out)
+                except RuntimeError as err:
+                    (out / "failed").write_text(str(err))
+                    raise
+                (out / "done").touch()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out
