@@ -20,7 +20,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      K = 8 × the 117M-value ``mlp.wd`` leaf for the f32 encode/decode,
      beside ``torch.mm`` with TF32 off); the flash kernel's per-row
      log-sum-exp against the plain version's, and the flash kernel timed
-     at the training shape too (S = 512, with its log-sum-exp); the
+     at the training shape too (S = 512, with its log-sum-exp); the f32
+     combine at the evaluation shape (R = 1, K = 40, F = 845,738) with
+     16-byte-aligned (padded) and packed rows, beside ``torch.mm``; the
      decode kernel's split of the cache sweep at the serve shape is
      printed.  For attention, besides the grid's
      tolerance, every output row (the Dh features of one query and head)
@@ -85,6 +87,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      found by heartbeats alone, at least one replan, no decode fallback,
      finite losses, exact launches per trained round, and no worker
      process with torch loaded (read from its ``/proc/<pid>/maps``).
+  9. the paper's evaluation path (``simulate_training``): the CNN under
+     hgc and the logreg under greedy, 3 iterations at batch 32 per part,
+     on the card and on the CPU from the same weights (times equal,
+     losses within 2e-3·|loss|, accuracies within 2 / n_eval); at one
+     CNN iteration's per-part gradients, every exact scheme's aggregate
+     equals their plain sum within 1e-5·max|Σg|; then all nine schemes
+     at the paper's sizes (K = 40, 8000 samples, batch 32 per part,
+     1000 evaluation samples; MNIST/logreg 400 iterations as Table I,
+     CIFAR/CNN 100 as Figs. 5/6): simulated ms per iteration and hours,
+     final accuracy, hours to Table I's 0.85, host ms per iteration,
+     peak memory, and exactly one combine launch per iteration and no
+     other kernel; and one hgc iteration of each model under
+     ``torch.profiler``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -118,6 +133,16 @@ TRAIN_LAYERS, TRAIN_SEQ, GROUPS = 2, 512, 8
 B, PROMPT, GEN = 4, 1024, 32
 H, KV, DH = 32, 8, 128
 CACHE = PROMPT + GEN + 1  # max_len of the serve CLI
+
+# the paper's evaluation path: benchmarks/bench_fig56_accuracy.py and
+# bench_table1_time_to_acc.py at their FULL settings
+EVAL_K, EVAL_N_DATA, EVAL_BATCH, EVAL_N_EVAL = 40, 8000, 32, 1000
+EVAL_RUNS = {  # dataset → (iterations, evaluations every, seed)
+    "mnist": (400, 20, 11),   # Table I: 400 iterations, 20 evaluations
+    "cifar": (100, 10, 7),    # Figs. 5/6: 100 iterations, 10 evaluations
+}
+EVAL_TARGET = 0.85            # Table I's target accuracy
+CNN_F = 845_738               # the CNN's parameters (the logreg has 7,850)
 
 
 def log(*a):
@@ -515,6 +540,39 @@ def _time_combine(torch, kind, R, K, F, block):
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), share
 
 
+def _time_combine_eval(torch):
+    """The f32 combine at the evaluation path's shape (R = 1, K = 40, F =
+    the CNN's 845,738 parameters) in both row layouts: the simulator's,
+    each row's stride rounded up to 4 floats (16-byte rows: the vector
+    path), and a packed (K, F) matrix (rows 8 bytes off: the scalar
+    path).  Each checked row-wise against the plain version; kernel and
+    ``torch.mm`` (TF32 off) timed by CUDA-graph replay (a ~50 us call
+    from Python would time the host), the plain version by CUDA events."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coded_combine import coded_combine
+
+    R, K, F = 1, EVAL_K, CNN_F
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    c = torch.randn(R, K, generator=gen, device="cuda")
+    padded = torch.randn(K, -(-F // 4) * 4, generator=gen,
+                         device="cuda")[:, :F]
+    packed = padded.contiguous()
+    out = {}
+    for layout, g in (("padded", padded), ("packed", packed)):
+        got, want = coded_combine(c, g), ref.coded_combine_ref(c, g)
+        share = _row_share(got, want)
+        if not share <= 1e-5:
+            raise AssertionError(f"coded_combine {layout} at R={R} K={K} "
+                                 f"F={F}: a row is off by {share:.3g}")
+        out[layout] = (graph_ms(lambda: coded_combine(c, g)), share,
+                       (got - want).abs().max().item())
+    plain_ms = timed_ms(lambda: ref.coded_combine_ref(c, packed), 20)
+    lib_ms = graph_ms(lambda: torch.mm(c, packed))
+    bms, by = bound_ms(K * F * 4 + R * K * 4 + R * F * 4, 2 * R * K * F,
+                       "float32")
+    return out, plain_ms, lib_ms, bms, by
+
+
 def _check_flash_lse(torch, gen):
     """The flash kernel's per-row log-sum-exp (the training forward's
     second output) against the plain version's, f32 and bf16, and at
@@ -602,6 +660,15 @@ def phase_kernels():
         if name not in rows:  # the first shape of each kernel is its row
             rows[name] = r
         torch.cuda.empty_cache()
+    by_layout, plain_ms, lib_ms, bms, by = _time_combine_eval(torch)
+    log(f"[kernels] coded_combine at the evaluation shape R=1 K={EVAL_K} "
+        f"F={CNN_F}: " + ", ".join(
+            f"{layout} rows {ms:.4f} ms (worst row {share:.3g}, max abs "
+            f"err {err:.3g})" for layout, (ms, share, err)
+            in by_layout.items())
+        + f"; plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"torch.mm {lib_ms:.4f} ms")
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1346,6 +1413,225 @@ def phase_orchestrate():
     return totals
 
 
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _eval_parity(torch, totals):
+    """``simulate_training`` on the card against the CPU from the same
+    initial weights: the CNN under hgc and the logreg under greedy, 3
+    iterations at batch 32 per part."""
+    import numpy as np
+
+    from repro_torch.api import paper_cluster, simulate_training
+    from repro_torch.kernels import ops
+    from repro_torch.models import classic
+
+    n_eval, iters = 500, 3
+    for name, dataset, init in (("hgc", "cifar", classic.init_cnn),
+                                ("greedy", "mnist", classic.init_logreg)):
+        t0 = time.perf_counter()
+        kw = dict(dataset=dataset, K=EVAL_K, batch_per_part=EVAL_BATCH,
+                  n_data=2000, n_eval=n_eval, iters=iters,
+                  init_params=init(0))
+        ops.reset_launch_counts()
+        card = simulate_training(name, paper_cluster(dataset),
+                                 device="cuda", **kw)
+        counts = _nonzero(ops.launch_counts())
+        if counts != {"coded_combine": iters}:
+            raise AssertionError(f"{name} {dataset}: launches {counts}")
+        totals["coded_combine"] += iters
+        t_card = time.perf_counter() - t0
+        cpu = simulate_training(name, paper_cluster(dataset), device="cpu",
+                                **kw)
+        loss_off = np.abs(card.losses - cpu.losses) / np.abs(cpu.losses)
+        acc_off = np.abs(card.accuracies - cpu.accuracies)
+        if not (np.array_equal(card.iter_times_ms, cpu.iter_times_ms)
+                and np.isfinite(card.losses).all()
+                and loss_off.max() <= 2e-3
+                and acc_off.max() <= 2 / n_eval):
+            raise AssertionError(
+                f"{name} {dataset}: card {card} against cpu {cpu}")
+        log(f"[eval] card == cpu, {name} on {dataset}: times equal, losses "
+            f"{np.round(card.losses, 5).tolist()} within "
+            f"{[float(f'{x:.3g}') for x in loss_off]} x |loss| (limit "
+            f"2e-3), accuracies "
+            f"{card.accuracies.tolist()} within {acc_off.max():.3g} (limit "
+            f"{2 / n_eval:g}); card {t_card:.1f} s, cpu "
+            f"{time.perf_counter() - t0 - t_card:.1f} s")
+
+
+def _eval_exact(torch):
+    """At one CNN iteration's per-part gradients on the card, every exact
+    scheme's aggregate (one combine launch) equals the plain sum of the
+    K part gradients within 1e-5·max|Σg|."""
+    import numpy as np
+
+    from repro_torch.api import paper_cluster
+    from repro_torch.core.schemes import SCHEME_NAMES, make_scheme
+    from repro_torch.sim.simulator import TrainingRun
+
+    params = paper_cluster("cifar")
+    run = TrainingRun("hgc", params, dataset="cifar", K=EVAL_K,
+                      batch_per_part=EVAL_BATCH, n_data=2000, n_eval=10,
+                      iters=1, device="cuda")
+    sel = torch.arange(EVAL_BATCH, device="cuda")
+    g = run.part_gradients(sel)
+    want = g.sum(0)
+    scale = want.abs().max().item()
+    rng = np.random.default_rng(3)
+    worst = {}
+    for name in SCHEME_NAMES:
+        scheme = make_scheme(name, params.topo, EVAL_K, params=params)
+        if not scheme.exact:
+            continue
+        D = getattr(scheme, "load_array", scheme.load)
+        outcome = scheme.iteration(params.sample_iteration(rng, D))
+        err = (scheme.gradient(g, outcome) - want).abs().max().item()
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"{name}: aggregate off the sum by "
+                                 f"{err:.3g} > 1e-5 x {scale:.3g}")
+        worst[name] = err / scale
+    log(f"[eval] exact schemes' aggregates == sum of the {EVAL_K} part "
+        f"gradients of the CNN (F={g.shape[1]}, row stride "
+        f"{g.stride(0)}), in x max|sum| (limit 1e-5): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def _kernel_group(name: str) -> str:
+    """The part of an evaluation iteration a device event belongs to."""
+    if "combine_kernel" in name:
+        return "the port's combine kernel"
+    if name.startswith("Memcpy") or name.startswith("Memset"):
+        return "copies and sets"
+    if "at::native" in name:
+        return "PyTorch elementwise, reductions, pooling (the update too)"
+    return "cuDNN / cuBLAS (convolutions, FC products)"
+
+
+def _eval_profile(torch, profile, ProfilerActivity, dataset):
+    """One hgc iteration at the paper's sizes under ``torch.profiler``:
+    device ms by kernel name and by part, busy as the union of the
+    device intervals (cuDNN's kernels overlap), over the median host
+    time of three unprofiled iterations (the profiler slows the host)."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    from repro_torch.api import paper_cluster
+    from repro_torch.sim.simulator import TrainingRun
+
+    run = TrainingRun("hgc", paper_cluster(dataset), dataset=dataset,
+                      K=EVAL_K, batch_per_part=EVAL_BATCH,
+                      n_data=EVAL_N_DATA, n_eval=EVAL_N_EVAL, iters=6,
+                      eval_every=100, device="cuda")
+    host = []
+    for t in range(5):  # t = 0 evaluates; 1..3 are timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if t == 4:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run.step()
+                torch.cuda.synchronize()
+        else:
+            run.step()
+            torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    by_name = collections.Counter()
+    spans = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+    if not by_name:
+        raise AssertionError("the profiler saw no device work in the "
+                             "iteration")
+    spans.sort()
+    busy_us, until = 0.0, spans[0][0]
+    for start, end in spans:  # the union of the device intervals
+        busy_us += max(0.0, end - max(start, until))
+        until = max(until, end)
+    busy = busy_us / 1e3
+    median = sorted(host[1:4])[1]
+    log(f"[profile] {dataset} hgc iteration: {len(spans)} device events, "
+        f"{sum(by_name.values()):.3f} ms summed, {busy:.3f} ms busy (their "
+        f"union), first to last {(spans[-1][1] - spans[0][0]) / 1e3:.3f} "
+        f"ms; over the unprofiled iterations' median host {median:.3f} ms "
+        f"({[round(x, 3) for x in host[1:4]]}): device busy "
+        f"{100 * busy / median:.1f}% (host under the profiler "
+        f"{host[4]:.3f} ms)")
+    groups = collections.Counter()
+    for name, ms in by_name.items():
+        groups[_kernel_group(name)] += ms
+    for group, ms in groups.most_common():
+        log(f"[profile]   {ms:9.3f} ms  {group}")
+    for name, ms in by_name.most_common(10):
+        log(f"[profile]   {ms:9.3f} ms  {name[:90]}")
+
+
+def phase_eval():
+    """The paper's evaluation path on the card: card against CPU, the
+    exact schemes' decode, every scheme at the paper's sizes (launches
+    of the combine set to 0 before each run and read after it: exactly
+    one per iteration, and no other kernel), one profiled iteration of
+    each model."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import paper_cluster
+    from repro_torch.core.schemes import SCHEME_NAMES
+    from repro_torch.kernels import ops
+    from repro_torch.sim.simulator import TrainingRun
+
+    totals = {name: 0 for name in ops.KERNELS}
+    _eval_parity(torch, totals)
+    _eval_exact(torch)
+    for dataset, (iters, every, seed) in EVAL_RUNS.items():
+        params = paper_cluster(dataset)
+        for name in SCHEME_NAMES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = TrainingRun(name, params, dataset=dataset, K=EVAL_K,
+                              iters=iters, batch_per_part=EVAL_BATCH,
+                              eval_every=every, n_data=EVAL_N_DATA,
+                              n_eval=EVAL_N_EVAL, seed=seed, device="cuda")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run.step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / iters
+            counts = _nonzero(ops.launch_counts())
+            if counts != {"coded_combine": iters}:
+                raise AssertionError(f"{dataset} {name}: launches {counts}, "
+                                     f"expected {iters} coded_combine")
+            totals["coded_combine"] += iters
+            tr = run.trace()
+            if not (np.isfinite(tr.losses).all()
+                    and np.isfinite(tr.accuracies).all()):
+                raise AssertionError(f"{dataset} {name}: {tr}")
+            hit = tr.time_to_accuracy(EVAL_TARGET)
+            log(f"[eval] {dataset} {name}: simulated "
+                f"{tr.iter_times_ms.mean():.3f} ms/iteration, "
+                f"{tr.total_time_h:.4f} h; final accuracy "
+                f"{tr.accuracies[-1]:.4f}; to {EVAL_TARGET}: "
+                + (f"{hit:.4f} h" if hit is not None else "not reached")
+                + f"; host {wall_ms:.3f} ms/iteration (set-up "
+                f"{setup_s:.2f} s); peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; "
+                f"launches {counts}")
+            del run
+    for dataset in EVAL_RUNS:
+        _eval_profile(torch, profile, ProfilerActivity, dataset)
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -1378,8 +1664,9 @@ def main() -> int:
     train_counts = phase(phase_train)
     ckpt_counts = phase(phase_checkpoint)
     orch_counts = phase(phase_orchestrate)
+    eval_counts = phase(phase_eval)
     paths = {"train": train_counts, "checkpoint": ckpt_counts,
-             "orchestrate": orch_counts}
+             "orchestrate": orch_counts, "eval": eval_counts}
     log(f"[done] launches on the main paths: serve {counts}, " + ", ".join(
         f"{name} { {k: v for k, v in c.items() if v} }"
         for name, c in paths.items()))

@@ -4,9 +4,9 @@
   * the :class:`Planner` strategies and :func:`planner_for_scheme`,
   * :class:`CodedSession` — coded training on one device, checkpoints
     and kill/resume, shrink, eval and generate,
-  * re-exports of the stable core/dist vocabulary (``Topology``,
-    ``HGCCode``, ``replan``, …), as the reference's ``repro.api`` has
-    them (its ``simulate_training`` is not ported yet; ROADMAP.md).
+  * re-exports of the stable core/dist/sim vocabulary (``Topology``,
+    ``HGCCode``, ``replan``, ``simulate_training``, …), as the
+    reference's ``repro.api`` has them.
 
 ``repro_torch.api.serving`` (prefill/decode) is a submodule, not pulled
 in here.
@@ -23,6 +23,7 @@ from repro_torch.dist.elastic import (
     replan,
     shrink_topology,
 )
+from repro_torch.sim.simulator import simulate_training
 
 from repro_torch.api.cluster import CodedCluster, sample_straggler_pattern
 from repro_torch.api.planner import (
@@ -65,6 +66,7 @@ __all__ = [
     "replan",
     "shrink_topology",
     "price_tolerance",
+    "simulate_training",
     "jncss",
     "tradeoff",
 ]

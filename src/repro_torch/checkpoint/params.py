@@ -5,7 +5,8 @@ The port's own copy of the ``.npz`` key scheme of
 ``_unflatten``): a nested dict of arrays maps to ``{"a/b/c": array}``.
 ``params_from_numpy`` carries weights saved (or flattened) by the JAX
 package into the port's nested dict of tensors under the same keys;
-``params_to_numpy`` goes back.
+``params_to_numpy`` goes back; ``classic_params_from_reference``
+carries the paper models' weights (``models.classic``).
 """
 from __future__ import annotations
 
@@ -86,3 +87,18 @@ def params_to_numpy(params: Any) -> Dict[str, np.ndarray]:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return {k: host(v) for k, v in _flatten(params).items()}
+
+
+def classic_params_from_reference(tree: Dict[str, Any], device) -> Any:
+    """The reference's ``models.classic`` params (a nested dict of arrays)
+    → the port's, float32 on ``device``: a convolution's HWIO weight
+    becomes OIHW; every other leaf keeps its shape (the FC weights are
+    (in, out) in both, and the port flattens in the reference's
+    (H, W, C) order, so ``fc0``'s rows carry over unpermuted)."""
+    def leaf(key, arr):
+        arr = np.asarray(arr, np.float32)
+        if key.startswith("conv") and key.endswith(_SEP + "w"):
+            arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+        return tensor_from_numpy(arr, device)
+
+    return _unflatten({k: leaf(k, v) for k, v in _flatten(tree).items()})

@@ -394,3 +394,49 @@ def test_kill_resume_on_the_card_is_bit_for_bit(tmp_path):
     assert sorted(a) == sorted(b)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("F,stride", [(7850, 7850), (7850, 7852),
+                                      (845738, 845738), (845738, 845740)],
+                         ids=["logreg-packed", "logreg-padded",
+                              "cnn-packed", "cnn-padded"])
+def test_coded_combine_at_the_evaluation_shape(F, stride):
+    """R = 1, K = 40: the simulator's decode.  A packed row stride of F
+    floats is not 16-byte aligned (the scalar path); the padded one is."""
+    from repro_torch.kernels import coded_combine as cc
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.randn(40, stride, generator=gen, device="cuda")[:, :F]
+    c = torch.randn(1, 40, generator=gen, device="cuda")
+    before = cc.coded_combine.launches
+    got = ops.combine(c, g)
+    assert cc.coded_combine.launches == before + 1
+    want = ref.coded_combine_ref(c, g)
+    worst = ((got - want).abs().amax() / want.abs().amax()).item()
+    assert worst <= 1e-5, worst
+
+
+def test_simulate_training_on_the_card_matches_cpu():
+    """The logistic regression under greedy and the CNN under hgc, three
+    iterations on the card and on the CPU from the same weights: equal
+    times, losses within 2e-3·|loss|, accuracies within 2 / n_eval, one
+    combine launch per iteration."""
+    from repro_torch.api import paper_cluster, simulate_training
+    from repro_torch.models import classic
+
+    for name, dataset, init in (("greedy", "mnist", classic.init_logreg),
+                                ("hgc", "cifar", classic.init_cnn)):
+        kw = dict(dataset=dataset, K=40, iters=3, batch_per_part=4,
+                  n_data=800, n_eval=100, eval_every=1,
+                  init_params=init(0))
+        ops.reset_launch_counts()
+        card = simulate_training(name, paper_cluster(dataset),
+                                 device="cuda", **kw)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == {"coded_combine": 3}
+        cpu = simulate_training(name, paper_cluster(dataset), device="cpu",
+                                **kw)
+        np.testing.assert_array_equal(card.iter_times_ms, cpu.iter_times_ms)
+        assert np.isfinite(card.losses).all()
+        np.testing.assert_allclose(card.losses, cpu.losses, rtol=2e-3)
+        assert np.abs(card.accuracies - cpu.accuracies).max() <= 2 / 100
