@@ -26,7 +26,8 @@ PAYLOAD_DTYPE = {"f32": torch.float32, "int8": torch.int8,
                  "int4": torch.int8, "fp8": torch.float8_e4m3fn}
 #: bytes a vector load of each kind reads (the alignment it needs)
 _VEC_BYTES = {"f32": 16, "int8": 16, "int4": 8, "fp8": 16}
-#: the most C the kernel keeps in shared memory, in floats
+#: the most C a launch takes, in floats (kinds 1–3 keep it in shared
+#: memory; the f32 kernel reads it through the read-only cache)
 MAX_COEFFS = 48 * 1024
 
 
@@ -58,8 +59,8 @@ def _launch(kind: str, coeff: torch.Tensor, grads: torch.Tensor,
     if grads.stride(1) != 1:
         raise ValueError("grads rows must be packed")
     if R * K > MAX_COEFFS:
-        raise ValueError(f"C has {R * K} coefficients; the kernel keeps at "
-                         f"most {MAX_COEFFS} in shared memory")
+        raise ValueError(f"C has {R * K} coefficients; a launch takes at "
+                         f"most {MAX_COEFFS}")
     s_rs = 0
     if scales is not None:
         if scales.dtype != torch.float32 or scales.shape != (K, F // block) \

@@ -16,25 +16,49 @@
 // gradient coding, and the fused dequant-combine of the compressed
 // edge->master hop (K = number of pods, R = 1).
 //
-// Design.  K is skinny (2 on the hop, <= 64 for encode/decode) and F is
-// huge (one embedding leaf is 525,336,576 values), so the kernel streams
-// G once and is bound by memory.  The whole C (R x K floats) sits in
-// shared memory.  Each thread owns VEC consecutive columns (4 for f32,
-// 16 for the 1-byte and packed payloads) and, for each tile of RT rows
-// of C, keeps RT x VEC f32 accumulators in registers: it walks the K rows
-// of G with one vector load each (16 bytes; 8 for packed int4),
-// dequantizes in registers and accumulates with f32 FMA (never TF32).
+// Bound.  K is skinny (2 on the hop, <= 64 for encode/decode) and F is
+// huge (one embedding leaf is 525,336,576 values), so every kind streams
+// G once and is bound by memory: each G byte and scale read once, each
+// output written once.  For the hop's int8 payload of the embedding leaf
+// (K = 2, F = 525,336,576, block 64) that is 1.05 GB + 66 MB of scales +
+// 2.10 GB of output, >= ~0.96 ms at 3.35 TB/s; for the evaluation's
+// decode (R = 1, K = 40, F = 845,738) 135 MB of G, >= ~0.041 ms.
+//
+// Kind 0: a balanced persistent grid.  The grid-stride design (the
+// generic kernel below with a float32 payload) lost to torch.mm at the
+// evaluation shape: its 826 blocks of 256 threads left 34 of 132 SMs a
+// seventh block to run alone (a tail of ~13 us at that shape, read as
+// the intercept of its time against F), and the loads a thread kept in
+// flight were whatever the compiler hoisted out of a loop over a
+// runtime K with the vector/scalar branch inside.  This kernel instead:
+//   * launches exactly the blocks the SMs hold at once (occupancy times
+//     132), so no SM runs a later wave, and interleaves their threads
+//     over F (thread i of n takes 4-column chunks i, i + n, ...): every
+//     SM has the same work, and at any moment the card reads one
+//     contiguous stretch of each row (contiguous per-block spans read
+//     ~6% slower);
+//   * walks K four rows at a time, issuing the four 16-byte loads (4
+//     scalar loads where G's rows are not 16-byte aligned) before their
+//     FMAs, with C read through the read-only cache;
+//   * FMAs in f32 (never TF32) into RT x 4 registers, one launch per
+//     call, K never split across blocks.
+// A TMA ring (a producer warp keeping K rows of a column tile in flight
+// with 1-D bulk copies, 8 consumer warps reading shared memory) was
+// built and measured slower at every shape, as were other unroll
+// depths: tools/combine_variants.cu keeps them, and
+// tools/torch_combine_variants.py times them beside this kernel.
+
+// Kinds 1-3 keep the grid-stride design: each thread owns VEC consecutive
+// columns (16 for the 1-byte and packed payloads) and, for each tile of
+// RT rows of C (the whole C sits in shared memory), keeps RT x VEC f32
+// accumulators in registers, walking the K rows of G with one vector
+// load each (16 bytes; 8 for packed int4), dequantizing in registers.
 // A grid-stride loop covers any F; a scalar path takes the tail and rows
 // that are not aligned for vector loads.  Any block size that divides
 // the payload is taken (one scale per thread when block % VEC == 0, per
 // value otherwise).  No padding: the Pallas wrapper's pad of F to 512 is
 // gone.  Offsets are 64-bit throughout (a 525M-value f32 output is past
 // 2^31 bytes).
-//
-// Bound.  Each G byte and scale is read once and each output written
-// once: for the hop's int8 payload of the embedding leaf (K = 2, F =
-// 525,336,576, block 64) that is 1.05 GB + 66 MB of scales + 2.10 GB of
-// output, >= ~0.96 ms at 3.35 TB/s.
 
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -43,18 +67,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-struct PayF32 {
-  using T = float;
-  static constexpr int VEC = 4;
-  static constexpr int RT = 8;
-  static constexpr bool SCALED = false;
-  static __device__ __forceinline__ void load_vec(const T* row, long long f, float* v) {
-    const float4 x = *reinterpret_cast<const float4*>(row + f);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  }
-  static __device__ __forceinline__ float load_one(const T* row, long long f) { return row[f]; }
-};
 
 struct PayI8 {
   using T = int8_t;
@@ -234,6 +246,102 @@ int launch(const float* C, int R, int K, const void* G, long long g_rs, const fl
   return launch_rt<P, P::RT>(C, R, K, G, g_rs, S, s_rs, block, F, out, vec_ok, stream);
 }
 
+
+// ---- kind 0: a balanced persistent grid -------------------------------
+
+constexpr int kUnroll = 4;  // rows of G whose loads are in flight before their FMAs
+
+// Thread i of n takes the 4-column chunks i, i + n, i + 2n, ... of F, so
+// every SM holds the same number of threads and at any moment the card
+// reads one contiguous stretch of every row.  For each tile of RT rows
+// of C it walks the K rows of G kUnroll at a time: the kUnroll loads (16
+// bytes each where G's rows allow, else 4 scalar loads) are issued
+// before any of their FMAs.
+template <int RT>
+__global__ void __launch_bounds__(kThreads)
+combine_f32_kernel(const float* __restrict__ C, int R, int K, const float* __restrict__ G,
+                   long long g_rs, long long F, float* __restrict__ out, int vec_ok,
+                   int out_vec) {
+  const long long chunks = (F + 3) / 4, step = (long long)gridDim.x * blockDim.x;
+  for (long long ch = (long long)blockIdx.x * blockDim.x + threadIdx.x; ch < chunks;
+       ch += step) {
+    const long long f0 = ch * 4;
+    const int nv = (int)min(4LL, F - f0);
+    const bool full = vec_ok && nv == 4;
+    for (int r0 = 0; r0 < R; r0 += RT) {
+      float acc[RT][4];
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[rr][e] = 0.f;
+      for (int k0 = 0; k0 < K; k0 += kUnroll) {
+        float g[kUnroll][4];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {  // rows past K reload row 0, unused
+          const float* row = G + (long long)(k0 + u < K ? k0 + u : 0) * g_rs + f0;
+          if (full) {
+            const float4 x = __ldg(reinterpret_cast<const float4*>(row));
+            g[u][0] = x.x; g[u][1] = x.y; g[u][2] = x.z; g[u][3] = x.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) g[u][e] = e < nv ? __ldg(row + e) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (k0 + u >= K) break;
+#pragma unroll
+          for (int rr = 0; rr < RT; ++rr) {
+            const float c = (r0 + rr < R) ? __ldg(C + (long long)(r0 + rr) * K + k0 + u) : 0.f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[rr][e] = fmaf(c, g[u][e], acc[rr][e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr) {
+        if (r0 + rr >= R) break;
+        float* orow = out + (long long)(r0 + rr) * F + f0;
+        if (full && out_vec) {
+          *reinterpret_cast<float4*>(orow) =
+              make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (e < nv) orow[e] = acc[rr][e];
+        }
+      }
+    }
+  }
+}
+
+// As many blocks as the SMs hold at once (all resident: no SM runs a
+// later wave), fewer when F is small.
+template <int RT>
+int launch_f32_rt(const float* C, int R, int K, const float* G, long long g_rs, long long F,
+                  float* out, int vec_ok, cudaStream_t stream) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, combine_f32_kernel<RT>, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const long long need = ((F + 3) / 4 + kThreads - 1) / kThreads;
+  const long long most = (long long)sm_count() * per_sm;
+  const long long blocks = need < most ? need : most;
+  const int out_vec = (F % 4 == 0) && ((reinterpret_cast<uintptr_t>(out) & 15) == 0);
+  combine_f32_kernel<RT><<<(unsigned)blocks, kThreads, 0, stream>>>(C, R, K, G, g_rs, F, out,
+                                                                   vec_ok, out_vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(const float* C, int R, int K, const float* G, long long g_rs, long long F,
+               float* out, int vec_ok, cudaStream_t stream) {
+  if (R == 1) return launch_f32_rt<1>(C, R, K, G, g_rs, F, out, vec_ok, stream);
+  return launch_f32_rt<8>(C, R, K, G, g_rs, F, out, vec_ok, stream);
+}
+
 }  // namespace
 
 // C (R, K) float32 packed; G rows of g_rs elements of the payload type
@@ -253,7 +361,8 @@ extern "C" int coded_combine_launch(int kind, const void* C, int R, int K, const
   if (R < 1 || K < 1 || F < 1 || (kind != 0 && (block < 1 || F % block != 0)))
     return (int)cudaErrorInvalidValue;
   switch (kind) {
-    case 0: return launch<PayF32>(c, R, K, G, g_rs, s, s_rs, 1, F, o, vec_ok, st);
+    case 0:
+      return launch_f32(c, R, K, static_cast<const float*>(G), g_rs, F, o, vec_ok, st);
     case 1: return launch<PayI8>(c, R, K, G, g_rs, s, s_rs, block, F, o, vec_ok, st);
     case 2: return launch<PayI4>(c, R, K, G, g_rs, s, s_rs, block, F, o, vec_ok, st);
     case 3: return launch<PayF8>(c, R, K, G, g_rs, s, s_rs, block, F, o, vec_ok, st);

@@ -17,9 +17,16 @@ coded-combine launch on the card.  Only the aggregate's norm and the
 accuracies come to the host.  The sampled times and each part's
 minibatch come from the reference's numpy generator in the reference's
 order, so ``iter_times_ms`` and the minibatches equal the reference's.
+
+A run computes in float32 with deterministic algorithms, as the
+reference does: while its iterations execute, TF32 is off for matmuls
+and convolutions and cuDNN picks deterministic algorithms without
+benchmarking (:func:`repeatable`), so a run on the card is a function of
+its seed; the caller's flags are restored afterwards.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional
 
@@ -67,6 +74,25 @@ def simulate_times(
         sample = params.sample_iteration(rng, D)
         out[t] = scheme.iteration(sample).time
     return out
+
+
+@contextlib.contextmanager
+def repeatable():
+    """Float32 with deterministic algorithms, for the duration: TF32 off
+    for matmuls and convolutions, cuDNN deterministic and not
+    benchmarking.  The four flags are restored to what they were on
+    exit, also when the body raises.  Used as a decorator on the
+    methods of :class:`TrainingRun` that compute."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+             cudnn.benchmark)
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+         cudnn.benchmark) = saved
 
 
 def _make_model(dataset: str, seed: int, device):
@@ -148,6 +174,7 @@ class TrainingRun:
         self.acc_times: List[float] = []
         self.acc_iters: List[int] = []
 
+    @repeatable()
     def part_gradients(self, sel: torch.Tensor) -> torch.Tensor:
         """The (K, dim) per-part gradients at the current weights, part k
         on its rows ``sel`` (each part's own mean CE loss), written into
@@ -161,11 +188,13 @@ class TrainingRun:
             off += n
         return self.g_parts
 
+    @repeatable()
     def accuracy(self) -> float:
         with torch.no_grad():
             return float(classic.accuracy(
                 self.apply(self.model_params, self.x_eval), self.y_eval))
 
+    @repeatable()
     def step(self) -> None:
         """Iteration ``t``: sample its time and minibatch (numpy, the
         reference's order), decode the aggregate, update, evaluate if

@@ -440,3 +440,55 @@ def test_simulate_training_on_the_card_matches_cpu():
         assert np.isfinite(card.losses).all()
         np.testing.assert_allclose(card.losses, cpu.losses, rtol=2e-3)
         assert np.abs(card.accuracies - cpu.accuracies).max() <= 2 / 100
+
+
+@pytest.mark.parametrize("K", [1, 13, 40, 64, 200])
+@pytest.mark.parametrize("R", [1, 8, 13])
+def test_coded_combine_f32_at_its_edges(R, K):
+    """The f32 kernel's own edges: R within and past one tile of 8 rows
+    of C; K below its 4-row unroll, not a multiple of it (1, 13) and
+    far past it; F below one thread's 4 columns (3), below one warp's
+    (64) and not a multiple of 4 (4162, 845,738); rows packed (every
+    odd row 8 bytes off a 16-byte boundary: scalar loads) and padded to
+    16 bytes (vector loads); every output row within 1e-5 of its max
+    |plain|."""
+    from repro_torch.kernels import coded_combine as cc
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for F, padded in itertools.product([3, 64, 4162, 845738],
+                                       [False, True]):
+        if F == 845738 and R * K > 320:
+            continue  # the evaluation's width at its own K; keeps it short
+        g = torch.randn(K, -(-F // 4) * 4 if padded else F, generator=gen,
+                        device="cuda")[:, :F]
+        c = torch.randn(R, K, generator=gen, device="cuda")
+        before = cc.coded_combine.launches
+        got = cc.coded_combine(c, g)
+        assert cc.coded_combine.launches == before + 1
+        want = ref.coded_combine_ref(c, g)
+        row_max = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        worst = ((got - want).abs() / row_max).max().item()
+        assert worst <= 1e-5, (R, K, F, padded, worst)
+
+
+def test_simulate_training_on_the_card_repeats_bit_for_bit(monkeypatch):
+    """Two card runs of the CNN under hgc from the same seed and weights
+    give equal losses and accuracies, bit for bit, whatever the caller's
+    cuDNN flags (here TF32 on, benchmarking, not deterministic), which
+    the runs leave as they found them."""
+    from repro_torch.api import paper_cluster, simulate_training
+    from repro_torch.models import classic
+
+    caller = dict(allow_tf32=True, benchmark=True, deterministic=False)
+    for name, value in caller.items():
+        monkeypatch.setattr(torch.backends.cudnn, name, value)
+    kw = dict(dataset="cifar", K=40, iters=4, batch_per_part=8,
+              n_data=800, n_eval=100, eval_every=1, seed=3,
+              init_params=classic.init_cnn(3))
+    a = simulate_training("hgc", paper_cluster("cifar"), device="cuda", **kw)
+    b = simulate_training("hgc", paper_cluster("cifar"), device="cuda", **kw)
+    assert np.isfinite(a.losses).all()
+    np.testing.assert_array_equal(a.losses, b.losses)
+    np.testing.assert_array_equal(a.accuracies, b.accuracies)
+    for name, value in caller.items():
+        assert getattr(torch.backends.cudnn, name) == value

@@ -8,7 +8,9 @@ logistic regression (paper_cluster("mnist"), K = 40, n_data 800,
 batch_per_part 8, 5 iterations) and ``hgc`` on the CNN (K = 40,
 batch_per_part 2, n_data 400, 2 iterations).  Gates: ``iter_times_ms``,
 ``eval_iters`` and ``eval_times_h`` equal; losses (the aggregate's norm)
-within 1e-4·|loss|; accuracies within 2 / n_eval.
+within 1e-4·|loss|; accuracies within 2 / n_eval.  A run computes with
+TF32 off and cuDNN deterministic, and leaves the caller's four backend
+flags as it found them, also when it raises.
 """
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from repro_torch.checkpoint.params import classic_params_from_reference
 from repro_torch.core.runtime_model import paper_cluster
 from repro_torch.core.schemes import SCHEME_NAMES, make_scheme
 from repro_torch.kernels import ops
+from repro_torch.models import classic
 from repro_torch.sim import simulator
 
 
@@ -113,3 +116,54 @@ def test_simulate_training_refuses_cpu_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simulate_training("hgc", paper_cluster("mnist"), iters=1)
+
+
+#: the backend flags a run sets, and the values it computes under
+_FLAGS = ((torch.backends.cudnn, "allow_tf32"),
+          (torch.backends.cuda.matmul, "allow_tf32"),
+          (torch.backends.cudnn, "deterministic"),
+          (torch.backends.cudnn, "benchmark"))
+_RUN_FLAGS = (False, False, True, False)
+
+
+def _flags():
+    return tuple(getattr(mod, name) for mod, name in _FLAGS)
+
+
+@pytest.mark.parametrize("raises", [False, True])
+@pytest.mark.parametrize("entry", ["simulate_training", "step"])
+def test_run_computes_deterministically_and_restores_the_flags(
+        monkeypatch, entry, raises):
+    caller = tuple(not v for v in _RUN_FLAGS)
+    for (mod, name), value in zip(_FLAGS, caller):
+        monkeypatch.setattr(mod, name, value)
+    seen = []
+    part_grads = classic.part_grads
+
+    def spy(*a, **kw):
+        seen.append(_flags())
+        if raises:
+            raise FloatingPointError("a failing iteration")
+        return part_grads(*a, **kw)
+
+    monkeypatch.setattr(simulator.classic, "part_grads", spy)
+    kw = dict(dataset="cifar", K=40, iters=2, batch_per_part=1, n_data=200,
+              n_eval=8, device="cpu")
+    if entry == "simulate_training":
+        def run():
+            simulate_training("hgc", paper_cluster("cifar"), **kw)
+    else:
+        training = simulator.TrainingRun("hgc", paper_cluster("cifar"),
+                                         **kw)
+        assert _flags() == caller
+
+        def run():
+            training.step()
+            training.step()
+    if raises:
+        with pytest.raises(FloatingPointError, match="failing iteration"):
+            run()
+    else:
+        run()
+    assert seen == [_RUN_FLAGS] * (1 if raises else 2)
+    assert _flags() == caller
