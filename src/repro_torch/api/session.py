@@ -224,6 +224,8 @@ class CodedSession:
         self.log_every = log_every
         self.verbose = verbose
         self.losses: List[float] = []
+        #: the coded MoE steps' aux losses, of this process's steps
+        self.aux_losses: List[float] = []
         self._serve_cache: Dict = {}
 
         if params is not None:
@@ -491,6 +493,8 @@ class CodedSession:
              metrics) = self.train_step(self.params, self.opt_state, batch,
                                         lam, self.residual, step)
         self.losses.append(float(metrics["loss"]))
+        if "aux_loss" in metrics:  # the coded MoE step's Σ aux_ij / n
+            self.aux_losses.append(float(metrics["aux_loss"]))
         self._step = step + 1
         return dict(metrics)
 

@@ -11,19 +11,21 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCH_IDS = ("llama3-8b",)
-
-#: reference archs whose port is still queued in ROADMAP.md
-NOT_PORTED = (
+ARCH_IDS = (
+    "llama3-8b",
     "granite-8b",
     "starcoder2-3b",
     "gemma3-27b",
+    "granite-moe-3b-a800m",
+    "llama4-maverick-400b-a17b",
+)
+
+#: reference archs whose port is still queued in ROADMAP.md
+NOT_PORTED = (
     "qwen2-vl-2b",
     "recurrentgemma-2b",
     "whisper-medium",
     "mamba2-370m",
-    "granite-moe-3b-a800m",
-    "llama4-maverick-400b-a17b",
 )
 
 

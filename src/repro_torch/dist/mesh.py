@@ -62,8 +62,9 @@ class OneCardMesh:
         for j in range(self.data):
             lam_ij = float(lam[pod, j])
             grads, loss_ij = group_fn(pod, j)
-            for g in grads:
-                g.mul_(lam_ij)
+            if lam_ij != 1.0:  # unit weights (the MoE objective): no pass
+                for g in grads:
+                    g.mul_(lam_ij)
             if partial is None:
                 partial = list(grads)
                 loss = loss_ij * lam_ij

@@ -7,7 +7,10 @@ then ``--gen`` greedy decode steps (decode-attention kernel).  Runs on the
 card unless ``--device cpu`` is given.
 
 ``--smoke/--no-smoke`` picks the smoke or the full config (default
-smoke); ``--no-smoke`` serves the full llama3-8b (≈16 GB of bf16 weights).
+smoke); ``--no-smoke`` serves the full config, e.g. llama3-8b (≈16 GB of
+bf16 weights), granite-8b, starcoder2-3b, gemma3-27b (≈54 GB) or
+granite-moe-3b-a800m.  :func:`serve` is the same request for a config
+built by the caller (e.g. a depth-cut one).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
@@ -61,19 +64,32 @@ def main(argv=None):
         raise NotImplementedError(
             "repro_torch serves on one device (tp=1); tensor parallelism "
             "is queued in ROADMAP.md")
-    device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.f32:
         cfg = dataclasses.replace(cfg, dtype="float32")
+    res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                gen_len=args.gen, seed=args.seed, device=args.device,
+                exact_handoff=args.exact_handoff)
+    toks = res["tokens"]
+    if args.tokens_out:
+        with open(args.tokens_out, "w") as f:
+            json.dump({"tp": args.tp, "tokens": toks.tolist()}, f)
+    return res
 
+
+def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
+          device="cuda", exact_handoff: bool = False) -> dict:
+    """One request: random weights and prompt from ``seed``, prefill,
+    ``gen_len`` greedy tokens → the tokens, the last logits, the host
+    times and the peak memory (printed as the CLI prints them)."""
+    device = resolve_device(device)
     with torch.inference_mode():
-        gen = torch.Generator(device=device).manual_seed(args.seed)
+        gen = torch.Generator(device=device).manual_seed(seed)
         params = tf.init_params(cfg, gen, device=device)
-        prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
                                generator=gen, device=device)
-        max_len = args.prompt_len + args.gen + 1
-        prefill = serving.make_prefill_fn(cfg, max_len,
-                                          exact=args.exact_handoff)
+        max_len = prompt_len + gen_len + 1
+        prefill = serving.make_prefill_fn(cfg, max_len, exact=exact_handoff)
         decode = serving.make_decode_fn(cfg)
         seen = {}
 
@@ -100,29 +116,26 @@ def main(argv=None):
         with torch.profiler.record_function("serve.request"):
             t0 = time.perf_counter()
             toks = serving.generate_tokens(
-                params, cfg, prompt, args.gen, prefill_fn=timed_prefill,
-                decode_fn=watched_decode, seed=args.seed)
+                params, cfg, prompt, gen_len, prefill_fn=timed_prefill,
+                decode_fn=watched_decode, seed=seed)
             total = time.perf_counter() - t0  # ends in the tokens' host copy
     decode_s = total - seen["prefill_s"]
     stats = {
         "prefill_ms": 1e3 * seen["prefill_s"],
-        "decode_ms_per_token": 1e3 * decode_s / max(args.gen, 1),
-        "tok_per_s": args.batch * args.gen / decode_s if decode_s else 0.0,
+        "decode_ms_per_token": 1e3 * decode_s / max(gen_len, 1),
+        "tok_per_s": batch * gen_len / decode_s if decode_s else 0.0,
         "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None),
     }
-    mode = "exact-handoff" if (args.exact_handoff
+    mode = "exact-handoff" if (exact_handoff
                                or not tf.bulk_prefill_supported(cfg)) \
         else "bulk-prefill"
-    print(f"[serve] {args.arch} ({device.type}, {mode}): generated "
+    print(f"[serve] {cfg.name} ({device.type}, {mode}): generated "
           f"{toks.shape} tokens in {total:.3f}s; prefill "
           f"{stats['prefill_ms']:.2f} ms, decode "
           f"{stats['decode_ms_per_token']:.3f} ms/token "
           f"({stats['tok_per_s']:.1f} tok/s)")
     print("[serve] sample:", toks[0][:16].tolist())
-    if args.tokens_out:
-        with open(args.tokens_out, "w") as f:
-            json.dump({"tp": args.tp, "tokens": toks.tolist()}, f)
     return {"tokens": toks, "last_logits": seen.get("last_logits"),
             **stats}
 

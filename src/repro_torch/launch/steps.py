@@ -12,16 +12,19 @@ PyTorch counterpart of ``repro.launch.steps``:
     group's gradient of its own coeff-weighted loss IS its message G_ij
     (eq. 22), decoded by the two-stage λ-weighted sum of
     :mod:`repro_torch.dist.grad_sync` (eqs. 25/27), with the quantized +
-    error-feedback hop when ``tcfg.grad_compression`` is set.
+    error-feedback hop when ``tcfg.grad_compression`` is set.  For MoE
+    archs λ is folded into each group's objective and the load-balancing
+    aux gradient decoded with uniform weights (the reference's rule).
 
 Steps update the params and the optimizer state in place and return
-them.  Tensor, sequence and pipeline parallelism and MoE are not ported
+them.  Tensor, sequence and pipeline parallelism are not ported
 (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import _tree
@@ -52,17 +55,17 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
         raise NotImplementedError(
             "pipeline and sequence parallelism are not ported to "
             "repro_torch yet; see the dist regimes in ROADMAP.md")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE is not ported to repro_torch yet; see "
-            f"ROADMAP.md")
 
 
-def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """(gradient leaves in leaf order, metrics) of ``loss_and_metrics``."""
+def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+           objective: Optional[Callable] = None):
+    """(gradient leaves in leaf order, metrics) of ``loss_and_metrics``'s
+    total, or of ``objective(metrics)`` when given."""
     leaves = _tree.leaves(params)
     with torch.enable_grad():
         total, metrics = tf.loss_and_metrics(params, cfg, batch)
+        if objective is not None:
+            total = objective(metrics)
         grads = torch.autograd.grad(total, leaves)
     return list(grads), {k: v.detach() for k, v in metrics.items()}
 
@@ -144,6 +147,13 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     ``tcfg.grad_compression`` set, ``residual`` is the list of per-pod EF
     residual leaves ``(n_pods, *leaf.shape)``, updated in place; pass an
     empty list otherwise.  The decoded loss is Σ_ij λ_ij L_ij.
+
+    MoE archs: the λ-weighted decode is exact for the coeff-weighted data
+    loss only, so group (i, j) differentiates ``λ_ij · L_ij + (AUX_WEIGHT
+    / n_groups) · aux_ij`` — the aux regularizer decoded with uniform
+    weights, stragglers included, so it does not depend on the straggler
+    pattern — and the two-stage sum runs with unit weights.  The metrics
+    then carry ``aux_loss`` = Σ_ij aux_ij / n_groups.
     """
     from repro_torch.dist import grad_sync
 
@@ -160,24 +170,42 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
                 f"grad_compression={tcfg.grad_compression!r} not in "
                 f"{('none',) + compression.COMPRESSION_MODES}")
 
+    n_groups = mesh.pods * mesh.data
+
     def train_step(params, opt_state, batch, lam, residual, step):
         B = batch["tokens"].shape[0]
+        aux_terms = []  # MoE: aux_ij / n_groups of each group
 
         def group_fn(pod, data):
             rows = mesh.group_rows(pod, data, B)
             local = {k: (v[rows] if v.ndim else v) for k, v in batch.items()}
-            grads, m = _grads(params, cfg, local)
-            return grads, m["loss"]
+            if not cfg.is_moe:
+                grads, m = _grads(params, cfg, local)
+                return grads, m["loss"]
+            lam_ij = float(np.asarray(lam, np.float32)[pod, data])
+            grads, m = _grads(
+                params, cfg, local,
+                objective=lambda m: (lam_ij * m["loss"] + (
+                    tf.AUX_WEIGHT / n_groups) * m["aux_loss"]))
+            aux_terms.append(m["aux_loss"] / n_groups)
+            return grads, lam_ij * m["loss"]
 
+        # MoE: λ is inside each group's objective, so the sums run unweighted
+        lam_sum = np.ones_like(np.asarray(lam, np.float32)) if cfg.is_moe \
+            else lam
         if compressed:
             grads, loss = grad_sync.compressed_coded_psum(
-                mesh, group_fn, lam, residual,
+                mesh, group_fn, lam_sum, residual,
                 block=tcfg.grad_compression_block,
                 mode=tcfg.grad_compression)
         else:
-            grads, loss = grad_sync.coded_weighted_psum(mesh, group_fn, lam)
+            grads, loss = grad_sync.coded_weighted_psum(mesh, group_fn,
+                                                        lam_sum)
+        metrics = {"loss": loss}
+        if cfg.is_moe:
+            metrics["aux_loss"] = torch.stack(aux_terms).sum()
         metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
-                          step, {"loss": loss})
+                          step, metrics)
         return params, opt_state, residual, metrics
 
     train_step.optimizer = optimizer

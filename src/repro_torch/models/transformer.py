@@ -1,7 +1,8 @@
-"""Dense attention-only transformer of the port (serving and training).
+"""Attention-only transformer of the port (serving and training).
 
 PyTorch counterpart of ``repro.models.transformer`` for decoders whose
-layers are all "global"/"local" attention with a dense MLP (llama3):
+layers are all "global"/"local" attention with a dense MLP or a
+mixture of experts (``models.moe``):
 
   * params are nested dicts of tensors keyed like the reference pytree
     (``embed/table``, ``groups/p0/attn/wq`` …); every layer tensor of a
@@ -19,7 +20,7 @@ layers are all "global"/"local" attention with a dense MLP (llama3):
     rematerialized with ``torch.utils.checkpoint``, as ``_remat_wrap``
     does with ``jax.checkpoint``.
 
-Kinds the slice does not cover (ssm, recurrent, MoE, encoder–decoder,
+Kinds the port does not cover yet (ssm, recurrent, encoder–decoder,
 M-RoPE) raise ``NotImplementedError``; ROADMAP.md queues them.
 """
 from __future__ import annotations
@@ -34,6 +35,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 
 PyTree = Any
 
@@ -46,10 +48,10 @@ def _torch_dtype(name) -> torch.dtype:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.block_pattern) - {"global", "local"}
-    if kinds or cfg.is_moe or cfg.is_encdec or cfg.mrope_sections:
+    if kinds or cfg.is_encdec or cfg.mrope_sections:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs dense attention-only decoders "
-            f"so far (pattern {cfg.block_pattern}, moe={cfg.is_moe}, "
+            f"{cfg.name}: repro_torch runs attention-only decoders (dense "
+            f"or MoE) so far (pattern {cfg.block_pattern}, "
             f"encdec={cfg.is_encdec}, mrope={cfg.mrope_sections}); the "
             f"other kinds are queued in ROADMAP.md")
 
@@ -99,6 +101,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``dtype`` (default ``cfg.dtype``), the final norm scale in float32.
     Training passes ``dtype=torch.float32``: the f32 master copy.
     ``generator`` must live on ``device``; None seeds one with 0.
+    Layers where ``cfg.moe_at(k)`` hold ``moe`` (experts of width
+    ``d_ff``) in place of ``mlp`` (width ``d_ff_dense or d_ff``).
     """
     _check_supported(cfg)
     device = resolve_device(device)
@@ -113,7 +117,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         t = torch.randn(shape, generator=generator, dtype=dt, device=device)
         return t.mul_(0.02)
 
-    def layers(lead: Tuple[int, ...]) -> Dict:
+    def layers(lead: Tuple[int, ...], moe: bool) -> Dict:
         ndt = dt if lead else torch.float32
         p: Dict[str, Any] = {
             "norm1": _init_norm(cfg, lead + (d,), device, ndt),
@@ -126,7 +130,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         }
         if cfg.d_ff > 0:
             p["norm2"] = _init_norm(cfg, lead + (d,), device, ndt)
-            if cfg.mlp == "swiglu":
+            if moe:
+                p["moe"] = moe_lib.init_moe(
+                    d, cfg.d_ff, cfg.n_experts, cfg.n_shared_experts,
+                    generator, device, dt, lead)
+            elif cfg.mlp == "swiglu":
                 p["mlp"] = {"wg": normal(*lead, d, ff),
                             "wu": normal(*lead, d, ff),
                             "wd": normal(*lead, ff, d)}
@@ -143,9 +151,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["head"] = {"w": normal(d, V)}
     P = len(cfg.block_pattern)
     n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
-    params["groups"] = {f"p{k}": layers((n_groups,)) for k in range(P)}
+    params["groups"] = {f"p{k}": layers((n_groups,), cfg.moe_at(k))
+                        for k in range(P)}
     if n_rest:
-        params["rest"] = {f"r{k}": layers(()) for k in range(n_rest)}
+        params["rest"] = {f"r{k}": layers((), cfg.moe_at(k))
+                          for k in range(n_rest)}
     return params
 
 
@@ -197,24 +207,38 @@ def _mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
 
 
+def _ffn_apply(p: Dict, h: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward half → (output, MoE aux loss or None)."""
+    if "moe" in p:
+        return moe_lib.moe_ffn(p["moe"], h, cfg.top_k, cfg.capacity_factor)
+    return _mlp_apply(p["mlp"], h, cfg), None
+
+
 def _layer_out(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
-               rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """One layer's output without its cache entry (the training body)."""
-    return _layer_apply(p, x, kind, cfg, rope)[0]
+               rope: Tuple[torch.Tensor, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer's (output, aux) without its cache entry (the training
+    body)."""
+    x, _, aux = _layer_apply(p, x, kind, cfg, rope)
+    return x, aux
 
 
 def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
                  rope: Tuple[torch.Tensor, torch.Tensor]
-                 ) -> Tuple[torch.Tensor, Dict]:
-    """Returns (x_out, cache_entry)."""
+                 ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+    """Returns (x_out, cache_entry, aux_loss): aux is the MoE layer's
+    load-balancing loss, None for a dense layer."""
     h = _norm(p["norm1"], x)
     out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope)
     cache_entry = {"k": k.reshape(*k.shape[:2], -1),
                    "v": v.reshape(*v.shape[:2], -1)}
     x = x + out
+    aux = None
     if "norm2" in p:
-        x = x + _mlp_apply(p["mlp"], _norm(p["norm2"], x), cfg)
-    return x, cache_entry
+        out, aux = _ffn_apply(p, _norm(p["norm2"], x), cfg)
+        x = x + out
+    return x, cache_entry, aux
 
 
 # ----------------------------------------------------------------------
@@ -299,9 +323,10 @@ def _layers(params, cfg):
 
 def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor], return_cache: bool
-            ) -> Tuple[torch.Tensor, Dict]:
-    """Embedding and the layer stack on cast params → (x, cache); each
-    layer rematerialized under autograd (``cfg.remat``)."""
+            ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """Embedding and the layer stack on cast params → (x, cache, the
+    layers' summed aux loss); each layer rematerialized under autograd
+    (``cfg.remat``)."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     if positions is None:
@@ -316,19 +341,24 @@ def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 n: torch.empty((n_groups, B, S, KvDh), dtype=x.dtype,
                                device=x.device) for n in ("k", "v")}
     remat = cfg.remat and torch.is_grad_enabled() and not return_cache
+    auxes = []
     for lp, kind, (part, key), l in _layers(params, cfg):
         if remat:
-            x = checkpoint(_layer_out, lp, x, kind, cfg, rope,
-                           use_reentrant=False)
-            continue
-        x, entry = _layer_apply(lp, x, kind, cfg, rope)
+            x, aux = checkpoint(_layer_out, lp, x, kind, cfg, rope,
+                                use_reentrant=False)
+        else:
+            x, entry, aux = _layer_apply(lp, x, kind, cfg, rope)
+        if aux is not None:
+            auxes.append(aux)
         if return_cache:
             if l is None:
                 cache[part][key] = entry
             else:
                 cache[part][key]["k"][l] = entry["k"]
                 cache[part][key]["v"][l] = entry["v"]
-    return x, cache
+    aux_total = (torch.stack(auxes).sum() if auxes else
+                 torch.zeros((), dtype=torch.float32, device=x.device))
+    return x, cache, aux_total
 
 
 def forward(
@@ -339,18 +369,20 @@ def forward(
     return_cache: bool = False,
     last_only: bool = False,  # unembed only the final position (prefill)
 ):
-    """Full-sequence forward → logits (B, S, V) f32 [, cache].
+    """Full-sequence forward → ``(logits (B, S, V) f32, aux)``, or
+    ``(logits, cache, aux)`` with ``return_cache``, as the reference's;
+    aux is the layers' summed MoE load-balancing loss (0 when dense).
 
     The cache holds each layer's K/V as ``(…, S, Kv·Dh)``, stacked per
     pattern position like the reference's scan output.
     """
     _check_supported(cfg)
     params = cast_params(params, cfg)
-    x, cache = _hidden(params, cfg, tokens, positions, return_cache)
+    x, cache, aux = _hidden(params, cfg, tokens, positions, return_cache)
     if last_only:
         x = x[:, -1:]
     logits = _unembed(params, cfg, x)
-    return (logits, cache) if return_cache else logits
+    return (logits, cache, aux) if return_cache else (logits, aux)
 
 
 # ----------------------------------------------------------------------
@@ -368,8 +400,8 @@ def head_loss_terms(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Unembed + weighted CE on the layer stack's output; ``params`` must
     already be cast.  Returns the un-normalized ``(Σ nll·w, Σ w, aux)``
-    so the caller picks the denominator (dense: aux = 0; the port has no
-    rest layers after the stack)."""
+    so the caller picks the denominator; aux is that of the layers run
+    here, none in the port (``_hidden`` runs the rest layers), so 0."""
     logits = _unembed(params, cfg, x)
     nll = _ce_nll(logits, targets)
     w = weights if weights is not None else torch.ones_like(nll)
@@ -390,10 +422,11 @@ def loss_and_metrics(params: PyTree, cfg: ModelConfig,
     """
     _check_supported(cfg)
     params = cast_params(params, cfg)
-    x, _ = _hidden(params, cfg, batch["tokens"], batch.get("positions"),
-                   return_cache=False)
-    nll_sum, w_sum, aux = head_loss_terms(params, cfg, x, batch["targets"],
-                                          batch.get("weights"))
+    x, _, aux = _hidden(params, cfg, batch["tokens"],
+                        batch.get("positions"), return_cache=False)
+    nll_sum, w_sum, aux_rest = head_loss_terms(
+        params, cfg, x, batch["targets"], batch.get("weights"))
+    aux = aux + aux_rest
     denom = batch.get("denom")
     if denom is None:
         denom = torch.clamp(w_sum, min=1.0)
@@ -460,7 +493,9 @@ def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
         window=window, softcap=cfg.logit_softcap)
     x1 = x1 + out.reshape(B, 1, H * Dh) @ a["wo"]
     if "norm2" in p:
-        x1 = x1 + _mlp_apply(p["mlp"], _norm(p["norm2"], x1), cfg)
+        # MoE: N = B tokens, so the capacity drops what the reference's
+        # decode step drops
+        x1 = x1 + _ffn_apply(p, _norm(p["norm2"], x1), cfg)[0]
     return x1
 
 
@@ -490,9 +525,11 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             last_only: bool = False) -> Tuple[torch.Tensor, PyTree]:
     """Full-sequence forward that also materializes the K/V cache
-    (full length; :func:`prefill_to_decode_cache` re-lays it)."""
-    return forward(params, cfg, tokens, return_cache=True,
-                   last_only=last_only)
+    (full length; :func:`prefill_to_decode_cache` re-lays it) →
+    ``(logits, cache)``."""
+    logits, cache, _ = forward(params, cfg, tokens, return_cache=True,
+                               last_only=last_only)
+    return logits, cache
 
 
 def bulk_prefill_supported(cfg: ModelConfig) -> bool:

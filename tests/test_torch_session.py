@@ -10,6 +10,12 @@ same losses (1e-5: the same float32 arithmetic up to summation order).
 Then the tolerances of ``tests/test_dist_train_elastic.py`` hold inside
 the port: ``coded`` equals ``off`` (5e-4), and ``coded_q`` tracks it
 (5e-3).
+
+The granite-moe smoke config runs the same way in modes off, coded and
+coded_q int8: losses and ``aux_loss`` within 1e-5, and the trained
+params within 1e-4 of each leaf's largest change (plus two float32
+spacings; over the int8 hop a 1e-3 share may differ, where a partial an
+ulp off rounds to the next code).
 """
 import dataclasses
 import json
@@ -23,6 +29,8 @@ from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
 from repro_torch.configs.registry import get_smoke_config
 from torch_reference import (  # noqa: F401 (few_threads: autouse)
     FIT,
+    MOE_ARCH,
+    MOE_RUNS,
     REPO,
     RUNS,
     SESSION,
@@ -82,6 +90,45 @@ def test_session_options_not_ported_raise():
     with pytest.raises(ValueError, match="pins grad_compression"):
         CodedSession(cl, cfg, mode="coded_int8", grad_compression="fp8",
                      device="cpu", verbose=False)
+
+
+@pytest.fixture(scope="module")
+def moe_reference(tmp_path_factory):
+    out = reference_dir(tmp_path_factory)
+    return out, json.loads((out / "moe.json").read_text())
+
+
+@pytest.mark.parametrize("run", [m + c for m, c in MOE_RUNS])
+def test_moe_session_matches_reference(moe_reference, run):
+    """The coded MoE step (λ inside each group's objective, the aux
+    decoded with uniform weights) against the reference's, step by step
+    with a forced edge drop."""
+    from repro_torch.checkpoint.params import params_to_numpy
+
+    out, ref = moe_reference
+    init = dict(np.load(out / "moe_params.npz"))
+    mode, comp = next((m, c) for m, c in MOE_RUNS if m + c == run)
+    cfg = dataclasses.replace(get_smoke_config(MOE_ARCH), dtype="float32")
+    s = CodedSession(CodedCluster.homogeneous(2, 4), cfg,
+                     planner=planner_for_scheme("hgc", 1, 1), mode=mode,
+                     grad_compression=comp, verbose=False, params=init,
+                     device="cpu", **SESSION)
+    steps = [s._iteration(t, **FIT) for t in range(4)]
+    np.testing.assert_allclose([float(m["loss"]) for m in steps],
+                               ref[run]["losses"], rtol=0, atol=1e-5)
+    aux = [float(m["aux_loss"]) for m in steps if "aux_loss" in m]
+    assert len(aux) == len(ref[run]["aux"]) == (0 if mode == "off" else 4)
+    np.testing.assert_allclose(aux, ref[run]["aux"], rtol=0, atol=1e-5)
+    want = dict(np.load(out / f"moe_{run}.npz"))
+    got = params_to_numpy(s.params)
+    assert got.keys() == want.keys()
+    off = total = 0
+    for key, w in want.items():
+        tol = (1e-4 * np.abs(w - init[key]).max()
+               + 2 * np.spacing(np.abs(w)))
+        off += int((np.abs(got[key] - w) > tol).sum())
+        total += w.size
+    assert off <= (1e-3 * total if comp else 0), (off, total)
 
 
 @pytest.mark.parametrize("codec", ["int4", "fp8"])

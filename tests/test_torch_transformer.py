@@ -53,8 +53,9 @@ def test_forward_logits_and_prefill_cache_match(gqa):
     ref_cfg, cfg, jparams, params = _setup(gqa)
     toks = _tokens(1, 2, 40, cfg.vocab)
     jlogits, _ = jtf.forward(jparams, ref_cfg, jnp.asarray(toks))
-    logits = ttf.forward(params, cfg, torch.from_numpy(toks).long())
+    logits, aux = ttf.forward(params, cfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert aux.dtype == torch.float32 and float(aux) == 0.0  # dense
 
     jl, jcache = jtf.prefill(jparams, ref_cfg, jnp.asarray(toks),
                              last_only=True)
@@ -155,11 +156,20 @@ def test_init_params_layout_matches_reference():
         assert t.dtype == (torch.bfloat16 if t.ndim >= 2 else torch.float32)
 
 
-def test_unported_kinds_raise():
+@pytest.mark.parametrize("change", [
+    dict(block_pattern=("ssm",)),
+    dict(block_pattern=("recurrent", "local")),
+    dict(n_enc_layers=2),
+    dict(mrope_sections=(2, 3, 3)),
+], ids=["ssm", "rglru", "encdec", "mrope"])
+def test_unported_kinds_raise(change):
+    """The kinds still queued raise naming ROADMAP.md; MoE is ported
+    (tests/test_torch_moe.py, tests/test_torch_archs.py)."""
     _, cfg = _cfgs(False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init_params(dataclasses.replace(cfg, block_pattern=("ssm",)),
-                        device="cpu")
+        ttf.init_params(dataclasses.replace(cfg, **change), device="cpu")
+    moe = dataclasses.replace(cfg, n_experts=4, top_k=2)
+    assert "moe" in ttf.init_params(moe, device="cpu")["groups"]["p0"]
 
 
 def test_variant_layers_match_reference():
@@ -177,7 +187,7 @@ def test_variant_layers_match_reference():
         {k: np.asarray(v) for k, v in _flatten(jparams).items()}, "cpu")
     toks = _tokens(10, 2, 12, cfg.vocab)
     jlogits, _ = jtf.forward(jparams, ref_cfg, jnp.asarray(toks))
-    logits = ttf.forward(params, cfg, torch.from_numpy(toks).long())
+    logits, _ = ttf.forward(params, cfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
     # bulk handoff (local ring trimmed to the window) == exact, and the
     # decode chain continues like the reference's

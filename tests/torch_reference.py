@@ -18,7 +18,12 @@ in float32, and writes into one directory:
     the shrink,
   * ``serve.npz`` / ``serve.json`` — an eval batch with its
     ``eval_step`` metrics, and prompts with their greedy f32 tokens
-    from a serve-only session.
+    from a serve-only session,
+  * ``moe_params.npz``, ``moe_<run>.npz``, ``moe.json`` — the
+    granite-moe smoke config in float32 (the same session settings, one
+    step at a time with edge 1 dropped at step 2) in modes off, coded and
+    coded_q int8: the initial params, each run's trained params, and each
+    step's loss and (coded modes) ``aux_loss``.
 
 Test files in several pytest-xdist workers share one run: the first to
 take the lock runs it, the others wait for its ``done`` marker.
@@ -45,6 +50,8 @@ CKPT = dict(seq_len=16, optimizer="adamw", lr=0.01, total_steps=4, seed=0,
 # tests/test_api_session.py's shrink run, in float32
 SHRINK = dict(seq_len=16, optimizer="sgd", lr=0.05, total_steps=6, seed=0)
 GEN = 6
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_RUNS = [("off", ""), ("coded", ""), ("coded_q", "int8")]
 #: intra-op threads for the port's tiny models: with several pytest-xdist
 #: workers, more threads than that per worker only contend for the cores
 THREADS = 2
@@ -73,13 +80,17 @@ import numpy as np
 from repro.api import CodedCluster, CodedSession, planner_for_scheme
 from repro.checkpoint.store import _flatten
 from repro.configs.registry import get_smoke_config
-out, runs, kw, fit, ck, shrink, gen = sys.argv[1], *map(json.loads,
-                                                        sys.argv[2:8])
+out, runs, kw, fit, ck, shrink, gen, moe_arch, moe_runs = sys.argv[1], *map(
+    json.loads, sys.argv[2:10])
 cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
 
 
-def session(cluster, mode, comp, planner=None, **extra):
-    return CodedSession(cluster, cfg,
+def flat(params):
+    return {k: np.asarray(v) for k, v in _flatten(params).items()}
+
+
+def session(cluster, mode, comp, planner=None, model=None, **extra):
+    return CodedSession(cluster, model or cfg,
                         planner=planner or planner_for_scheme("hgc", 1, 1),
                         mode=mode, grad_compression=comp, verbose=False,
                         **extra)
@@ -89,8 +100,7 @@ losses = {}
 for mode, comp in runs:
     s = session(CodedCluster.homogeneous(2, 4), mode, comp, **kw)
     if not losses:
-        np.savez(out + "/params.npz",
-                 **{k: np.asarray(v) for k, v in _flatten(s.params).items()})
+        np.savez(out + "/params.npz", **flat(s.params))
     losses[mode + comp] = s.fit(4, **fit)["losses"]
 
 s = session(CodedCluster.homogeneous(2, 4), "coded_q", "int8",
@@ -121,6 +131,20 @@ serve = {"eval": s.eval_step(batch),
          "tokens": np.asarray(s.generate(prompts, gen)).tolist()}
 np.savez(out + "/serve.npz", prompts=prompts, **batch)
 json.dump(serve, open(out + "/serve.json", "w"))
+
+moe_cfg = dataclasses.replace(get_smoke_config(moe_arch), dtype="float32")
+moe = {}
+for mode, comp in moe_runs:
+    s = session(CodedCluster.homogeneous(2, 4), mode, comp, model=moe_cfg,
+                **kw)
+    if not moe:
+        np.savez(out + "/moe_params.npz", **flat(s.params))
+    steps = [s._iteration(t, **fit) for t in range(4)]
+    moe[mode + comp] = {
+        "losses": [float(m["loss"]) for m in steps],
+        "aux": [float(m["aux_loss"]) for m in steps if "aux_loss" in m]}
+    np.savez(out + f"/moe_{mode + comp}.npz", **flat(s.params))
+json.dump(moe, open(out + "/moe.json", "w"))
 json.dump(losses, open(out + "/losses.json", "w"))
 """
 
@@ -129,7 +153,8 @@ def _run(out: Path) -> None:
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu")
-    args = [json.dumps(x) for x in (RUNS, SESSION, FIT, CKPT, SHRINK, GEN)]
+    args = [json.dumps(x) for x in (RUNS, SESSION, FIT, CKPT, SHRINK, GEN,
+                                    MOE_ARCH, MOE_RUNS)]
     r = subprocess.run([sys.executable, "-c", _SCRIPT, str(out), *args],
                        cwd=REPO, env=env, capture_output=True, text=True,
                        timeout=600)
