@@ -15,10 +15,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      shapes (attention: tolerance 1e-4 in float32, 2e-2 in bfloat16;
      the four coded-combine kernels: every output row within 1e-5 of
      its max |plain|; the attention grids at the GQA groups of every
-     served config, G ∈ {1, 2, 3, 4, 5, 8, 12}, and at gemma3's window
-     of 1024: flash at S = 2048, decode over a wrapped 1024-slot ring),
+     served config, G ∈ {1, 2, 3, 4, 5, 8, 10, 12}, Dh up to 256 in both
+     dtypes, and at gemma3's window of 1024: flash at S = 2048, decode
+     over a wrapped 1024-slot ring; at recurrentgemma's window of 2048,
+     G 10, Kv 1, Dh 256: flash at S = 4096, decode over a wrapped
+     2048-slot ring),
      then checked and timed at the main paths' shapes (the attention
-     kernels also at each served config's, beside SDPA; the combine
+     kernels also at each served config's, beside SDPA, and at
+     recurrentgemma's: decode at its served prompt, flash at the
+     training shape and at S = 4096, where its window bites; the combine
      kernels: K = 2 pods × the 525M-value embedding
      leaf, block 64, for the int8/int4/fp8 hop; R = 8 and R = 1 by
      K = 8 × the 117M-value ``mlp.wd`` leaf for the f32 encode/decode,
@@ -77,6 +82,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      phase-6 cluster for 4 steps (edge 1 dropped at step 2), twice:
      exact launches per step, finite losses and aux losses, the two runs
      equal bit for bit.
+  4c. recurrent: mamba2-370m (48 SSD layers) and recurrentgemma-2b (26:
+     RG-LRU, RG-LRU, local attention with Dh 256 and window 2048, and 2
+     rest RG-LRU layers).  Card against CPU at full width in float32, cut
+     to 2 and 5 layers: the full forward of 2 × 64 tokens, then the
+     exact handoff of that prompt and 8 decode steps, within 2e-3 ·
+     max|logit| (phase 3's gate).  Each served at full width and depth in
+     bf16 through the serve CLI as phase 4 but for 256-token prompts (the
+     exact handoff is one decode step a prompt token; a short request
+     warms up): exact launches (recurrentgemma 8 × (256 + 32) decode, no
+     flash; none for mamba2), host times, peak memory, profiled device
+     time.  Each trained in coded_q int8 as granite-moe (mamba2 at all 48
+     layers, recurrentgemma cut to 5), twice, bit for bit.
   5. training parity: a small float32 config (llama3-8b smoke, 2
      layers), 4 sgd steps of ``CodedSession`` in modes off, coded and
      coded_q × {int8, int4, fp8} on the card and on the CPU from the
@@ -167,9 +184,10 @@ B, PROMPT, GEN = 4, 1024, 32
 H, KV, DH = 32, 8, 128
 
 # GQA group sizes H / Kv in the phase-2 grids: llama3 and granite-8b 4,
-# gemma3 2, granite-moe 3, maverick 5, starcoder2 12 (and 1, 8)
-GQA_GROUPS = [1, 2, 3, 5, 8, 12]
-FLASH_GROUPS = [2, 3, 4, 5, 12]
+# gemma3 2, granite-moe 3, maverick 5, recurrentgemma 10, starcoder2 12
+# (and 1, 8)
+GQA_GROUPS = [1, 2, 3, 5, 8, 10, 12]
+FLASH_GROUPS = [2, 3, 4, 5, 10, 12]
 
 # the served configs' attention shapes beside llama3-8b's (granite-8b's
 # are llama3-8b's): label → (prompt S, H, Kv, Dh, window)
@@ -180,6 +198,18 @@ SERVE_SHAPES = {
     "gemma3-27b global": (2048, 32, 16, 128, 0),
     "gemma3-27b local": (2048, 32, 16, 128, 1024),
 }
+
+# recurrentgemma-2b's local attention layers (H 10, Kv 1, Dh 256, window
+# 2048): the served prompt (the exact handoff: the decode kernel only),
+# and the flash kernel at the training shape (S 512, with its log-sum-exp)
+# and at S 4096, where the window bites
+RG_SHAPE = dict(H=10, KV=1, DH=256, window=2048)
+REC_PROMPT = 256
+# the recurrent archs' profiled request (prompt, new tokens): their
+# exact handoff makes one decode step a prompt token, each some 900-1700
+# kernels, and the profiler's trace costs seconds a step to read back;
+# device time is taken per token against the counted request's host time
+REC_PROFILED = (16, 8)
 
 # the paper's evaluation path: benchmarks/bench_fig56_accuracy.py and
 # bench_table1_time_to_acc.py at their FULL settings
@@ -310,9 +340,12 @@ def _grid_decode(torch, dtype, gen):
                              [0, 8], [0.0, 30.0], GQA_GROUPS, [1, 8],
                              [16, 32, 64, 128, 256], [4, 40, 1057])
     # gemma3's local ring: window 1024 over a 1024-slot cache, wrapped
-    # (1088 = the phase-"archs" handoff prompt, 2 * 1024 + 3)
-    ring = itertools.product(["wrapped1088", "wrapped"], [1024], [0.0],
-                             GQA_GROUPS, [1, 8], [64, 128], [1024])
+    # (1088 = the phase-"archs" handoff prompt, 2 * 1024 + 3); and
+    # recurrentgemma's, window 2048 over 2048 slots, G 10, Kv 1, Dh 256
+    ring = itertools.chain(
+        itertools.product(["wrapped1088", "wrapped"], [1024], [0.0],
+                          GQA_GROUPS, [1, 8], [64, 128], [1024]),
+        [("wrapped", 2048, 0.0, 10, 1, 256, 2048)])
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     n = 0
     for pos_kind, window, softcap, G, Kv, Dh, C in itertools.chain(grid,
@@ -343,18 +376,22 @@ def _grid_flash(torch, dtype, gen):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
     worst = 0.0
-    head_dims = [16, 32, 64, 128] + ([256] if dtype == torch.float32 else [])
     grid = itertools.product([1, 17, 64, 1000, 1024], [True, False], [0, 16],
-                             [0.0, 30.0], [1] + FLASH_GROUPS, head_dims)
-    # gemma3's local layers at its served prompt: window 1024 at S 2048
-    local = itertools.product([2048], [True], [1024], [0.0], FLASH_GROUPS,
-                              [64, 128])
+                             [0.0, 30.0], [1] + FLASH_GROUPS,
+                             [16, 32, 64, 128, 256], [2])
+    # gemma3's local layers at its served prompt: window 1024 at S 2048;
+    # recurrentgemma's: window 2048 at S 4096, G 10, Kv 1, Dh 256
+    local = itertools.chain(
+        itertools.product([2048], [True], [1024], [0.0], FLASH_GROUPS,
+                          [64, 128, 256], [2]),
+        [(4096, True, 2048, 0.0, 10, 256, 1)])
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     n = 0
-    for S, causal, window, softcap, G, Dh in itertools.chain(grid, local):
-        q = torch.randn(1, S, 2 * G, Dh, generator=gen, device="cuda")
-        k = torch.randn(1, S, 2, Dh, generator=gen, device="cuda")
-        v = torch.randn(1, S, 2, Dh, generator=gen, device="cuda")
+    for S, causal, window, softcap, G, Dh, Kv in itertools.chain(grid,
+                                                                 local):
+        q = torch.randn(1, S, Kv * G, Dh, generator=gen, device="cuda")
+        k = torch.randn(1, S, Kv, Dh, generator=gen, device="cuda")
+        v = torch.randn(1, S, Kv, Dh, generator=gen, device="cuda")
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         got = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                   softcap=softcap).float()
@@ -364,7 +401,8 @@ def _grid_flash(torch, dtype, gen):
         torch.testing.assert_close(
             got, want, rtol=tol, atol=tol,
             msg=lambda m: f"flash S={S} causal={causal} w={window} "
-                          f"cap={softcap} G={G} Dh={Dh} {dtype}: {m}")
+                          f"cap={softcap} G={G} Kv={Kv} Dh={Dh} {dtype}: "
+                          f"{m}")
         worst = max(worst, (got - want).abs().max().item())
         n += 1
     return n, worst
@@ -757,7 +795,20 @@ def phase_kernels():
                 f"bound {1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), "
                 f"sdpa {r['library_ms']:.4f} ms")
         torch.cuda.empty_cache()
-    torch.cuda.empty_cache()
+    for label, timer, kw in (
+            (f"serve shape (S={REC_PROMPT})", _time_decode,
+             dict(S=REC_PROMPT)),
+            (f"training shape (S={TRAIN_SEQ}, with log-sum-exp)",
+             _time_flash, dict(S=TRAIN_SEQ, with_lse=True)),
+            ("S=4096", _time_flash, dict(S=4096))):
+        r, row_err = timer(torch, **RG_SHAPE, **kw)
+        log(f"[kernels] {timer.__name__[6:]}_attention at recurrentgemma's "
+            f"{label} (B={B} H=10 Kv=1 Dh=256 window=2048): max abs err "
+            f"{r['max_abs_err']:.3g}, worst row {row_err:.3g} of its max; "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), sdpa "
+            f"{r['library_ms']:.4f} ms")
+        torch.cuda.empty_cache()
     shapes = [("f32", 8, 8, WD_F, 1), ("f32", 1, 8, WD_F, 1),
               ("int8", 1, 2, EMBED_F, HOP_BLOCK),
               ("int4", 1, 2, EMBED_F, HOP_BLOCK),
@@ -847,22 +898,48 @@ def phase_serve():
     return _serve_runs(lambda: serve.main(argv), get_config("llama3-8b"))
 
 
-def _serve_runs(request, cfg, label=""):
-    """One served config, three requests: the first pays the one-time
-    costs (cuBLAS heuristics, library loads), the second is the counted
-    run — launch counts set to 0 just before it, read just after, and
-    exactly one flash launch per layer and one decode launch per layer
-    and token — and the third runs under ``torch.profiler`` for the
-    device time of each phase, set against the counted run's host times
-    (the profiler slows the host).  → the counted run's launches."""
+def _attn_layers(cfg) -> int:
+    return sum(cfg.layer_kind(i) in ("global", "local")
+               for i in range(cfg.n_layers))
+
+
+def _serve_launches(cfg, prompt: int) -> dict:
+    """A request's exact launches: with the bulk handoff one flash launch
+    per attention layer and one decode launch per attention layer and
+    new token; with the exact handoff (recurrent archs) no flash launch
+    and one decode launch per attention layer and token, prompt tokens
+    included."""
+    from repro_torch.models import transformer as tf
+
+    n = _attn_layers(cfg)
+    if tf.bulk_prefill_supported(cfg):
+        want = {"flash_attention": n, "decode_attention": n * GEN}
+    else:
+        want = {"decode_attention": n * (prompt + GEN)}
+    return {k: v for k, v in want.items() if v}
+
+
+def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
+                profiled=None):
+    """One served config, three requests: the first (``warm``, or one
+    like the others) pays the one-time costs (cuBLAS heuristics, library
+    loads), the second is the counted run — launch counts set to 0 just
+    before it, read just after, and exactly :func:`_serve_launches` —
+    and the third (``profiled``: ``(request, prompt, new tokens)``, or
+    one like the others) runs under ``torch.profiler`` for the device
+    time of each phase, set against the counted run's host times (the
+    profiler slows the host): the bulk prefill per request, the exact
+    handoff and the decode per token.  → the counted run's launches."""
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
 
     tag = f"[serve] {label}: " if label else "[serve] "
-    cold = request()
+    cold = (warm or request)()
     log(f"{tag}first request: prefill {cold['prefill_ms']:.2f} ms, "
         f"decode {cold['decode_ms_per_token']:.3f} ms/token")
     del cold
@@ -870,8 +947,7 @@ def _serve_runs(request, cfg, label=""):
     ops.reset_launch_counts()
     res = request()
     counts = {k: v for k, v in ops.launch_counts().items() if v}
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * GEN}
+    want = _serve_launches(cfg, prompt)
     if counts != want:
         raise AssertionError(f"{label} launch counts {counts}, expected "
                              f"{want}")
@@ -891,16 +967,26 @@ def _serve_runs(request, cfg, label=""):
     del logits, res["last_logits"]
     torch.cuda.empty_cache()
 
+    prof_request, p_prompt, p_gen = profiled or (request, prompt, GEN)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled = request()
+        prof_res = prof_request()
     by_phase = device_ms_by_phase(prof)
-    host = {"prefill": (res["prefill_ms"], profiled["prefill_ms"], 1),
+    # units: the bulk prefill a request; the exact handoff a prompt token
+    bulk = tf.bulk_prefill_supported(cfg)
+    n, p_n = (1, 1) if bulk else (prompt, p_prompt)
+    host = {"prefill": (res["prefill_ms"] / n, prof_res["prefill_ms"] / p_n,
+                        p_n, "ms" if bulk else "ms/token"),
             "decode": (res["decode_ms_per_token"],
-                       profiled["decode_ms_per_token"], GEN)}
+                       prof_res["decode_ms_per_token"], p_gen, "ms/token")}
     ptag = f"[profile] {label} " if label else "[profile] "
-    for ph, (host_ms, prof_ms, per) in host.items():
-        unit = "ms" if per == 1 else "ms/token"
+    _, launches, missing = _device_records(prof, DeviceType)
+    log(f"{ptag}{launches - missing} of {launches} launches have their "
+        f"device record (a session that lacks some reads low)")
+    if (p_prompt, p_gen) != (prompt, GEN):
+        log(f"{ptag}profiled request: {p_prompt}-token prompts, {p_gen} "
+            f"new tokens")
+    for ph, (host_ms, prof_ms, per, unit) in host.items():
         dev_ms = sum(by_phase[ph].values()) / per
         log(f"{ptag}{ph}: device {dev_ms:.3f} {unit} over the counted "
             f"run's host {host_ms:.3f} {unit}: device busy "
@@ -908,7 +994,7 @@ def _serve_runs(request, cfg, label=""):
             f"{prof_ms:.3f} {unit})")
         for name, ms in by_phase[ph].most_common(8):
             log(f"{ptag}  {ms / per:9.3f} {unit}  {name[:90]}")
-    del profiled, prof
+    del prof_res, prof
     torch.cuda.empty_cache()
     return counts
 
@@ -1019,6 +1105,14 @@ def _parity(torch, arch, n_layers, seed=0):
                                  f" > 2e-3 * {scale:.3g}")
 
     with torch.inference_mode(), _RouteLog(moe_lib) as log_routes:
+        if not tf.bulk_prefill_supported(cfg):
+            # the prefill below is the exact handoff; the full forward
+            # (the training path's layers: SSD chunks, the RG-LRU scan,
+            # the flash kernel) is held on its own
+            lg = tf.forward(gpu, cfg, prompt)[0]
+            check(lg, tf.forward(cpu, cfg, prompt.cpu())[0],
+                  log_routes.take(), log_routes.take(), "forward",
+                  lambda i: i)
         prefill = serving.make_prefill_fn(cfg, max_len)
         decode = serving.make_decode_fn(cfg)
         lg, cg = prefill(gpu, prompt)
@@ -1036,7 +1130,10 @@ def _parity(torch, arch, n_layers, seed=0):
         raise AssertionError(f"{arch}: {flips} route flips of {routed}, "
                              f"rows left out {sorted(excluded)}")
     log(f"[parity] {arch} full width, {n_layers} layers, f32: card "
-        f"== cpu over prefill + 8 decode steps, max err {worst:.3g} x "
+        f"== cpu over "
+        + ("prefill" if tf.bulk_prefill_supported(cfg)
+           else "the forward, the exact handoff")
+        + f" + 8 decode steps, max err {worst:.3g} x "
         f"max|logit|" + (f"; route flips {flips} of {routed} routed tokens, "
                          f"rows left out {sorted(excluded)}"
                          if cfg.is_moe else "")
@@ -1127,20 +1224,22 @@ def _gemma3_handoff(torch):
     torch.cuda.empty_cache()
 
 
-def _moe_train(torch, totals):
-    """granite-moe at full width cut to 4 layers, ``CodedSession.fit`` in
-    coded_q int8 on the phase-6 cluster (adamw, seq 512, edge 1 dropped
-    at step 2), 4 steps, run twice from the same seed: exact launches
-    each step (the int8 combine once per param leaf, flash 8 groups × 4
-    layers × 2 for the remat), finite losses and aux losses, and the two
-    runs' losses and trained params equal bit for bit."""
+def _coded_twice(torch, arch, n_layers, totals, tag="[archs]"):
+    """``arch`` at full width (cut to ``n_layers``, None: every layer),
+    ``CodedSession.fit`` in coded_q int8 on the phase-6 cluster (adamw,
+    seq 512, edge 1 dropped at step 2), 4 steps, run twice from the same
+    seed: exact launches each step (the int8 combine once per param
+    leaf, flash 8 groups × the attention layers × 2 for the remat),
+    finite losses (and, for MoE, aux losses), and the two runs' losses
+    and trained params equal bit for bit."""
     import numpy as np
 
     from repro_torch import _tree
     from repro_torch.configs.registry import get_config
 
-    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
-                              n_layers=MOE_TRAIN_LAYERS)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     kw = dict(_train_kw(), total_steps=CKPT_STEPS)
     fit = dict(force_drop_edge=1, force_drop_step=2)
     runs = []
@@ -1151,29 +1250,31 @@ def _moe_train(torch, totals):
         session = _session(cfg, "coded_q", "int8", "cuda", **kw)
         leaves = _tree.leaves(session.params)
         want = {"coded_combine_q": len(leaves),
-                "flash_attention": GROUPS * MOE_TRAIN_LAYERS * 2}
+                "flash_attention": GROUPS * _attn_layers(cfg) * 2}
+        want = {k: v for k, v in want.items() if v}
         step_ms = _counted_steps(session, 0, CKPT_STEPS, want, totals, **fit)
         losses, aux = list(session.losses), list(session.aux_losses)
         if not (np.isfinite(losses).all() and np.isfinite(aux).all()
-                and len(aux) == CKPT_STEPS):
-            raise AssertionError(f"granite-moe losses {losses}, aux {aux}")
+                and len(aux) == (CKPT_STEPS if cfg.is_moe else 0)):
+            raise AssertionError(f"{arch} losses {losses}, aux {aux}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"[archs] granite-moe coded_q int8, {MOE_TRAIN_LAYERS} layers "
+        log(f"{tag} {arch} coded_q int8, {cfg.n_layers} layers "
             f"({sum(p.numel() for p in leaves):,} params, {len(leaves)} "
-            f"leaves), run {run}: losses {[round(x, 5) for x in losses]}, "
-            f"aux {[round(x, 5) for x in aux]}, host ms per step "
-            f"{[round(x, 1) for x in step_ms]}, peak {peak:.2f} GiB; "
-            f"launches per step {want} ({time.perf_counter() - t0:.1f} s)")
+            f"leaves), run {run}: losses {[round(x, 5) for x in losses]}"
+            + (f", aux {[round(x, 5) for x in aux]}" if aux else "")
+            + f", host ms per step {[round(x, 1) for x in step_ms]}, peak "
+            f"{peak:.2f} GiB; launches per step {want} "
+            f"({time.perf_counter() - t0:.1f} s)")
         runs.append((losses, aux, [p.detach().clone() for p in leaves]))
         del session, leaves
     (l0, a0, p0), (l1, a1, p1) = runs
     same = sum(bool(torch.equal(a, b)) for a, b in zip(p0, p1))
     if l0 != l1 or a0 != a1 or same != len(p0):
-        raise AssertionError(f"granite-moe runs differ: losses {l0} / {l1}, "
+        raise AssertionError(f"{arch} runs differ: losses {l0} / {l1}, "
                              f"aux {a0} / {a1}, {same} of {len(p0)} leaves "
                              f"equal")
-    log(f"[archs] granite-moe: the two runs' losses, aux losses and "
-        f"{len(p0)} trained leaves equal bit for bit")
+    log(f"{tag} {arch}: the two runs' losses{', aux losses' if a0 else ''} "
+        f"and {len(p0)} trained leaves equal bit for bit")
     del runs, p0, p1
     torch.cuda.empty_cache()
 
@@ -1213,7 +1314,58 @@ def phase_archs():
             f"{cfg.param_counts()[0]:,} params, {prompt}-token "
             f"prompts ({time.perf_counter() - t0:.1f} s)")
     _gemma3_handoff(torch)
-    _moe_train(torch, totals)
+    _coded_twice(torch, "granite-moe-3b-a800m", MOE_TRAIN_LAYERS, totals)
+    return totals
+
+
+# phase "recurrent": the SSD and RG-LRU archs.  Layers kept for the
+# card-vs-CPU parity (mamba2 2; recurrentgemma 5: one (rec, rec, local)
+# group and 2 rest layers, as its 26 = 8 x 3 + 2) and for the coded
+# training (None: all 48 of mamba2's); both served whole
+RECURRENT = {  # arch → (parity layers, trained layers)
+    "mamba2-370m": (2, None),
+    "recurrentgemma-2b": (5, 5),
+}
+
+
+def phase_recurrent():
+    """mamba2-370m and recurrentgemma-2b: card against CPU at full width
+    (float32, cut in depth; the full forward, then the exact handoff of
+    the prompt and 8 decode steps), each served at full width and depth
+    in bf16 through the serve CLI as phase 4 but for 256-token prompts
+    (the exact handoff runs one decode step a prompt token; a short
+    request warms up), and each trained in coded_q int8 twice, bit for
+    bit.  → the launches of the served requests and the training
+    steps."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    totals = {name: 0 for name in ops.KERNELS}
+    for arch, (layers, _) in RECURRENT.items():
+        _parity(torch, arch, layers)
+    for arch in RECURRENT:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        argv = ["--arch", arch, "--no-smoke", "--batch", str(B)]
+
+        def request(prompt, gen):
+            return lambda: serve.main(argv + ["--prompt-len", str(prompt),
+                                              "--gen", str(gen)])
+
+        counts = _serve_runs(
+            request(REC_PROMPT, GEN), cfg, arch, prompt=REC_PROMPT,
+            warm=request(8, 4),
+            profiled=(request(*REC_PROFILED), *REC_PROFILED))
+        for k, v in counts.items():
+            totals[k] += v
+        log(f"[recurrent] served {arch}: {cfg.n_layers} layers, "
+            f"{cfg.param_counts()[0]:,} params, {REC_PROMPT}-token prompts "
+            f"({time.perf_counter() - t0:.1f} s)")
+    for arch, (_, trained) in RECURRENT.items():
+        _coded_twice(torch, arch, trained, totals, tag="[recurrent]")
     return totals
 
 
@@ -1458,9 +1610,11 @@ def _profile_step(torch, profile, ProfilerActivity, session, step,
         raise AssertionError("the profiler saw no device work in the step")
     host = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
     dev = sum(by_name.values())
+    _, launches, missing = _device_records(prof, DeviceType)
     log(f"[profile] train step: device {dev:.3f} ms over the counted "
         f"steps' median host {host:.3f} ms: device busy "
-        f"{100 * dev / host:.1f}%")
+        f"{100 * dev / host:.1f}%; {launches - missing} of {launches} "
+        f"launches have their device record")
     for name, ms in by_name.most_common(12):
         log(f"[profile]   {ms:9.3f} ms  {name[:90]}")
     # the port's own kernels in the step, by their source's entry names
@@ -1908,28 +2062,57 @@ def _kernel_group(name: str) -> str:
     return "cuDNN / cuBLAS (convolutions, FC products)"
 
 
+# the runtime calls whose work shows on the card as one record each,
+# sharing the call's correlation id
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _device_records(prof, DeviceType):
+    """The device records of a profiler session, as (name, start ns, end
+    ns), and the number of its launch calls and of those among them whose
+    device record the session lacks."""
+    events = prof.profiler.kineto_results.events()
+    records, ids = [], set()
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            records.append((e.name(), e.start_ns(), e.end_ns()))
+            ids.add(e.correlation_id())
+    launches = [e.correlation_id() for e in events
+                if e.device_type() == DeviceType.CPU
+                and e.name() in _LAUNCH_CALLS]
+    return records, len(launches), sum(c not in ids for c in launches)
+
+
 def _eval_profile(torch, profile, ProfilerActivity, dataset):
     """One hgc iteration at the paper's sizes under ``torch.profiler``:
     device ms by kernel name and by part, busy as the union of the
     device intervals (cuDNN's kernels overlap), over the median host
     time of three unprofiled iterations (the profiler slows the host).
 
-    On the card the profiler now and then returns no device events for
-    a short session that follows long traces (MNIST's iteration is 18
-    kernels in ~2.5 ms); such a session is logged and the next iteration
-    profiled, three tries in all."""
+    On the card a profiler session now and then lacks the records of its
+    first kernels, the more the longer the process has run: the first
+    session after a minute without one lost from a few to all of MNIST's
+    30.  So each session traces a warm-up iteration that the profiler's
+    schedule discards, and the kept iteration counts only if every launch
+    call in it has its device record (matched by correlation id); else
+    the next pair is profiled, eight tries in all, and if none is whole
+    the most nearly whole is reported as a lower bound."""
     import collections
 
     from torch.autograd import DeviceType
+    from torch.profiler import schedule
 
     from repro_torch.api import paper_cluster
     from repro_torch.sim.simulator import TrainingRun
 
-    tries = 3
+    tries = 8
+    # 4 unprofiled iterations, 2 a try, and a last one (which evaluates)
+    # that is never run
     run = TrainingRun("hgc", paper_cluster(dataset), dataset=dataset,
                       K=EVAL_K, batch_per_part=EVAL_BATCH,
                       n_data=EVAL_N_DATA, n_eval=EVAL_N_EVAL,
-                      iters=5 + tries, eval_every=100, device="cuda")
+                      iters=5 + 2 * tries, eval_every=100, device="cuda")
     host = []
     for t in range(4):  # t = 0 evaluates; 1..3 are timed
         torch.cuda.synchronize()
@@ -1937,28 +2120,40 @@ def _eval_profile(torch, profile, ProfilerActivity, dataset):
         run.step()
         torch.cuda.synchronize()
         host.append(1e3 * (time.perf_counter() - t0))
-    by_name = collections.Counter()
-    spans = []
-    for attempt in range(tries):
+    best = None  # (missing, records, launches, host ms, try)
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run.step()
-            torch.cuda.synchronize()
-        profiled_ms = 1e3 * (time.perf_counter() - t0)
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA \
-                    and not e.is_user_annotation:
-                by_name[e.name] += e.time_range.elapsed_us() / 1e3
-                spans.append((e.time_range.start, e.time_range.end))
-        if by_name:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):  # the warm-up iteration, then the kept one
+                t0 = time.perf_counter()
+                run.step()
+                torch.cuda.synchronize()
+                profiled_ms = 1e3 * (time.perf_counter() - t0)
+                prof.step()
+        records, launches, missing = _device_records(prof, DeviceType)
+        if records and (best is None or missing < best[0]):
+            best = (missing, records, launches, profiled_ms, attempt)
+        if records and not missing:
             break
-        log(f"[profile] {dataset} hgc iteration: the profiler returned no "
-            f"device events (try {attempt + 1} of {tries})")
-    if not by_name:
+        log(f"[profile] {dataset} hgc iteration: {missing} of {launches} "
+            f"launches have no device record (try {attempt} of {tries})")
+    if best is None:
         raise AssertionError("the profiler saw no device work in the "
                              "iteration")
+    missing, records, launches, profiled_ms, attempt = best
+    by_name = collections.Counter()
+    spans = []
+    for name, start, end in records:
+        by_name[name] += (end - start) / 1e6
+        spans.append((start / 1e3, end / 1e3))
+    log(f"[profile] {dataset} hgc iteration: "
+        + (f"all {launches} launches have their device record (try "
+           f"{attempt})" if not missing else
+           f"{missing} of {launches} launches lack their device record in "
+           f"every try: the times below are lower bounds"))
     spans.sort()
     busy_us, until = 0.0, spans[0][0]
     for start, end in spans:  # the union of the device intervals
@@ -2098,12 +2293,14 @@ def main() -> int:
     phase(phase_parity)
     counts = phase(phase_serve)
     archs_counts = phase(phase_archs)
+    rec_counts = phase(phase_recurrent)
     phase(phase_train_parity)
     train_counts = phase(phase_train)
     ckpt_counts = phase(phase_checkpoint)
     orch_counts = phase(phase_orchestrate)
     eval_counts = phase(phase_eval)
-    paths = {"archs": archs_counts, "train": train_counts,
+    paths = {"archs": archs_counts, "recurrent": rec_counts,
+             "train": train_counts,
              "checkpoint": ckpt_counts,
              "orchestrate": orch_counts, "eval": eval_counts}
     log(f"[done] launches on the main paths: serve {counts}, " + ", ".join(

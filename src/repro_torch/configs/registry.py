@@ -18,14 +18,14 @@ ARCH_IDS = (
     "gemma3-27b",
     "granite-moe-3b-a800m",
     "llama4-maverick-400b-a17b",
+    "mamba2-370m",
+    "recurrentgemma-2b",
 )
 
 #: reference archs whose port is still queued in ROADMAP.md
 NOT_PORTED = (
     "qwen2-vl-2b",
-    "recurrentgemma-2b",
     "whisper-medium",
-    "mamba2-370m",
 )
 
 

@@ -22,11 +22,14 @@
 // as a fallback: a failed descriptor encode or launch is returned as an
 // error and the wrapper raises):
 //
-//  * wgmma + TMA, bf16 with Dh in {64, 128} (the full configs' heads; the
-//    model's path).  One block of two warpgroups per (64-query tile,
-//    batch * head), two blocks per SM; the grid walks the causal query
-//    tiles heaviest first.  Warpgroup 0 gives up registers (setmaxnreg)
-//    and one of its threads loads Q once and keeps a ring of 2 K/V tiles
+//  * wgmma + TMA, bf16 with Dh in {64, 128, 256} (the full configs' heads;
+//    the model's path).  One block of two warpgroups per (64-query tile,
+//    batch * head), two blocks per SM at Dh 64 and 128, one at Dh 256
+//    (recurrentgemma's local layers: Q and the K/V ring take 160 KB of
+//    shared memory, O 128 registers a consumer thread); the grid walks the
+//    causal query tiles heaviest first.  At two blocks per SM warpgroup 0
+//    gives up registers (setmaxnreg); one of its threads loads Q once and
+//    keeps a ring of 2 K/V tiles
 //    (64 keys each) in flight with cp.async.bulk.tensor, each completion
 //    counted on an mbarrier.  The tensor maps are built on the host from
 //    the real batch and row strides (rank 3: {heads * Dh, rows, batch},
@@ -38,7 +41,8 @@
 //    softcap, then the mask, applied only on tiles that cross the causal
 //    diagonal, the window edge or T; scores kept in log2 units), P rounded
 //    to bf16 in registers as the A operand of O += P V (one m64nDhk16
-//    product per 16 keys), with V read as the transposed (MN-major) B
+//    product per 16 keys; two m64n128k16 at Dh 256), with V read as the
+//    transposed (MN-major) B
 //    operand straight from its TMA tile; O stays in f32 registers.  Each
 //    consumer warp releases a stage on its "empty" mbarrier once its P V
 //    product has completed.  Tiles above the diagonal or before the window
@@ -484,9 +488,13 @@ constexpr int kBK = 64;       // keys per K/V tile: S is one N = 64 product per 
 static_assert(kBK == 64, "the score tile is one m64n64k16 product per k step");
 constexpr int kStages = 2;    // K/V tiles in flight
 constexpr int kThreads = 256;  // warpgroup 0 loads, warpgroup 1 computes
-// two blocks per SM: 2 * 256 threads * 128 registers at launch, of which the
-// producer gives 104 a thread to the consumer (24 + 232 = 2 * 128)
-constexpr int kBlocksPerSm = 2;
+// Dh 64 and 128: two blocks per SM, 2 * 256 threads * 128 registers at
+// launch, of which the producer gives 104 a thread to the consumer (24 + 232
+// = 2 * 128).  Dh 256: Q and a 2-stage ring take 160 KB of shared memory, so
+// one block per SM, whose threads may each hold up to 255 registers without
+// any trade (the consumer's O alone is 128 of them).
+template <int DH>
+__host__ __device__ constexpr int blocks_per_sm() { return DH == 256 ? 1 : 2; }
 constexpr int kSpan = 64;     // bf16 columns in one 128-byte swizzle span (one TMA box)
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -663,7 +671,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<DH>())
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
@@ -699,7 +707,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread keeps the K/V ring full by TMA ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (blocks_per_sm<DH>() == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
@@ -726,7 +734,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // ---- consumer warpgroup: the block's 64 query rows; every loaded tile is
   // one that some of its rows can see ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  if constexpr (blocks_per_sm<DH>() == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int r_hi = q0 + kBQ - 1;
   const int qpos[2] = {q0 + 16 * warp + lane / 4, q0 + 16 * warp + lane / 4 + 8};
@@ -829,11 +837,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-      if constexpr (kSpans == 2)  // one N = 128 product over both spans
-        wgmma_rs_n128(reinterpret_cast<float(&)[64]>(o), a,
-                      desc_mnmajor(v_base + kk * 16 * 128));
-      else
+      if constexpr (kSpans == 1)
         wgmma_rs_n64(o[0], a, desc_mnmajor(v_base + kk * 16 * 128));
+      else {  // one N = 128 product over each pair of spans
+#pragma unroll
+        for (int sp = 0; sp < kSpans; sp += 2)
+          wgmma_rs_n128(reinterpret_cast<float(&)[64]>(o[sp]), a,
+                        desc_mnmajor(v_base + sp * kBK * 128 + kk * 16 * 128));
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -918,7 +929,8 @@ template <typename T, int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                  int S, int T_, int H, int Kv, const long long* st, int causal, int window,
                  float softcap, cudaStream_t stream) {
-  static_assert(sizeof(T) == 2 && (DH == 64 || DH == 128), "wgmma path: bf16, Dh 64 or 128");
+  static_assert(sizeof(T) == 2 && (DH == 64 || DH == 128 || DH == 256),
+                "wgmma path: bf16, Dh 64, 128 or 256");
   CUtensorMap tq, tk, tv;
   if (!wg::make_map(&tq, q, H * DH, S, B, st[1], st[0], wg::kBQ) ||
       !wg::make_map(&tk, k, Kv * DH, T_, B, st[3], st[2], wg::kBK) ||
@@ -983,12 +995,13 @@ int launch_dh(int Dh, const void* q, const void* k, const void* v, void* out,
               int causal, int window, float softcap, cudaStream_t stream) {
 #define REPRO_FLASH(KIND, D) \
   return KIND<T, D>(q, k, v, out, lse, B, S, T_, H, Kv, st, causal, window, softcap, stream)
-  if constexpr (sizeof(T) == 2) {  // tensor cores up to Dh = 128
+  if constexpr (sizeof(T) == 2) {  // tensor cores
     switch (Dh) {
       case 16: REPRO_FLASH(launch_mma, 16);
       case 32: REPRO_FLASH(launch_mma, 32);
       case 64: REPRO_FLASH(launch_wgmma, 64);
       case 128: REPRO_FLASH(launch_wgmma, 128);
+      case 256: REPRO_FLASH(launch_wgmma, 256);
       default: return (int)cudaErrorInvalidValue;
     }
   } else {

@@ -52,11 +52,11 @@ def flash_attention_fwd(
     with ``return_lse`` also each row's log-sum-exp (B, S, H) float32.
 
     Batch and sequence dimensions may be strided; heads and features
-    must be packed.  bf16 runs on the tensor cores (Dh <= 128, rows
-    16-byte aligned): Dh 64 and 128 on the wgmma kernel, whose TMA
+    must be packed.  bf16 runs on the tensor cores (rows 16-byte
+    aligned): Dh 64, 128 and 256 on the wgmma kernel, whose TMA
     descriptors the C entry builds from these strides, Dh 16 and 32 on
     the mma.sync kernel; float32 runs on the f32 FMA kernel, never
-    through TF32.
+    through TF32.  Other head sizes raise.
     """
     B, S, H, Dh = q.shape
     T, Kv = k.shape[1], k.shape[2]
@@ -73,10 +73,6 @@ def flash_attention_fwd(
     if H % Kv or Dh not in HEAD_DIMS:
         raise ValueError(f"kernel takes H % Kv == 0 and Dh in {HEAD_DIMS}, "
                          f"got H={H}, Kv={Kv}, Dh={Dh}")
-    if q.dtype == torch.bfloat16 and Dh > 128:
-        raise ValueError(f"the bf16 kernel takes Dh <= 128, got Dh={Dh}; "
-                         f"larger heads wait for an arch that has them "
-                         f"(ROADMAP.md)")
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise ValueError("flash_attention_fwd is forward only; train "
                          "through models.attention.FlashAttention")

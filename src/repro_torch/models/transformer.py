@@ -1,8 +1,9 @@
-"""Attention-only transformer of the port (serving and training).
+"""Decoder-only transformer of the port (serving and training).
 
 PyTorch counterpart of ``repro.models.transformer`` for decoders whose
-layers are all "global"/"local" attention with a dense MLP or a
-mixture of experts (``models.moe``):
+layers are "global"/"local" attention with a dense MLP or a mixture of
+experts (``models.moe``), "ssm" (Mamba-2 SSD, ``models.ssm``) or
+"recurrent" (RG-LRU with an MLP, ``models.rglru``):
 
   * params are nested dicts of tensors keyed like the reference pytree
     (``embed/table``, ``groups/p0/attn/wq`` …); every layer tensor of a
@@ -11,7 +12,9 @@ mixture of experts (``models.moe``):
   * self-attention goes through ``kernels.ops``: the prefill through the
     flash-attention kernel, each decode step through the decode-
     attention kernel (plain versions for CPU tensors),
-  * the decode cache is updated in place (see ``decode_step``),
+  * the decode cache is updated in place (see ``decode_step``); the
+    recurrent layers' states (SSD ``h``/``conv``, RG-LRU ``h``/``conv``)
+    exist only there and stay float32, as the reference's,
   * training differentiates ``loss_and_metrics`` with autograd: the
     params are float32 leaves, ``cast_params`` makes the working copy
     inside the graph (so gradients come back float32), self-attention
@@ -20,8 +23,8 @@ mixture of experts (``models.moe``):
     rematerialized with ``torch.utils.checkpoint``, as ``_remat_wrap``
     does with ``jax.checkpoint``.
 
-Kinds the port does not cover yet (ssm, recurrent, encoder–decoder,
-M-RoPE) raise ``NotImplementedError``; ROADMAP.md queues them.
+Encoder–decoder and M-RoPE configs raise ``NotImplementedError``;
+ROADMAP.md queues them.
 """
 from __future__ import annotations
 
@@ -36,6 +39,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.ssm import _mm
 
 PyTree = Any
 
@@ -46,14 +52,23 @@ def _torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else getattr(torch, name)
 
 
+ATTENTION_KINDS = ("global", "local")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.block_pattern) - {"global", "local"}
-    if kinds or cfg.is_encdec or cfg.mrope_sections:
+    if cfg.is_encdec or cfg.mrope_sections:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs attention-only decoders (dense "
-            f"or MoE) so far (pattern {cfg.block_pattern}, "
-            f"encdec={cfg.is_encdec}, mrope={cfg.mrope_sections}); the "
-            f"other kinds are queued in ROADMAP.md")
+            f"{cfg.name}: repro_torch runs decoder-only models without "
+            f"M-RoPE so far (encdec={cfg.is_encdec}, "
+            f"mrope={cfg.mrope_sections}); the other kinds are queued in "
+            f"ROADMAP.md")
+    unknown = set(cfg.block_pattern) - {*ATTENTION_KINDS, "ssm", "recurrent"}
+    if unknown:
+        raise ValueError(f"unknown layer kinds {sorted(unknown)}")
+
+
+def _has_attention(cfg: ModelConfig) -> bool:
+    return any(k in ATTENTION_KINDS for k in cfg.block_pattern)
 
 
 def _index(tree: PyTree, i: int) -> PyTree:
@@ -101,8 +116,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``dtype`` (default ``cfg.dtype``), the final norm scale in float32.
     Training passes ``dtype=torch.float32``: the f32 master copy.
     ``generator`` must live on ``device``; None seeds one with 0.
-    Layers where ``cfg.moe_at(k)`` hold ``moe`` (experts of width
-    ``d_ff``) in place of ``mlp`` (width ``d_ff_dense or d_ff``).
+    Each layer is built by kind as the reference's ``_init_layer``:
+    ``attn``, ``ssm`` or ``rglru``, then (but for "ssm") ``norm2`` with
+    ``moe`` (experts of width ``d_ff``) where ``cfg.moe_at(k)`` or
+    ``mlp`` (width ``d_ff_dense or d_ff``).  The recurrent layers'
+    deterministic vectors (``A_log``, ``D``, ``dt_bias``; ``lam``,
+    ``b_a``, ``b_x``) follow the same dtype rule: in ``dtype`` when
+    stacked, float32 in a ``rest`` layer.
     """
     _check_supported(cfg)
     device = resolve_device(device)
@@ -117,18 +137,26 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         t = torch.randn(shape, generator=generator, dtype=dt, device=device)
         return t.mul_(0.02)
 
-    def layers(lead: Tuple[int, ...], moe: bool) -> Dict:
+    def layers(lead: Tuple[int, ...], kind: str, moe: bool) -> Dict:
         ndt = dt if lead else torch.float32
         p: Dict[str, Any] = {
-            "norm1": _init_norm(cfg, lead + (d,), device, ndt),
-            "attn": {
+            "norm1": _init_norm(cfg, lead + (d,), device, ndt)}
+        if kind in ATTENTION_KINDS:
+            p["attn"] = {
                 "wq": normal(*lead, d, H * Dh),
                 "wk": normal(*lead, d, Kv * Dh),
                 "wv": normal(*lead, d, Kv * Dh),
                 "wo": normal(*lead, H * Dh, d),
-            },
-        }
-        if cfg.d_ff > 0:
+            }
+        elif kind == "ssm":
+            p["ssm"] = ssm_lib.init_ssm(
+                d, cfg.expand, cfg.d_state, cfg.d_conv, cfg.ssm_head_dim,
+                generator, device, dt, lead)
+        else:
+            p["rglru"] = rglru_lib.init_rglru_block(
+                d, cfg.lru_width or d, cfg.d_conv, generator, device, dt,
+                lead)
+        if cfg.d_ff > 0 and kind != "ssm":
             p["norm2"] = _init_norm(cfg, lead + (d,), device, ndt)
             if moe:
                 p["moe"] = moe_lib.init_moe(
@@ -151,10 +179,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["head"] = {"w": normal(d, V)}
     P = len(cfg.block_pattern)
     n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
-    params["groups"] = {f"p{k}": layers((n_groups,), cfg.moe_at(k))
+    params["groups"] = {f"p{k}": layers((n_groups,), cfg.block_pattern[k],
+                                        cfg.moe_at(k))
                         for k in range(P)}
     if n_rest:
-        params["rest"] = {f"r{k}": layers((), cfg.moe_at(k))
+        params["rest"] = {f"r{k}": layers((), cfg.block_pattern[k],
+                                          cfg.moe_at(k))
                           for k in range(n_rest)}
     return params
 
@@ -201,10 +231,13 @@ def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def _mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Matmuls in the operands' promoted dtype: after a ``rest`` recurrent
+    layer, whose float32 biases promote the residual stream as in the
+    reference, a bf16 model's later layers run in float32."""
     if cfg.mlp == "swiglu" and "wg" in p:
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        return _mm(F.silu(_mm(x, p["wg"])) * _mm(x, p["wu"]), p["wd"])
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+    return _mm(F.gelu(_mm(x, p["w1"]), approximate="tanh"), p["w2"])
 
 
 def _ffn_apply(p: Dict, h: torch.Tensor, cfg: ModelConfig
@@ -216,7 +249,7 @@ def _ffn_apply(p: Dict, h: torch.Tensor, cfg: ModelConfig
 
 
 def _layer_out(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
-               rope: Tuple[torch.Tensor, torch.Tensor]
+               rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer's (output, aux) without its cache entry (the training
     body)."""
@@ -225,14 +258,22 @@ def _layer_out(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
 
 
 def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
-                 rope: Tuple[torch.Tensor, torch.Tensor]
-                 ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                 ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """Returns (x_out, cache_entry, aux_loss): aux is the MoE layer's
-    load-balancing loss, None for a dense layer."""
+    load-balancing loss, None for a dense layer.  The cache entry is the
+    attention layer's K/V; ``()`` for "ssm"/"recurrent", whose states
+    only the decode path builds."""
     h = _norm(p["norm1"], x)
-    out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope)
-    cache_entry = {"k": k.reshape(*k.shape[:2], -1),
-                   "v": v.reshape(*v.shape[:2], -1)}
+    cache_entry: Any = ()
+    if kind in ATTENTION_KINDS:
+        out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope)
+        cache_entry = {"k": k.reshape(*k.shape[:2], -1),
+                       "v": v.reshape(*v.shape[:2], -1)}
+    elif kind == "ssm":
+        out = ssm_lib.ssm_forward(p["ssm"], h, cfg)
+    else:
+        out = rglru_lib.rglru_block_forward(p["rglru"], h, cfg)
     x = x + out
     aux = None
     if "norm2" in p:
@@ -331,15 +372,16 @@ def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    rope = _rope(cfg, positions)
+    rope = _rope(cfg, positions) if _has_attention(cfg) else None
     n_groups = cfg.n_layers // len(cfg.block_pattern)
     KvDh = cfg.n_kv_heads * cfg.head_dim
     cache: Dict[str, Dict] = {"groups": {}, "rest": {}}
     if return_cache:
-        for k in range(len(cfg.block_pattern)):
+        for k, kind in enumerate(cfg.block_pattern):
             cache["groups"][f"p{k}"] = {
                 n: torch.empty((n_groups, B, S, KvDh), dtype=x.dtype,
-                               device=x.device) for n in ("k", "v")}
+                               device=x.device) for n in ("k", "v")
+            } if kind in ATTENTION_KINDS else ()
     remat = cfg.remat and torch.is_grad_enabled() and not return_cache
     auxes = []
     for lp, kind, (part, key), l in _layers(params, cfg):
@@ -353,7 +395,7 @@ def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
         if return_cache:
             if l is None:
                 cache[part][key] = entry
-            else:
+            elif kind in ATTENTION_KINDS:
                 cache[part][key]["k"][l] = entry["k"]
                 cache[part][key]["v"][l] = entry["v"]
     aux_total = (torch.stack(auxes).sum() if auxes else
@@ -446,8 +488,10 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> PyTree:
-    """Empty decode cache (ring buffers for local layers), in
-    ``cfg.dtype``: the decode kernel reads q and the cache in one dtype."""
+    """Empty decode cache: ring buffers for local layers, in
+    ``cfg.dtype`` (the decode kernel reads q and the cache in one dtype);
+    the "ssm"/"recurrent" layers' states in float32, as the reference
+    makes them whatever the model dtype."""
     _check_supported(cfg)
     device = resolve_device(device)
     dt = _torch_dtype(cfg.dtype)
@@ -456,6 +500,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
 
     def entry(kind, lead=()):
+        if kind == "ssm":
+            return ssm_lib.ssm_init_cache(cfg, batch, lead, device)
+        if kind == "recurrent":
+            return rglru_lib.rglru_init_cache(cfg, batch, lead, device)
         shp = lead + (batch, _cache_len(cfg, kind, max_len), KvDh)
         return {"k": torch.zeros(shp, dtype=dt, device=device),
                 "v": torch.zeros(shp, dtype=dt, device=device)}
@@ -469,13 +517,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
-def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
-                  cache_entry: Dict, pos: torch.Tensor,
-                  rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    B = x1.shape[0]
+def _decode_attn(a: Dict, h: torch.Tensor, kind: str, cfg: ModelConfig,
+                 cache_entry: Dict, pos: torch.Tensor,
+                 rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """One token's self-attention against the layer's ring buffers."""
+    B = h.shape[0]
     H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = _norm(p["norm1"], x1)
-    a = p["attn"]
     q = attn_lib.rotate(_split_heads(h @ a["wq"], H, Dh), *rope)
     k = attn_lib.rotate(_split_heads(h @ a["wk"], Kv, Dh), *rope)
     v = _split_heads(h @ a["wv"], Kv, Dh)
@@ -491,7 +538,25 @@ def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
     out = ops.decode_attention(
         q, kc.view(B, C, Kv, Dh), vc.view(B, C, Kv, Dh), pos,
         window=window, softcap=cfg.logit_softcap)
-    x1 = x1 + out.reshape(B, 1, H * Dh) @ a["wo"]
+    return out.reshape(B, 1, H * Dh) @ a["wo"]
+
+
+def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
+                  cache_entry: Dict, pos: torch.Tensor,
+                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                  ) -> torch.Tensor:
+    h = _norm(p["norm1"], x1)
+    if kind in ATTENTION_KINDS:
+        out = _decode_attn(p["attn"], h, kind, cfg, cache_entry, pos, rope)
+    else:
+        if kind == "ssm":
+            out, new = ssm_lib.ssm_decode_step(p["ssm"], h, cache_entry, cfg)
+        else:
+            out, new = rglru_lib.rglru_block_step(p["rglru"], h,
+                                                  cache_entry, cfg)
+        for name, t in new.items():  # in place, as the ring writes
+            cache_entry[name].copy_(t)
+    x1 = x1 + out
     if "norm2" in p:
         # MoE: N = B tokens, so the capacity drops what the reference's
         # decode step drops
@@ -511,7 +576,8 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
     pos = cache["length"]
     params = cast_params(params, cfg)
     x = _embed(params, cfg, token)
-    rope = _rope(cfg, pos.expand(token.shape[0], 1))
+    rope = (_rope(cfg, pos.expand(token.shape[0], 1))
+            if _has_attention(cfg) else None)
     for lp, kind, (part, key), l in _layers(params, cfg):
         entry = cache[part][key]
         x = _decode_layer(lp, x, kind, cfg,
@@ -533,8 +599,13 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def bulk_prefill_supported(cfg: ModelConfig) -> bool:
-    """Whether the bulk prefill → decode-cache handoff covers this arch."""
-    return (set(cfg.block_pattern) <= {"global", "local"}
+    """Whether the bulk prefill → decode-cache handoff covers this arch.
+
+    The full-sequence forward materializes only attention K/V entries;
+    the recurrent states (SSD, RG-LRU) exist only on the decode path, so
+    those archs hand off token by token (the exact handoff).
+    """
+    return (set(cfg.block_pattern) <= set(ATTENTION_KINDS)
             and not cfg.is_encdec)
 
 

@@ -1,14 +1,18 @@
-"""Port vs reference: the five configs ported beside llama3-8b.
+"""Port vs reference: the seven configs ported beside llama3-8b.
 
 granite-8b, starcoder2-3b and gemma3-27b (dense: global/local layers,
-the ring-trimmed window, gelu + layer norm, tied embeddings) and
+the ring-trimmed window, gelu + layer norm, tied embeddings),
 granite-moe-3b-a800m and llama4-maverick-400b-a17b (MoE; maverick
-interleaves dense and MoE layers and has a shared expert).  Their smoke
-configs run in float32 on the CPU from the reference's seeded weights,
-carried by flat key (maverick's bfloat16 ``param_dtype`` is set to
-float32 on both sides for that).  Tolerances as in
-``tests/test_torch_transformer.py``: 1e-4 on logits, aux and the loss;
-gradients 1e-4 of each leaf's largest value.
+interleaves dense and MoE layers and has a shared expert), mamba2-370m
+(SSD layers only) and recurrentgemma-2b (two RG-LRU layers to one local
+attention layer, two RG-LRU ``rest`` layers).  Their smoke configs run
+in float32 on the CPU from the reference's seeded weights, carried by
+flat key (maverick's bfloat16 ``param_dtype`` is set to float32 on both
+sides for that).  Tolerances as in ``tests/test_torch_transformer.py``:
+1e-4 on logits, aux and the loss; gradients 1e-4 of each leaf's largest
+value.  The recurrent archs' decode chain against the port's own
+full-sequence forward: 1e-4 as well (float32; the reference holds its
+bf16 chain to 5e-2, ``tests/test_decode_consistency.py``).
 """
 import dataclasses
 
@@ -32,8 +36,9 @@ from repro_torch.models import transformer as ttf
 from torch_reference import few_threads  # noqa: F401 (autouse)
 
 ARCHS = ["granite-8b", "starcoder2-3b", "gemma3-27b", "granite-moe-3b-a800m",
-         "llama4-maverick-400b-a17b"]
+         "llama4-maverick-400b-a17b", "mamba2-370m", "recurrentgemma-2b"]
 MOE = ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b"]
+RECURRENT = ["mamba2-370m", "recurrentgemma-2b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 F32 = dict(dtype="float32", param_dtype="float32")
 
@@ -97,6 +102,18 @@ def test_forward_logits_and_aux_match(arch):
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "no-remat"])
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_loss_and_gradients_match(arch, remat):
+    _check_loss_and_gradients(arch, remat)
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no-remat"])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_loss_and_gradients_match(arch, remat):
+    """The SSD's chunked form (24 tokens: three chunks of 8 for mamba2)
+    and the doubling scan differentiated by autograd against JAX."""
+    _check_loss_and_gradients(arch, remat)
+
+
+def _check_loss_and_gradients(arch, remat):
     ref_cfg, cfg, jparams, params = _setup(arch, seed=3, remat=remat)
     rng = np.random.default_rng(4)
     batch = {"tokens": _tokens(5, 2, 24, cfg.vocab),
@@ -142,3 +159,46 @@ def test_greedy_tokens_match_reference_serve(arch, exact):
     got = serving.generate(params, cfg, prompt, 6, exact_handoff=exact,
                            device="cpu")
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_decode_chain_matches_forward(arch):
+    """The port's counterpart of ``tests/test_decode_consistency.py``:
+    token-by-token decode (recurrent states, and recurrentgemma's local
+    ring wrapped: 40 tokens over a 16-token window) equals the
+    full-sequence forward at every position, and the chain's greedy
+    tokens equal the forward's."""
+    _, cfg, _, params = _setup(arch, seed=9)
+    toks = torch.from_numpy(_tokens(10, 2, 40, cfg.vocab)).long()
+    full, _ = ttf.forward(params, cfg, toks)
+    cache = ttf.init_cache(cfg, 2, max_len=40, device="cpu")
+    outs = []
+    for t in range(toks.shape[1]):
+        logits, cache = ttf.decode_step(params, cfg, toks[:, t:t + 1], cache)
+        outs.append(logits)
+    dec = torch.stack(outs, 1)
+    np.testing.assert_allclose(dec.numpy(), full.numpy(), **TOL)
+    assert torch.equal(dec.argmax(-1), full.argmax(-1))
+    assert int(cache["length"]) == 40
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_states_stay_float32_in_a_bf16_model(arch):
+    """A bf16 model's decode cache: attention rings in bf16 (the decode
+    kernel reads q and the cache in one dtype), the SSD and RG-LRU
+    states in float32 as the reference makes them, also after steps."""
+    cfg = get_smoke_config(arch)
+    assert cfg.dtype == "bfloat16"
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    cache = ttf.init_cache(cfg, 2, max_len=8, device="cpu")
+    for t in range(3):
+        logits, cache = ttf.decode_step(
+            params, cfg, torch.full((2, 1), t, dtype=torch.long), cache)
+        assert torch.isfinite(logits).all()
+    for key, t in tflatten(cache).items():
+        if key == "length":
+            continue
+        kind = "attn" if key.split("/")[-1] in ("k", "v") else "state"
+        want = torch.bfloat16 if kind == "attn" else torch.float32
+        assert t.dtype == want, key

@@ -96,8 +96,7 @@ def test_registry_names_roadmap_for_unported_archs():
 
     from repro_torch.configs import registry
 
-    assert set(registry.NOT_PORTED) == {"qwen2-vl-2b", "recurrentgemma-2b",
-                                        "whisper-medium", "mamba2-370m"}
+    assert set(registry.NOT_PORTED) == {"qwen2-vl-2b", "whisper-medium"}
     for arch in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             registry.get_config(arch)

@@ -163,12 +163,19 @@ def test_init_params_layout_matches_reference():
     dict(mrope_sections=(2, 3, 3)),
 ], ids=["ssm", "rglru", "encdec", "mrope"])
 def test_unported_kinds_raise(change):
-    """The kinds still queued raise naming ROADMAP.md; MoE is ported
-    (tests/test_torch_moe.py, tests/test_torch_archs.py)."""
+    """The kinds still queued (encoder–decoder, M-RoPE) raise naming
+    ROADMAP.md; MoE, "ssm" and "recurrent" are ported
+    (tests/test_torch_moe.py, tests/test_torch_ssm_rglru.py,
+    tests/test_torch_archs.py) and build their layers."""
     _, cfg = _cfgs(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init_params(dataclasses.replace(cfg, **change), device="cpu")
-    moe = dataclasses.replace(cfg, n_experts=4, top_k=2)
+    cfg = dataclasses.replace(cfg, **change)
+    if "block_pattern" in change:
+        leaf = {"ssm": "ssm", "recurrent": "rglru"}[change["block_pattern"][0]]
+        assert leaf in ttf.init_params(cfg, device="cpu")["groups"]["p0"]
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ttf.init_params(cfg, device="cpu")
+    moe = dataclasses.replace(_cfgs(False)[1], n_experts=4, top_k=2)
     assert "moe" in ttf.init_params(moe, device="cpu")["groups"]["p0"]
 
 

@@ -23,7 +23,15 @@ in float32, and writes into one directory:
     granite-moe smoke config in float32 (the same session settings, one
     step at a time with edge 1 dropped at step 2) in modes off, coded and
     coded_q int8: the initial params, each run's trained params, and each
-    step's loss and (coded modes) ``aux_loss``.
+    step's loss and (coded modes) ``aux_loss``,
+  * ``rec_<arch>_init.npz``, ``rec_<arch>_<step>.npz``,
+    ``recurrent.json`` — the mamba2-370m and recurrentgemma-2b smoke
+    configs in float32, coded_q int8 for 4 steps, one ``_iteration`` at
+    a time, with edge 1 dropped at step 2 (mamba2 at lr 1e-3): the
+    initial params, the params after each step and each step's loss.
+    The reference's mamba2 gradients can overflow to NaN (its SSD
+    exponentiates the masked triangle, ROADMAP.md §3), after which its
+    params and losses are NaN.
 
 Test files in several pytest-xdist workers share one run: the first to
 take the lock runs it, the others wait for its ``done`` marker.
@@ -52,6 +60,8 @@ SHRINK = dict(seq_len=16, optimizer="sgd", lr=0.05, total_steps=6, seed=0)
 GEN = 6
 MOE_ARCH = "granite-moe-3b-a800m"
 MOE_RUNS = [("off", ""), ("coded", ""), ("coded_q", "int8")]
+#: the recurrent archs' coded_q int8 runs: arch → sgd learning rate
+RECURRENT_LR = {"mamba2-370m": 1e-3, "recurrentgemma-2b": SESSION["lr"]}
 #: intra-op threads for the port's tiny models: with several pytest-xdist
 #: workers, more threads than that per worker only contend for the cores
 THREADS = 2
@@ -80,8 +90,8 @@ import numpy as np
 from repro.api import CodedCluster, CodedSession, planner_for_scheme
 from repro.checkpoint.store import _flatten
 from repro.configs.registry import get_smoke_config
-out, runs, kw, fit, ck, shrink, gen, moe_arch, moe_runs = sys.argv[1], *map(
-    json.loads, sys.argv[2:10])
+(out, runs, kw, fit, ck, shrink, gen, moe_arch, moe_runs,
+ recurrent_lr) = sys.argv[1], *map(json.loads, sys.argv[2:11])
 cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
 
 
@@ -145,6 +155,18 @@ for mode, comp in moe_runs:
         "aux": [float(m["aux_loss"]) for m in steps if "aux_loss" in m]}
     np.savez(out + f"/moe_{mode + comp}.npz", **flat(s.params))
 json.dump(moe, open(out + "/moe.json", "w"))
+
+recurrent = {}
+for arch, lr in recurrent_lr.items():
+    rcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    s = session(CodedCluster.homogeneous(2, 4), "coded_q", "int8",
+                model=rcfg, **dict(kw, lr=lr))
+    np.savez(out + f"/rec_{arch}_init.npz", **flat(s.params))
+    recurrent[arch] = []
+    for t in range(4):
+        recurrent[arch].append(float(s._iteration(t, **fit)["loss"]))
+        np.savez(out + f"/rec_{arch}_{t}.npz", **flat(s.params))
+json.dump(recurrent, open(out + "/recurrent.json", "w"))
 json.dump(losses, open(out + "/losses.json", "w"))
 """
 
@@ -154,7 +176,7 @@ def _run(out: Path) -> None:
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu")
     args = [json.dumps(x) for x in (RUNS, SESSION, FIT, CKPT, SHRINK, GEN,
-                                    MOE_ARCH, MOE_RUNS)]
+                                    MOE_ARCH, MOE_RUNS, RECURRENT_LR)]
     r = subprocess.run([sys.executable, "-c", _SCRIPT, str(out), *args],
                        cwd=REPO, env=env, capture_output=True, text=True,
                        timeout=600)
