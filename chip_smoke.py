@@ -15,15 +15,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      shapes (attention: tolerance 1e-4 in float32, 2e-2 in bfloat16;
      the four coded-combine kernels: every output row within 1e-5 of
      its max |plain|; the attention grids at the GQA groups of every
-     served config, G ∈ {1, 2, 3, 4, 5, 8, 10, 12}, Dh up to 256 in both
-     dtypes, and at gemma3's window of 1024: flash at S = 2048, decode
-     over a wrapped 1024-slot ring; at recurrentgemma's window of 2048,
-     G 10, Kv 1, Dh 256: flash at S = 4096, decode over a wrapped
-     2048-slot ring),
+     served config, G ∈ {1, 2, 3, 4, 5, 6, 8, 10, 12}, Dh up to 256 in
+     both dtypes, and at gemma3's window of 1024: flash at S = 2048,
+     decode over a wrapped 1024-slot ring; at recurrentgemma's window of
+     2048, G 10, Kv 1, Dh 256: flash at S = 4096, decode over a wrapped
+     2048-slot ring; whisper's cross-attention: flash non-causal with S
+     ∈ {1, 64, 1000} queries over T ∈ {17, 1500} keys at G 1 and 6, Dh 64
+     and 128, decode over a full 1500-slot cache at q_pos 1499),
      then checked and timed at the main paths' shapes (the attention
      kernels also at each served config's, beside SDPA, and at
      recurrentgemma's: decode at its served prompt, flash at the
-     training shape and at S = 4096, where its window bites; the combine
+     training shape and at S = 4096, where its window bites; whisper's
+     and qwen2-vl's: flash over the encoder's 1500 frames and the
+     cross-attention's 64 × 1500 (non-causal, beside SDPA without a
+     mask) and at qwen2-vl's serve prompt (G 6), decode over the cross
+     cache at q_pos 1499, whisper's self-attention cache and qwen2-vl's
+     at its serve shape; the combine
      kernels: K = 2 pods × the 525M-value embedding
      leaf, block 64, for the int8/int4/fp8 hop; R = 8 and R = 1 by
      K = 8 × the 117M-value ``mlp.wd`` leaf for the f32 encode/decode,
@@ -73,7 +80,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      phase 4 (batch 4, 32 tokens, 1024-token prompts, gemma3's 2048 so
      its window bites; maverick through ``launch.serve.serve`` cut to 2
      layers, all 48 being ~800 GB): exact launches, host times, peak
-     memory, profiled device time.  gemma3 cut to 6 layers with a
+     memory, profiled device time (the profiled request has 8 new
+     tokens: reading its trace back costs seconds a decode step).
+     gemma3 cut to 6 layers with a
      1088-token prompt: the bulk handoff (rings trimmed to the window)
      and the exact one, then 8 decode steps: in float32 within 2e-3 ·
      max|logit| (phase 3's gate), in bf16 within the reference's bf16
@@ -94,6 +103,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
      flash; none for mamba2), host times, peak memory, profiled device
      time.  Each trained in coded_q int8 as granite-moe (mamba2 at all 48
      layers, recurrentgemma cut to 5), twice, bit for bit.
+  4d. encdec_vlm: whisper-medium (24 encoder + 24 decoder layers, MHA
+     Dh 64, 1500 frames) and qwen2-vl-2b (28 layers, G 6, M-RoPE).  Card
+     against CPU at full width in float32 (phase 3's gate): whisper cut
+     to 2 + 2 layers, a 2 × 64-token forward over seeded frames, then
+     the exact handoff of a 16-token prompt (the cross cache filled
+     first) and 8 decode steps; qwen2-vl cut to 2 layers, a 2 × 128-token
+     forward with visual embeddings on the first 64 positions over
+     Qwen2-VL's vision layout of 3-D positions (an 8 × 8 patch grid at
+     t = 0, the text from max + 1 on: unequal streams, so M-RoPE's
+     sections count), then the bulk prefill and 8 decode steps.  Each
+     served at full width and depth in bf16 through the serve CLI:
+     qwen2-vl as phase 4 (exact launches 28 flash, 28 × 32 decode);
+     whisper with 1500 frames from the seed, encoded once a request
+     (24 flash launches, under the ``serve.encode`` span), a 16-token
+     prompt handed off token by token (a self and a cross decode launch
+     per layer and token: 48 × (16 + 32)); the profiled whisper request
+     16 + 8 tokens, its encoder's device time split out by the launches
+     under its span.  qwen2-vl trained whole in coded_q int8 as
+     granite-moe, twice, bit for bit; whisper cut to 2 + 2 layers through
+     ``make_train_step`` (adamw, 4 × 64 tokens over 1500 frames): the
+     step-0 gradients card against CPU by phase 5's rule (the encoder's
+     unused cross-attention leaves zero on both), then 4 steps with
+     finite losses.
   5. training parity: a small float32 config (llama3-8b smoke, 2
      layers), 4 sgd steps of ``CodedSession`` in modes off, coded and
      coded_q × {int8, int4, fp8} on the card and on the CPU from the
@@ -184,10 +216,10 @@ B, PROMPT, GEN = 4, 1024, 32
 H, KV, DH = 32, 8, 128
 
 # GQA group sizes H / Kv in the phase-2 grids: llama3 and granite-8b 4,
-# gemma3 2, granite-moe 3, maverick 5, recurrentgemma 10, starcoder2 12
-# (and 1, 8)
-GQA_GROUPS = [1, 2, 3, 5, 8, 10, 12]
-FLASH_GROUPS = [2, 3, 4, 5, 10, 12]
+# gemma3 2, granite-moe 3, maverick 5, qwen2-vl 6, recurrentgemma 10,
+# starcoder2 12, whisper 1 (and 8)
+GQA_GROUPS = [1, 2, 3, 5, 6, 8, 10, 12]
+FLASH_GROUPS = [2, 3, 4, 5, 6, 10, 12]
 
 # the served configs' attention shapes beside llama3-8b's (granite-8b's
 # are llama3-8b's): label → (prompt S, H, Kv, Dh, window)
@@ -210,6 +242,14 @@ REC_PROMPT = 256
 # kernels, and the profiler's trace costs seconds a step to read back;
 # device time is taken per token against the counted request's host time
 REC_PROFILED = (16, 8)
+
+# whisper-medium (H = Kv = 16, Dh 64) and qwen2-vl-2b (H 12, Kv 2: G 6,
+# Dh 128): the encoder's frames, the served prompts (whisper's handed
+# off token by token, its encoder once a request), and the training
+# and parity sequence of the cross-attention's queries
+ENC_LEN, WHISPER_PROMPT, XATTN_SEQ = 1500, 16, 64
+WHISPER_SHAPE = dict(H=16, KV=16, DH=64)
+QWEN_SHAPE = dict(H=12, KV=2, DH=128)
 
 # the paper's evaluation path: benchmarks/bench_fig56_accuracy.py and
 # bench_table1_time_to_acc.py at their FULL settings
@@ -340,12 +380,15 @@ def _grid_decode(torch, dtype, gen):
                              [0, 8], [0.0, 30.0], GQA_GROUPS, [1, 8],
                              [16, 32, 64, 128, 256], [4, 40, 1057])
     # gemma3's local ring: window 1024 over a 1024-slot cache, wrapped
-    # (1088 = the phase-"archs" handoff prompt, 2 * 1024 + 3); and
-    # recurrentgemma's, window 2048 over 2048 slots, G 10, Kv 1, Dh 256
+    # (1088 = the phase-"archs" handoff prompt, 2 * 1024 + 3);
+    # recurrentgemma's, window 2048 over 2048 slots, G 10, Kv 1, Dh 256;
+    # and whisper's static cross cache: every one of 1500 slots valid at
+    # q_pos = C - 1, G 1, Kv 16, Dh 64
     ring = itertools.chain(
         itertools.product(["wrapped1088", "wrapped"], [1024], [0.0],
                           GQA_GROUPS, [1, 8], [64, 128], [1024]),
-        [("wrapped", 2048, 0.0, 10, 1, 256, 2048)])
+        [("wrapped", 2048, 0.0, 10, 1, 256, 2048),
+         ("full", 0, 0.0, 1, 16, 64, ENC_LEN)])
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     n = 0
     for pos_kind, window, softcap, G, Kv, Dh, C in itertools.chain(grid,
@@ -378,20 +421,24 @@ def _grid_flash(torch, dtype, gen):
     worst = 0.0
     grid = itertools.product([1, 17, 64, 1000, 1024], [True, False], [0, 16],
                              [0.0, 30.0], [1] + FLASH_GROUPS,
-                             [16, 32, 64, 128, 256], [2])
+                             [16, 32, 64, 128, 256], [2], [None])
     # gemma3's local layers at its served prompt: window 1024 at S 2048;
     # recurrentgemma's: window 2048 at S 4096, G 10, Kv 1, Dh 256
     local = itertools.chain(
         itertools.product([2048], [True], [1024], [0.0], FLASH_GROUPS,
-                          [64, 128, 256], [2]),
-        [(4096, True, 2048, 0.0, 10, 256, 1)])
+                          [64, 128, 256], [2], [None]),
+        [(4096, True, 2048, 0.0, 10, 256, 1, None)])
+    # whisper's cross-attention: S queries over T keys, non-causal
+    cross = itertools.product([1, 64, 1000], [False], [0], [0.0], [1, 6],
+                              [64, 128], [2], [17, ENC_LEN])
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     n = 0
-    for S, causal, window, softcap, G, Dh, Kv in itertools.chain(grid,
-                                                                 local):
+    for S, causal, window, softcap, G, Dh, Kv, T in itertools.chain(
+            grid, local, cross):
+        T = T or S
         q = torch.randn(1, S, Kv * G, Dh, generator=gen, device="cuda")
-        k = torch.randn(1, S, Kv, Dh, generator=gen, device="cuda")
-        v = torch.randn(1, S, Kv, Dh, generator=gen, device="cuda")
+        k = torch.randn(1, T, Kv, Dh, generator=gen, device="cuda")
+        v = torch.randn(1, T, Kv, Dh, generator=gen, device="cuda")
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         got = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                   softcap=softcap).float()
@@ -400,7 +447,7 @@ def _grid_flash(torch, dtype, gen):
                                        softcap=softcap).float()
         torch.testing.assert_close(
             got, want, rtol=tol, atol=tol,
-            msg=lambda m: f"flash S={S} causal={causal} w={window} "
+            msg=lambda m: f"flash S={S} T={T} causal={causal} w={window} "
                           f"cap={softcap} G={G} Kv={Kv} Dh={Dh} {dtype}: "
                           f"{m}")
         worst = max(worst, (got - want).abs().max().item())
@@ -408,13 +455,15 @@ def _grid_flash(torch, dtype, gen):
     return n, worst
 
 
-def _time_decode(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0):
+def _time_decode(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0, C=None,
+                 q_pos=None):
     """Decode attention at a serve path's shapes (bf16, batch 4, a
     mid-generation q_pos after an S-token prompt, the ring of a
-    ``window``-token local layer or the whole cache).  Several cache
-    copies rotate so that, as in the model where every layer's cache
-    passes between two reads of one, no launch finds its cache in the
-    50 MB L2."""
+    ``window``-token local layer or the whole cache; or a ``C``-slot
+    cache read at ``q_pos``, as whisper's static cross cache at C − 1).
+    Several cache copies rotate so that, as in the model where every
+    layer's cache passes between two reads of one, no launch finds its
+    cache in the 50 MB L2."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -426,8 +475,9 @@ def _time_decode(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0):
 
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(7)
-    q_pos = S + GEN // 2
-    C = min(window, S + GEN + 1) if window else S + GEN + 1
+    if C is None:
+        q_pos = S + GEN // 2
+        C = min(window, S + GEN + 1) if window else S + GEN + 1
     n_sets = 6
     qs = [torch.randn(B, 1, H, DH, generator=gen, device="cuda").to(dt)
           for _ in range(n_sets)]
@@ -445,15 +495,18 @@ def _time_decode(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0):
     err = (got - want).abs().max().item()
     row_err = check_rows(got, want, 1e-2, "decode at the serve shapes")
 
-    # SDPA yardstick: same function, the ring mask as a boolean mask
+    # SDPA yardstick: same function, the ring mask as a boolean mask (no
+    # mask where every slot is attended, as over the cross cache)
     k_pos = attn_lib.ring_slot_positions(C, qp + 1, window or C)
     mask = attn_lib._allowed(qp.reshape(1), k_pos, True,
                              window)[None, None]
+    n_valid = int(mask.sum())
+    sdpa_mask = None if n_valid == C else mask
 
     def lib(i):
         return F.scaled_dot_product_attention(
             qs[i].transpose(1, 2), ks[i].transpose(1, 2),
-            vs[i].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+            vs[i].transpose(1, 2), attn_mask=sdpa_mask, enable_gqa=True)
 
     torch.testing.assert_close(lib(0).transpose(1, 2).float(), want,
                                rtol=2e-2, atol=2e-2)
@@ -467,7 +520,6 @@ def _time_decode(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0):
     plain_ms = timed_ms(rot(lambda i: ref.decode_attention_ref(
         qs[i], ks[i], vs[i], qp, window=window)), 100)
     lib_ms = graph_ms(rot(lib))
-    n_valid = int(mask.sum())
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     n_split, chunk = split_plan(C, B * KV, n_sm)
     log(f"[kernels] decode_attention at C={C}: the sweep of each "
@@ -481,11 +533,13 @@ def _time_decode(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0):
 
 
 def _time_flash(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0,
-                with_lse=False):
+                with_lse=False, T=None, causal=True):
     """Flash forward at a main path's shapes (bf16, batch 4, causal, over
     a ``window`` for a local layer): a prefill's (llama3's S = 1024:
     q/k/v/o are 84 MB, more than the L2 holds) or, with the log-sum-exp
-    the training forward saves, one training group's (S = 512)."""
+    the training forward saves, one training group's (S = 512); or
+    non-causal over ``T`` keys (whisper's encoder, S = T = 1500, and its
+    cross-attention, S queries over T = 1500 frames)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -494,22 +548,25 @@ def _time_flash(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0,
 
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(8)
+    T = T or S
     q = torch.randn(B, S, H, DH, generator=gen, device="cuda").to(dt)
-    k = torch.randn(B, S, KV, DH, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, S, KV, DH, generator=gen, device="cuda").to(dt)
-    got = flash_attention_fwd(q, k, v, window=window, return_lse=with_lse)
-    want = ref.flash_attention_ref(q, k, v, window=window,
-                                   return_lse=with_lse)
+    k = torch.randn(B, T, KV, DH, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, T, KV, DH, generator=gen, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, return_lse=with_lse)
+    got = flash_attention_fwd(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
     if with_lse:
         (got, lse), (want, want_lse) = got, want
         torch.testing.assert_close(lse, want_lse, rtol=2e-2, atol=2e-2)
     got, want = got.float(), want.float()
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
     err = (got - want).abs().max().item()
-    row_err = check_rows(got, want, 2e-2, f"flash at S={S}")
-    pos = torch.arange(S, device="cuda")
-    allowed = attn_lib._allowed(pos, pos, True, window)
-    mask = dict(attn_mask=allowed) if window else dict(is_causal=True)
+    row_err = check_rows(got, want, 2e-2, f"flash at S={S} T={T}")
+    allowed = attn_lib._allowed(torch.arange(S, device="cuda"),
+                                torch.arange(T, device="cuda"), causal,
+                                window).expand(S, T)
+    mask = (dict(attn_mask=allowed) if window
+            else dict(is_causal=causal))
 
     def lib():
         return F.scaled_dot_product_attention(
@@ -518,12 +575,10 @@ def _time_flash(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0,
 
     torch.testing.assert_close(lib().transpose(1, 2).float(), want,
                                rtol=2e-2, atol=2e-2)
-    kernel_ms = graph_ms(lambda: flash_attention_fwd(
-        q, k, v, window=window, return_lse=with_lse), 20)
-    plain_ms = timed_ms(lambda: ref.flash_attention_ref(
-        q, k, v, window=window, return_lse=with_lse), 5)
+    kernel_ms = graph_ms(lambda: flash_attention_fwd(q, k, v, **kw), 20)
+    plain_ms = timed_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 5)
     lib_ms = graph_ms(lib, 20)
-    nbytes = (2 * B * S * H * DH + 2 * B * S * KV * DH) * 2 \
+    nbytes = (2 * B * S * H * DH + 2 * B * T * KV * DH) * 2 \
         + (B * S * H * 4 if with_lse else 0)
     flops = 4 * B * H * DH * int(allowed.sum())  # the (q, k) pairs attended
     bms, by = bound_ms(nbytes, flops, "bfloat16")
@@ -743,6 +798,37 @@ def _check_flash_lse(torch, gen):
     return worst
 
 
+def _time_encdec_vlm(torch):
+    """The attention kernels at whisper's and qwen2-vl's regimes, each
+    beside SDPA, its plain version and its bound: flash over the
+    encoder's frames and the cross-attention's queries (non-causal),
+    flash at qwen2-vl's serve shape (G 6), decode over the cross cache,
+    whisper's self-attention cache and qwen2-vl's."""
+    for label, timer, kw in (
+            (f"whisper's encoder (S=T={ENC_LEN}, non-causal)", _time_flash,
+             dict(S=ENC_LEN, causal=False, **WHISPER_SHAPE)),
+            (f"whisper's cross-attention (S={XATTN_SEQ}, T={ENC_LEN}, "
+             f"non-causal)", _time_flash,
+             dict(S=XATTN_SEQ, T=ENC_LEN, causal=False, **WHISPER_SHAPE)),
+            (f"qwen2-vl's serve shape (S={PROMPT}, causal)", _time_flash,
+             dict(S=PROMPT, **QWEN_SHAPE)),
+            (f"whisper's cross cache (C={ENC_LEN}, q_pos={ENC_LEN - 1})",
+             _time_decode, dict(C=ENC_LEN, q_pos=ENC_LEN - 1,
+                                **WHISPER_SHAPE)),
+            (f"whisper's self-attention (C={WHISPER_PROMPT + GEN + 1})",
+             _time_decode, dict(S=WHISPER_PROMPT, **WHISPER_SHAPE)),
+            (f"qwen2-vl's serve shape (C={PROMPT + GEN + 1})", _time_decode,
+             dict(S=PROMPT, **QWEN_SHAPE))):
+        r, row_err = timer(torch, **kw)
+        log(f"[kernels] {timer.__name__[6:]}_attention at {label} (B={B} "
+            f"H={kw['H']} Kv={kw['KV']} Dh={kw['DH']}): max abs err "
+            f"{r['max_abs_err']:.3g}, worst row {row_err:.3g} of its max; "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), sdpa "
+            f"{r['library_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+
+
 def phase_kernels():
     import torch
 
@@ -809,6 +895,7 @@ def phase_kernels():
             f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), sdpa "
             f"{r['library_ms']:.4f} ms")
         torch.cuda.empty_cache()
+    _time_encdec_vlm(torch)
     shapes = [("f32", 8, 8, WD_F, 1), ("f32", 1, 8, WD_F, 1),
               ("int8", 1, 2, EMBED_F, HOP_BLOCK),
               ("int4", 1, 2, EMBED_F, HOP_BLOCK),
@@ -908,12 +995,18 @@ def _serve_launches(cfg, prompt: int) -> dict:
     per attention layer and one decode launch per attention layer and
     new token; with the exact handoff (recurrent archs) no flash launch
     and one decode launch per attention layer and token, prompt tokens
-    included."""
+    included; an encoder–decoder model adds a flash launch per encoder
+    layer and a cross decode per decoder layer and token."""
     from repro_torch.models import transformer as tf
 
     n = _attn_layers(cfg)
     if tf.bulk_prefill_supported(cfg):
         want = {"flash_attention": n, "decode_attention": n * GEN}
+    elif cfg.is_encdec:
+        # the encoder once a request, then a self and a cross decode
+        # launch per decoder layer and token
+        want = {"flash_attention": cfg.n_enc_layers,
+                "decode_attention": 2 * n * (prompt + GEN)}
     else:
         want = {"decode_attention": n * (prompt + GEN)}
     return {k: v for k, v in want.items() if v}
@@ -972,8 +1065,9 @@ def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
                              ProfilerActivity.CUDA]) as prof:
         prof_res = prof_request()
     by_phase = device_ms_by_phase(prof)
-    # units: the bulk prefill a request; the exact handoff a prompt token
-    bulk = tf.bulk_prefill_supported(cfg)
+    # units: the bulk prefill, or the encoder and its handoff, a request;
+    # the exact handoff a prompt token
+    bulk = tf.bulk_prefill_supported(cfg) or cfg.is_encdec
     n, p_n = (1, 1) if bulk else (prompt, p_prompt)
     host = {"prefill": (res["prefill_ms"] / n, prof_res["prefill_ms"] / p_n,
                         p_n, "ms" if bulk else "ms/token"),
@@ -992,6 +1086,12 @@ def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
             f"run's host {host_ms:.3f} {unit}: device busy "
             f"{100 * dev_ms / host_ms:.1f}% (host under the profiler "
             f"{prof_ms:.3f} {unit})")
+        if ph == "prefill" and cfg.is_encdec:
+            enc_ms, enc_n = _encode_device_ms(prof, DeviceType)
+            log(f"{ptag}  of which the encoder: device {enc_ms:.3f} ms "
+                f"({enc_n} kernels launched under serve.encode), the "
+                f"{p_prompt}-token handoff "
+                f"{(dev_ms - enc_ms) / p_prompt:.3f} ms/token")
         for name, ms in by_phase[ph].most_common(8):
             log(f"{ptag}  {ms / per:9.3f} {unit}  {name[:90]}")
     del prof_res, prof
@@ -1011,6 +1111,10 @@ ARCHS = {  # arch → (parity layers, served layers, prompt)
     "llama4-maverick-400b-a17b": (2, 2, PROMPT),  # 48 layers: ≈ 800 GB
 }
 HANDOFF_PROMPT = 1088   # gemma3's bulk vs exact handoff, 6 layers
+# new tokens of each config's profiled request: the profiler's trace of
+# a request costs seconds a decode step to read back (granite-moe's
+# ~3000 kernels a step most), and device time is taken per token
+ARCHS_PROFILED_GEN = 8
 MOE_TRAIN_LAYERS = 4    # granite-moe's coded training
 
 
@@ -1300,14 +1404,21 @@ def phase_archs():
         cfg = get_config(arch)
         if served is None:
             argv = ["--arch", arch, "--no-smoke", "--batch", str(B),
-                    "--prompt-len", str(prompt), "--gen", str(GEN)]
-            counts = _serve_runs(lambda: serve.main(argv), cfg, arch)
+                    "--prompt-len", str(prompt)]
+
+            def request(gen):
+                return lambda: serve.main(argv + ["--gen", str(gen)])
+            label = arch
         else:
             cfg = dataclasses.replace(cfg, n_layers=served)
-            counts = _serve_runs(
-                lambda: serve.serve(cfg, batch=B, prompt_len=prompt,
-                                    gen_len=GEN),
-                cfg, f"{arch} ({served} layers)")
+
+            def request(gen):
+                return lambda: serve.serve(cfg, batch=B, prompt_len=prompt,
+                                           gen_len=gen)
+            label = f"{arch} ({served} layers)"
+        counts = _serve_runs(request(GEN), cfg, label, prompt=prompt,
+                             profiled=(request(ARCHS_PROFILED_GEN), prompt,
+                                       ARCHS_PROFILED_GEN))
         for k, v in counts.items():
             totals[k] += v
         log(f"[archs] served {arch}: {cfg.n_layers} layers, "
@@ -1366,6 +1477,241 @@ def phase_recurrent():
             f"({time.perf_counter() - t0:.1f} s)")
     for arch, (_, trained) in RECURRENT.items():
         _coded_twice(torch, arch, trained, totals, tag="[recurrent]")
+    return totals
+
+
+# phase "encdec_vlm": whisper-medium and qwen2-vl-2b.  Layers kept for
+# the card-vs-CPU parity (whisper: encoder, decoder) and the vision
+# layout's patch grid (qwen2-vl: 8 × 8 patches, then as many text tokens)
+ENCDEC_PARITY_LAYERS = (2, 2)
+VLM_PARITY_LAYERS, VLM_GRID = 2, 8
+
+
+def vision_positions(torch, B, grid, n_text):
+    """(3, B, grid² + n_text) M-RoPE positions as Qwen2-VL lays out an
+    image then text: patch i at ``(t, h, w) = (0, i // grid, i % grid)``,
+    then the text from ``max + 1`` on in all three streams."""
+    i = torch.arange(grid * grid)
+    vis = torch.stack([torch.zeros_like(i), i // grid, i % grid])
+    start = int(vis.max()) + 1
+    text = torch.arange(start, start + n_text).expand(3, n_text)
+    return torch.cat([vis, text], 1)[:, None].expand(3, B, -1)
+
+
+def _logits_close(torch, got, want, what):
+    """``got`` (card) within 2e-3 · max|want| (CPU), phase 3's gate; →
+    the error as a share of max|want|."""
+    got, want = got.float().cpu(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= 2e-3 * scale):
+        raise AssertionError(f"{what}: max |card - cpu| {err:.3g} > 2e-3 * "
+                             f"{scale:.3g}")
+    return err / scale
+
+
+def _encdec_vlm_parity(torch):
+    """Card against CPU in float32 at full width, the weights made on
+    the card and copied: whisper cut to 2 encoder + 2 decoder layers (a
+    2 × 64-token forward over 1500 seeded frames; then the exact handoff
+    of a 16-token prompt, the cross cache filled first, and 8 greedy
+    decode steps, the CPU teacher-forced on the card's tokens); qwen2-vl
+    cut to 2 layers (a 2 × 128-token forward with visual embeddings on
+    the first 64 positions over the vision layout's 3-D positions, where
+    unequal streams exercise M-RoPE's sections; then the bulk prefill
+    and 8 decode steps)."""
+    from repro_torch.api import serving
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+
+    enc_layers, dec_layers = ENCDEC_PARITY_LAYERS
+    runs = {
+        "whisper-medium": dataclasses.replace(
+            get_config("whisper-medium"), n_layers=dec_layers,
+            n_enc_layers=enc_layers, dtype="float32"),
+        "qwen2-vl-2b": dataclasses.replace(
+            get_config("qwen2-vl-2b"), n_layers=VLM_PARITY_LAYERS,
+            dtype="float32"),
+    }
+    for arch, cfg in runs.items():
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        gpu = tf.init_params(cfg, gen, device="cuda", dtype=torch.float32)
+        cpu = _to(gpu, "cpu")
+        worst = 0.0
+        with torch.inference_mode():
+            if cfg.is_encdec:
+                S, prompt_len = XATTN_SEQ, WHISPER_PROMPT
+                extra = {"enc_frames": torch.randn(
+                    (2, cfg.enc_len, cfg.d_model), generator=gen,
+                    device="cuda")}
+            else:
+                n_vis = VLM_GRID * VLM_GRID
+                S = prompt_len = 2 * n_vis
+                extra = {"visual_embeds": torch.randn(
+                    (2, n_vis, cfg.d_model), generator=gen, device="cuda"),
+                    "positions": vision_positions(
+                        torch, 2, VLM_GRID, S - n_vis).cuda()}
+            tokens = torch.randint(0, cfg.vocab, (2, S), generator=gen,
+                                   device="cuda")
+            lg = tf.forward(gpu, cfg, tokens, **extra)[0]
+            lc = tf.forward(cpu, cfg, tokens.cpu(),
+                            **{k: v.cpu() for k, v in extra.items()})[0]
+            worst = max(worst, _logits_close(torch, lg, lc,
+                                             f"{arch} forward"))
+            prompt = tokens[:, :prompt_len]
+            frames = extra.get("enc_frames")
+            args_g = (frames,) if cfg.is_encdec else ()
+            args_c = (frames.cpu(),) if cfg.is_encdec else ()
+            prefill = serving.make_prefill_fn(cfg, prompt_len + 9)
+            decode = serving.make_decode_fn(cfg)
+            lg, cg = prefill(gpu, prompt, *args_g)
+            lc, cc = prefill(cpu, prompt.cpu(), *args_c)
+            worst = max(worst, _logits_close(torch, lg, lc,
+                                             f"{arch} prefill"))
+            for step in range(8):
+                tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+                lg, cg = decode(gpu, tok, cg)
+                lc, cc = decode(cpu, tok.cpu(), cc)
+                worst = max(worst, _logits_close(
+                    torch, lg, lc, f"{arch} decode step {step}"))
+        how = ("the exact handoff (cross cache filled)"
+               if cfg.is_encdec else "the bulk prefill")
+        log(f"[encdec_vlm] parity {arch} full width, "
+            + (f"{enc_layers} + {dec_layers}" if cfg.is_encdec
+               else f"{cfg.n_layers}")
+            + f" layers, f32: card == cpu over the {S}-token forward "
+            f"({', '.join(sorted(extra))}), {how} of {prompt_len} tokens "
+            f"and 8 decode steps, max err {worst:.3g} x max|logit| "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del gpu, cpu, cg, cc
+        torch.cuda.empty_cache()
+
+
+def _encdec_train(torch, totals):
+    """whisper at full width cut to 2 + 2 layers through
+    ``make_train_step`` (adamw) on a batch of 4 × 64 tokens over 1500
+    seeded frames: the step-0 gradients on the card against the CPU's
+    (phase 5's rule: within 1e-4 of each leaf's largest plus two f32
+    spacings of the value; the encoder's unused cross-attention leaves
+    zero on both), then 4 steps on the card with finite losses."""
+    import numpy as np
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint.params import _flatten
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    enc_layers, dec_layers = ENCDEC_PARITY_LAYERS
+    cfg = dataclasses.replace(get_config("whisper-medium"),
+                              n_layers=dec_layers, n_enc_layers=enc_layers,
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gpu = tf.init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, XATTN_SEQ),
+                                     generator=gen, device="cuda"),
+             "targets": torch.randint(0, cfg.vocab, (B, XATTN_SEQ),
+                                      generator=gen, device="cuda"),
+             "weights": torch.ones((B, XATTN_SEQ), device="cuda"),
+             "enc_frames": torch.randn((B, cfg.enc_len, cfg.d_model),
+                                       generator=gen, device="cuda")}
+    cpu = _to(gpu, "cpu")
+    for tree in (gpu, cpu):
+        for p in _tree.leaves(tree):
+            p.requires_grad_(True)
+    g_card = _flatten(_tree.unflatten_like(
+        gpu, steps._grads(gpu, cfg, batch)[0]))
+    g_cpu = _flatten(_tree.unflatten_like(
+        cpu, steps._grads(cpu, cfg, _to(batch, "cpu"))[0]))
+    off = total = zero = 0
+    for key, b in g_cpu.items():
+        a, b = g_card[key].cpu().numpy(), b.numpy()
+        tol = 1e-4 * np.abs(b).max() + 2 * np.spacing(np.abs(b))
+        off += int((np.abs(a - b) > tol).sum())
+        total += b.size
+        if key.startswith("encoder/groups/p0/") and (
+                "/xattn/" in key or "/norm_x/" in key):
+            if a.any() or b.any():
+                raise AssertionError(f"{key}: an unused leaf's gradient is "
+                                     f"not zero")
+            zero += 1
+    if off or zero != 6:
+        raise AssertionError(f"whisper step-0 gradients: {off} of {total} "
+                             f"values off card vs cpu; {zero} zero leaves")
+    del cpu, g_cpu, g_card
+    step = steps.make_train_step(cfg, TrainConfig(
+        optimizer="adamw", lr=1e-3, total_steps=4, warmup_steps=1))
+    state = step.optimizer.init(gpu)
+    losses = []
+    ops.reset_launch_counts()
+    for t in range(4):
+        _, _, m = step(gpu, state, batch, t + 1)
+        losses.append(float(m["loss"]))
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        totals[k] += v
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"whisper train losses {losses}")
+    log(f"[encdec_vlm] whisper make_train_step, {enc_layers} + {dec_layers} "
+        f"layers, batch {B} x {XATTN_SEQ} over {cfg.enc_len} frames: step-0 "
+        f"gradients card == cpu ({total:,} values, the encoder's 6 unused "
+        f"cross-attention leaves zero on both); adamw losses "
+        f"{[round(x, 5) for x in losses]}; launches "
+        f"{ {k: v for k, v in counts.items() if v} } "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del gpu, state, batch
+    torch.cuda.empty_cache()
+
+
+def phase_encdec_vlm():
+    """whisper-medium and qwen2-vl-2b: card against CPU at full width
+    (float32, cut in depth, :func:`_encdec_vlm_parity`); each served at
+    full width and depth in bf16 through the serve CLI with exact
+    launches (qwen2-vl as phase 4: bulk prefill of 1024-token prompts;
+    whisper: 1500 seeded frames encoded once a request, a 16-token
+    prompt handed off token by token; the profiled whisper request 16 +
+    8 tokens); qwen2-vl trained whole in coded_q int8 twice, bit for
+    bit, and whisper through ``make_train_step`` (:func:`_encdec_train`).
+    → the launches of the served requests and the training steps."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    totals = {name: 0 for name in ops.KERNELS}
+    _encdec_vlm_parity(torch)
+    for arch, prompt in (("qwen2-vl-2b", PROMPT),
+                         ("whisper-medium", WHISPER_PROMPT)):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        argv = ["--arch", arch, "--no-smoke", "--batch", str(B)]
+
+        def request(prompt, gen):
+            return lambda: serve.main(argv + ["--prompt-len", str(prompt),
+                                              "--gen", str(gen)])
+
+        if cfg.is_encdec:
+            counts = _serve_runs(
+                request(prompt, GEN), cfg, arch, prompt=prompt,
+                warm=request(4, 4),
+                profiled=(request(prompt, REC_PROFILED[1]), prompt,
+                          REC_PROFILED[1]))
+        else:
+            counts = _serve_runs(request(prompt, GEN), cfg, arch)
+        for k, v in counts.items():
+            totals[k] += v
+        log(f"[encdec_vlm] served {arch}: {cfg.n_layers} layers"
+            + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_len} "
+               f"frames" if cfg.is_encdec else "")
+            + f", {cfg.param_counts()[0]:,} params, {prompt}-token prompts "
+            f"({time.perf_counter() - t0:.1f} s)")
+    _coded_twice(torch, "qwen2-vl-2b", None, totals, tag="[encdec_vlm]")
+    _encdec_train(torch, totals)
     return totals
 
 
@@ -2084,6 +2430,26 @@ def _device_records(prof, DeviceType):
     return records, len(launches), sum(c not in ids for c in launches)
 
 
+def _encode_device_ms(prof, DeviceType):
+    """Device ms of the kernels launched inside the "serve.encode" span
+    (by their launch call's correlation id: the span has no synchronize
+    at its end, so the encoder's kernels may start on the device after
+    it), and their count."""
+    events = prof.profiler.kineto_results.events()
+    spans = [e for e in events if e.device_type() == DeviceType.CPU
+             and e.name() == "serve.encode"]
+    if len(spans) != 1:
+        raise AssertionError(f"{len(spans)} serve.encode spans")
+    lo, hi = spans[0].start_ns(), spans[0].end_ns()
+    ids = {e.correlation_id() for e in events
+           if e.device_type() == DeviceType.CPU
+           and e.name() in _LAUNCH_CALLS and lo <= e.start_ns() < hi}
+    ns = [e.end_ns() - e.start_ns() for e in events
+          if e.device_type() == DeviceType.CUDA
+          and not e.is_user_annotation() and e.correlation_id() in ids]
+    return sum(ns) / 1e6, len(ns)
+
+
 def _eval_profile(torch, profile, ProfilerActivity, dataset):
     """One hgc iteration at the paper's sizes under ``torch.profiler``:
     device ms by kernel name and by part, busy as the union of the
@@ -2294,13 +2660,14 @@ def main() -> int:
     counts = phase(phase_serve)
     archs_counts = phase(phase_archs)
     rec_counts = phase(phase_recurrent)
+    encdec_counts = phase(phase_encdec_vlm)
     phase(phase_train_parity)
     train_counts = phase(phase_train)
     ckpt_counts = phase(phase_checkpoint)
     orch_counts = phase(phase_orchestrate)
     eval_counts = phase(phase_eval)
     paths = {"archs": archs_counts, "recurrent": rec_counts,
-             "train": train_counts,
+             "encdec_vlm": encdec_counts, "train": train_counts,
              "checkpoint": ckpt_counts,
              "orchestrate": orch_counts, "eval": eval_counts}
     log(f"[done] launches on the main paths: serve {counts}, " + ", ".join(

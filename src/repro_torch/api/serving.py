@@ -6,8 +6,11 @@ ending in ``decode_step``'s cache layout:
   * **bulk** (default): one ``tf.prefill`` forward over the whole prompt
     (flash-attention kernel), re-laid into the decode ring buffers by
     ``tf.prefill_to_decode_cache``,
-  * **exact** (``exact=True``): the prompt fed through ``decode_step``
-    one token at a time (decode-attention kernel) — the debug path.
+  * **exact** (``exact=True``, and the only path for archs whose
+    recurrent or cross-attention states exist only on the decode path):
+    the prompt fed through ``decode_step`` one token at a time (decode-
+    attention kernel) — an encoder–decoder model's cross cache filled
+    first by ``tf.fill_cross_cache`` (the encoder on the flash kernel).
 
 Everything runs eagerly under ``torch.inference_mode()``; the token loop
 keeps tokens on the device and copies them to the host once, at the end.
@@ -26,7 +29,8 @@ from repro_torch.models import transformer as tf
 
 def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
                     exact: bool = False) -> Callable:
-    """→ ``prefill(params, tokens) → (last_logits (B, V), cache)``.
+    """→ ``prefill(params, tokens[, enc_frames]) → (last_logits (B, V),
+    cache)``; ``enc_frames`` (B, T_enc, d) for an encoder–decoder model.
 
     The cache is kept in ``cfg.dtype``: the decode kernel reads q and the
     cache in one dtype.  (The reference's ``dtype`` option, an f32 cache
@@ -34,14 +38,19 @@ def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
     """
     use_bulk = tf.bulk_prefill_supported(cfg) and not exact
 
-    def bulk(params, tokens):
+    def bulk(params, tokens, enc_frames=None):
         logits, pcache = tf.prefill(params, cfg, tokens, last_only=True)
         cache = tf.prefill_to_decode_cache(cfg, pcache, max_len)
         return logits[:, -1], cache
 
-    def exact_loop(params, tokens):
+    def exact_loop(params, tokens, enc_frames=None):
         B, S = tokens.shape
         cache = tf.init_cache(cfg, B, max_len, device=tokens.device)
+        if cfg.is_encdec:
+            # a profiler span (a no-op unless one records): the serve
+            # CLI's phase report splits the encoder from the handoff
+            with torch.profiler.record_function("serve.encode"):
+                cache = tf.fill_cross_cache(params, cfg, enc_frames, cache)
         logits = None
         for t in range(S):
             logits, cache = tf.decode_step(params, cfg, tokens[:, t:t + 1],
@@ -65,15 +74,19 @@ def make_decode_fn(cfg: ModelConfig) -> Callable:
 
 def generate_tokens(params, cfg: ModelConfig, prompt: torch.Tensor,
                     gen_len: int, *, prefill_fn: Callable,
-                    decode_fn: Callable, greedy: bool = True,
-                    seed: int = 0) -> np.ndarray:
+                    decode_fn: Callable, enc_frames=None,
+                    greedy: bool = True, seed: int = 0) -> np.ndarray:
     """The generation loop over prebuilt step fns → (B, gen_len) tokens.
 
+    ``enc_frames`` go to the prefill of an encoder–decoder model.
     Greedy takes the first maximum, as ``jnp.argmax`` does; sampling
     draws from ``softmax(logits)`` with a ``torch.Generator`` seeded by
     ``seed`` on the prompt's device.
     """
-    logits, cache = prefill_fn(params, prompt)
+    if cfg.is_encdec:
+        logits, cache = prefill_fn(params, prompt, enc_frames)
+    else:
+        logits, cache = prefill_fn(params, prompt)
     gen = None
     if not greedy:
         gen = torch.Generator(device=prompt.device).manual_seed(seed)
@@ -96,27 +109,41 @@ def _on_device(params, device: torch.device) -> None:
         raise ValueError(f"params live on {leaf.device}, not on {device}")
 
 
+def frames_on(enc_frames, device: torch.device):
+    """``enc_frames`` (numpy or a tensor) as a float tensor on ``device``;
+    None stays None."""
+    if enc_frames is None:
+        return None
+    if not isinstance(enc_frames, torch.Tensor):
+        enc_frames = torch.from_numpy(np.asarray(enc_frames, np.float32))
+    return enc_frames.to(device)
+
+
 @torch.inference_mode()
-def prefill_into_cache(params, cfg: ModelConfig, tokens, max_len: int, *,
-                       exact: bool = False, device="cuda"
-                       ) -> Tuple[torch.Tensor, object]:
+def prefill_into_cache(params, cfg: ModelConfig, tokens, max_len: int,
+                       enc_frames=None, *, exact: bool = False,
+                       device="cuda") -> Tuple[torch.Tensor, object]:
     """Single-host convenience: run one prefill → (logits, cache)."""
     device = resolve_device(device)
     _on_device(params, device)
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                              device=device)
-    return make_prefill_fn(cfg, max_len, exact=exact)(params, tokens)
+    fn = make_prefill_fn(cfg, max_len, exact=exact)
+    if cfg.is_encdec:
+        return fn(params, tokens, frames_on(enc_frames, device))
+    return fn(params, tokens)
 
 
 @torch.inference_mode()
 def generate(params, cfg: ModelConfig, prompt, gen_len: int,
-             max_len: Optional[int] = None, greedy: bool = True,
-             seed: int = 0, exact_handoff: bool = False,
-             device="cuda") -> np.ndarray:
+             max_len: Optional[int] = None, enc_frames=None,
+             greedy: bool = True, seed: int = 0,
+             exact_handoff: bool = False, device="cuda") -> np.ndarray:
     """Single-host generation → (B, gen_len) int32 tokens (numpy).
 
     Runs on ``device`` (the card unless the caller asks for the CPU);
-    ``params`` must already live there.
+    ``params`` must already live there.  An encoder–decoder model takes
+    its ``enc_frames`` (B, T_enc, d).
     """
     device = resolve_device(device)
     _on_device(params, device)
@@ -126,5 +153,7 @@ def generate(params, cfg: ModelConfig, prompt, gen_len: int,
     return generate_tokens(
         params, cfg, prompt, gen_len,
         prefill_fn=make_prefill_fn(cfg, max_len, exact=exact_handoff),
-        decode_fn=make_decode_fn(cfg), greedy=greedy, seed=seed,
+        decode_fn=make_decode_fn(cfg),
+        enc_frames=frames_on(enc_frames, device), greedy=greedy,
+        seed=seed,
     )

@@ -720,12 +720,14 @@ class CodedSession:
 
     @torch.inference_mode()
     def generate(self, prompts, gen_len: int, max_len: Optional[int] = None,
-                 *, greedy: bool = True, seed: int = 0,
+                 *, enc_frames=None, greedy: bool = True, seed: int = 0,
                  exact_handoff: bool = False) -> np.ndarray:
         """Batched generation from the session's params: bulk prefill →
-        decode loop → (B, gen_len) int32 tokens (numpy).  The float32
-        master params serve in the model's compute dtype (``cfg.dtype``),
-        the one dtype the decode kernel reads q and the cache in."""
+        decode loop → (B, gen_len) int32 tokens (numpy); an encoder–
+        decoder model takes its ``enc_frames`` (B, T_enc, d) and hands
+        off token by token.  The float32 master params serve in the
+        model's compute dtype (``cfg.dtype``), the one dtype the decode
+        kernel reads q and the cache in."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                   device=self.device)
         max_len = max_len or int(prompts.shape[1]) + gen_len + 1
@@ -733,4 +735,6 @@ class CodedSession:
         params = tf.cast_params(self.params, self.cfg)
         return serving.generate_tokens(
             params, self.cfg, prompts, gen_len, prefill_fn=prefill_fn,
-            decode_fn=decode_fn, greedy=greedy, seed=seed)
+            decode_fn=decode_fn,
+            enc_frames=serving.frames_on(enc_frames, self.device),
+            greedy=greedy, seed=seed)

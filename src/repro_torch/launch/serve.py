@@ -3,18 +3,24 @@
 PyTorch counterpart of ``repro.launch.serve`` on one device: random
 weights from ``--seed`` (made on the device), a random prompt, the bulk
 prefill (flash-attention kernel) handed off into the decode ring buffers,
-then ``--gen`` greedy decode steps (decode-attention kernel).  Runs on the
-card unless ``--device cpu`` is given.
+then ``--gen`` greedy decode steps (decode-attention kernel).  An
+encoder–decoder arch (whisper-medium) gets ``(batch, enc_len, d_model)``
+normal frames from the seed, encoded into the cross cache (flash
+kernel), and hands the prompt off token by token.  Runs on the card
+unless ``--device cpu`` is given.
 
 ``--smoke/--no-smoke`` picks the smoke or the full config (default
 smoke); ``--no-smoke`` serves the full config, e.g. llama3-8b (≈16 GB of
-bf16 weights), granite-8b, starcoder2-3b, gemma3-27b (≈54 GB) or
-granite-moe-3b-a800m.  :func:`serve` is the same request for a config
-built by the caller (e.g. a depth-cut one).
+bf16 weights), granite-8b, starcoder2-3b, gemma3-27b (≈54 GB),
+granite-moe-3b-a800m, qwen2-vl-2b or whisper-medium.  :func:`serve` is
+the same request for a config built by the caller (e.g. a depth-cut
+one).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --no-smoke --batch 4 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --no-smoke --batch 4 --prompt-len 16 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --f32
 """
 from __future__ import annotations
@@ -79,15 +85,21 @@ def main(argv=None):
 
 def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
           device="cuda", exact_handoff: bool = False) -> dict:
-    """One request: random weights and prompt from ``seed``, prefill,
-    ``gen_len`` greedy tokens → the tokens, the last logits, the host
-    times and the peak memory (printed as the CLI prints them)."""
+    """One request: random weights and prompt (and, for an encoder–
+    decoder model, encoder frames) from ``seed``, prefill, ``gen_len``
+    greedy tokens → the tokens, the last logits, the host times and the
+    peak memory (printed as the CLI prints them); ``prefill_ms``
+    includes the encoder."""
     device = resolve_device(device)
     with torch.inference_mode():
         gen = torch.Generator(device=device).manual_seed(seed)
         params = tf.init_params(cfg, gen, device=device)
         prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
                                generator=gen, device=device)
+        enc_frames = None
+        if cfg.is_encdec:
+            enc_frames = torch.randn((batch, cfg.enc_len, cfg.d_model),
+                                     generator=gen, device=device)
         max_len = prompt_len + gen_len + 1
         prefill = serving.make_prefill_fn(cfg, max_len, exact=exact_handoff)
         decode = serving.make_decode_fn(cfg)
@@ -96,12 +108,13 @@ def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
         # profiler spans (no-ops unless a torch.profiler is recording):
         # "serve.prefill" ends after the prefill's kernels, "serve.request"
         # after the tokens' host copy, so the device work between the two
-        # ends is the decode's
-        def timed_prefill(p, tokens):
+        # ends is the decode's; inside the prefill, serving's exact handoff
+        # puts an encoder–decoder model's encoder under "serve.encode"
+        def timed_prefill(p, tokens, *frames):
             _sync(device)
             with torch.profiler.record_function("serve.prefill"):
                 t = time.perf_counter()
-                out = prefill(p, tokens)
+                out = prefill(p, tokens, *frames)
                 _sync(device)
                 seen["prefill_s"] = time.perf_counter() - t
             return out
@@ -117,7 +130,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
             t0 = time.perf_counter()
             toks = serving.generate_tokens(
                 params, cfg, prompt, gen_len, prefill_fn=timed_prefill,
-                decode_fn=watched_decode, seed=seed)
+                decode_fn=watched_decode, enc_frames=enc_frames, seed=seed)
             total = time.perf_counter() - t0  # ends in the tokens' host copy
     decode_s = total - seen["prefill_s"]
     stats = {

@@ -57,16 +57,37 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
             "repro_torch yet; see the dist regimes in ROADMAP.md")
 
 
+def _batch_rows(batch: Dict[str, torch.Tensor], B: int, rows: slice
+               ) -> Dict[str, torch.Tensor]:
+    """The rows ``rows`` of a ``B``-row batch: every tensor's batch axis
+    is 0 but for M-RoPE ``positions`` (3, B, S), whose batch axis is 1
+    (as the reference splits them); tensors without a ``B``-row batch
+    axis (the scalar ``denom``) pass whole."""
+    out = {}
+    for k, v in batch.items():
+        if k == "positions" and v.ndim == 3 and v.shape[1] == B:
+            out[k] = v[:, rows]
+        elif v.ndim and v.shape[0] == B:
+            out[k] = v[rows]
+        else:
+            out[k] = v
+    return out
+
+
 def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
            objective: Optional[Callable] = None):
     """(gradient leaves in leaf order, metrics) of ``loss_and_metrics``'s
-    total, or of ``objective(metrics)`` when given."""
+    total, or of ``objective(metrics)`` when given.  A leaf the loss
+    does not reach (whisper's encoder layers carry a cross-attention
+    they never run, as the reference's do) gets zeros, as ``jax.grad``
+    gives it."""
     leaves = _tree.leaves(params)
     with torch.enable_grad():
         total, metrics = tf.loss_and_metrics(params, cfg, batch)
         if objective is not None:
             total = objective(metrics)
-        grads = torch.autograd.grad(total, leaves)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return list(grads), {k: v.detach() for k, v in metrics.items()}
 
 
@@ -107,9 +128,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                              f"microbatches of {mb}")
         acc, lsum = None, None
         for i in range(n_micro):
-            micro = {k: (v[i * mb:(i + 1) * mb]
-                         if v.ndim and v.shape[0] == B else v)
-                     for k, v in batch.items()}
+            micro = _batch_rows(batch, B, slice(i * mb, (i + 1) * mb))
             g, m = _grads(params, cfg, micro)
             if acc is None:
                 acc = [x.to(torch.float32) for x in g]
@@ -178,7 +197,7 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
 
         def group_fn(pod, data):
             rows = mesh.group_rows(pod, data, B)
-            local = {k: (v[rows] if v.ndim else v) for k, v in batch.items()}
+            local = _batch_rows(batch, B, rows)
             if not cfg.is_moe:
                 grads, m = _grads(params, cfg, local)
                 return grads, m["loss"]

@@ -1,5 +1,6 @@
-"""Attention machinery of the port: GQA, RoPE, dense & chunked
-(online-softmax) variants, sliding windows, ring-buffer decode caches.
+"""Attention machinery of the port: GQA, RoPE and M-RoPE, dense &
+chunked (online-softmax) variants, sliding windows, ring-buffer decode
+caches.
 
 PyTorch counterpart of ``repro.models.attention`` with the same layout
 conventions and the same function names:
@@ -33,16 +34,31 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                sections: Tuple[int, ...] = ()
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) of the rotary angles, each (B, S, 1, Dh/2) float32.
 
-    The transformer computes them once per forward or decode step and
-    rotates every layer's q and k with :func:`rotate` — the same values
-    :func:`apply_rope` computes per call.
+    ``positions`` is (B, S), or (3, B, S) for M-RoPE (qwen2-vl): the
+    Dh/2 frequency slots are split into ``sections`` (e.g. (16, 24, 24)
+    for Dh 128), slot ``i`` driven by the temporal, height or width
+    stream ``repeat(arange(3), sections)[i]``.  The transformer computes
+    the tables once per forward or decode step and rotates every layer's
+    q and k with :func:`rotate` — the same values :func:`apply_rope`
+    computes per call.
     """
     inv = rope_freqs(head_dim, theta, positions.device)  # (Dh/2,)
-    ang = positions.to(torch.float32)[..., None] * inv  # (B, S, Dh/2)
+    if positions.ndim == 3:  # M-RoPE
+        if not sections:
+            raise ValueError("M-RoPE positions need mrope sections")
+        assert sum(sections) == head_dim // 2, (sections, head_dim)
+        pos = positions.to(torch.float32)
+        ends = [sum(sections[:j + 1]) for j in range(len(sections))]
+        ang = torch.cat([pos[j][..., None] * inv[end - n:end]
+                         for j, (n, end) in enumerate(zip(sections, ends))],
+                        -1)  # (B, S, Dh/2)
+    else:
+        ang = positions.to(torch.float32)[..., None] * inv  # (B, S, Dh/2)
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
@@ -60,14 +76,9 @@ def apply_rope(
     theta: float = 10_000.0,
     sections: Tuple[int, ...] = (),
 ) -> torch.Tensor:
-    """Rotary embedding over 1-D positions ``(B, S)``.
-
-    M-RoPE (``(3, B, S)`` positions, qwen2-vl) is not ported yet.
-    """
-    if positions.ndim == 3 or sections:
-        raise NotImplementedError(
-            "M-RoPE is not ported to repro_torch yet; see ROADMAP.md")
-    return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+    """Rotary embedding.  ``positions``: (B, S), or (3, B, S) with
+    ``sections`` for M-RoPE (:func:`rope_tables`)."""
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta, sections))
 
 
 # ----------------------------------------------------------------------

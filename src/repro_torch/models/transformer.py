@@ -1,17 +1,23 @@
-"""Decoder-only transformer of the port (serving and training).
+"""The transformer of the port (serving and training).
 
-PyTorch counterpart of ``repro.models.transformer`` for decoders whose
+PyTorch counterpart of ``repro.models.transformer`` for models whose
 layers are "global"/"local" attention with a dense MLP or a mixture of
 experts (``models.moe``), "ssm" (Mamba-2 SSD, ``models.ssm``) or
-"recurrent" (RG-LRU with an MLP, ``models.rglru``):
+"recurrent" (RG-LRU with an MLP, ``models.rglru``); the encoder–decoder
+(whisper: a bidirectional "enc" stack over precomputed frames, and a
+cross-attention block in every decoder layer) and the VLM backbone
+(qwen2-vl: M-RoPE over (3, B, S) positions, precomputed visual
+embeddings in the first positions):
 
   * params are nested dicts of tensors keyed like the reference pytree
     (``embed/table``, ``groups/p0/attn/wq`` …); every layer tensor of a
     pattern position is stacked along a leading layer axis, and a
     Python loop indexes the stack where the reference runs ``lax.scan``,
-  * self-attention goes through ``kernels.ops``: the prefill through the
-    flash-attention kernel, each decode step through the decode-
-    attention kernel (plain versions for CPU tensors),
+  * attention goes through ``kernels.ops``: the full sequence (self-,
+    encoder and cross-attention) through the flash-attention kernel,
+    each decode step through the decode-attention kernel — the cross
+    block too, over the static cross cache that :func:`fill_cross_cache`
+    fills once per request (plain versions for CPU tensors),
   * the decode cache is updated in place (see ``decode_step``); the
     recurrent layers' states (SSD ``h``/``conv``, RG-LRU ``h``/``conv``)
     exist only there and stay float32, as the reference's,
@@ -22,9 +28,6 @@ experts (``models.moe``), "ssm" (Mamba-2 SSD, ``models.ssm``) or
     forward, the reference's recompute backward) and each layer is
     rematerialized with ``torch.utils.checkpoint``, as ``_remat_wrap``
     does with ``jax.checkpoint``.
-
-Encoder–decoder and M-RoPE configs raise ``NotImplementedError``;
-ROADMAP.md queues them.
 """
 from __future__ import annotations
 
@@ -56,12 +59,6 @@ ATTENTION_KINDS = ("global", "local")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec or cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs decoder-only models without "
-            f"M-RoPE so far (encdec={cfg.is_encdec}, "
-            f"mrope={cfg.mrope_sections}); the other kinds are queued in "
-            f"ROADMAP.md")
     unknown = set(cfg.block_pattern) - {*ATTENTION_KINDS, "ssm", "recurrent"}
     if unknown:
         raise ValueError(f"unknown layer kinds {sorted(unknown)}")
@@ -122,7 +119,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``mlp`` (width ``d_ff_dense or d_ff``).  The recurrent layers'
     deterministic vectors (``A_log``, ``D``, ``dt_bias``; ``lam``,
     ``b_a``, ``b_x``) follow the same dtype rule: in ``dtype`` when
-    stacked, float32 in a ``rest`` layer.
+    stacked, float32 in a ``rest`` layer.  An encoder–decoder config
+    adds ``norm_x`` and ``xattn`` to every layer and ``encoder`` (its
+    ``enc_norm`` and ``groups.p0``, ``n_enc_layers`` stacked "enc"
+    layers).  The encoder's layers carry ``norm_x``/``xattn`` too, as
+    the reference's do (its ``stack_layers`` closes over ``cross``):
+    never used, their gradients are zero, but the flat keys and an
+    optimizer's decay of them match the reference's.
     """
     _check_supported(cfg)
     device = resolve_device(device)
@@ -137,17 +140,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         t = torch.randn(shape, generator=generator, dtype=dt, device=device)
         return t.mul_(0.02)
 
+    def attn(lead):
+        return {"wq": normal(*lead, d, H * Dh),
+                "wk": normal(*lead, d, Kv * Dh),
+                "wv": normal(*lead, d, Kv * Dh),
+                "wo": normal(*lead, H * Dh, d)}
+
     def layers(lead: Tuple[int, ...], kind: str, moe: bool) -> Dict:
         ndt = dt if lead else torch.float32
         p: Dict[str, Any] = {
             "norm1": _init_norm(cfg, lead + (d,), device, ndt)}
-        if kind in ATTENTION_KINDS:
-            p["attn"] = {
-                "wq": normal(*lead, d, H * Dh),
-                "wk": normal(*lead, d, Kv * Dh),
-                "wv": normal(*lead, d, Kv * Dh),
-                "wo": normal(*lead, H * Dh, d),
-            }
+        if kind in ATTENTION_KINDS or kind == "enc":
+            p["attn"] = attn(lead)
         elif kind == "ssm":
             p["ssm"] = ssm_lib.init_ssm(
                 d, cfg.expand, cfg.d_state, cfg.d_conv, cfg.ssm_head_dim,
@@ -156,6 +160,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             p["rglru"] = rglru_lib.init_rglru_block(
                 d, cfg.lru_width or d, cfg.d_conv, generator, device, dt,
                 lead)
+        if cfg.is_encdec:
+            p["norm_x"] = _init_norm(cfg, lead + (d,), device, ndt)
+            p["xattn"] = attn(lead)
         if cfg.d_ff > 0 and kind != "ssm":
             p["norm2"] = _init_norm(cfg, lead + (d,), device, ndt)
             if moe:
@@ -186,6 +193,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["rest"] = {f"r{k}": layers((), cfg.block_pattern[k],
                                           cfg.moe_at(k))
                           for k in range(n_rest)}
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "enc_norm": _init_norm(cfg, (d,), device),
+            "groups": {"p0": layers((cfg.n_enc_layers,), "enc",
+                                    cfg.is_moe)}}
     return params
 
 
@@ -197,35 +209,48 @@ def _split_heads(x, n, Dh):
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
-    """Rotary tables for ``positions``, computed once per forward/step
-    and shared by every layer (the reference recomputes them per
-    ``apply_rope`` call; the values are the same)."""
-    if positions.ndim == 3:
-        raise NotImplementedError(
-            "M-RoPE is not ported to repro_torch yet; see ROADMAP.md")
-    return attn_lib.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    """Rotary tables for ``positions`` ((B, S), or (3, B, S) for M-RoPE),
+    computed once per forward/step and shared by every layer (the
+    reference recomputes them per ``apply_rope`` call; the values are
+    the same)."""
+    return attn_lib.rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                                cfg.mrope_sections)
 
 
 def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                rope: Tuple[torch.Tensor, torch.Tensor]
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                kv_source: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention block; returns (output, (k, v) for caching).
+    """Attention block; returns (output, (k, v) for caching).
 
-    Self-attention over the whole prompt is the flash-attention kernel's
-    function whatever ``cfg.flash`` says (the reference's two branches
-    compute the same values there).
+    Self-attention ("global"/"local": causal; "enc": bidirectional)
+    rotates q and k with ``rope`` (None: no rotation, an encoder with
+    ``rope_theta`` 0).  With ``kv_source`` (the encoder's output) it is
+    cross-attention: k and v are its projections, nothing is rotated,
+    and every query sees every frame.  The whole sequence is the
+    flash-attention kernel's function, masked by index whatever
+    ``cfg.flash`` says: the reference's two branches compute the same
+    values over ``arange`` positions; over others (M-RoPE's vision
+    layout) only its flash branch masks by index (ROADMAP.md §3).
     """
     B, S, _ = x.shape
     H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = attn_lib.rotate(_split_heads(x @ p["wq"], H, Dh), *rope)
-    k = attn_lib.rotate(_split_heads(x @ p["wk"], Kv, Dh), *rope)
-    v = _split_heads(x @ p["wv"], Kv, Dh)
+    q = _split_heads(x @ p["wq"], H, Dh)
+    if kv_source is None:
+        k = _split_heads(x @ p["wk"], Kv, Dh)
+        if rope is not None:
+            q, k = attn_lib.rotate(q, *rope), attn_lib.rotate(k, *rope)
+        v = _split_heads(x @ p["wv"], Kv, Dh)
+    else:
+        k = _split_heads(kv_source @ p["wk"], Kv, Dh)
+        v = _split_heads(kv_source @ p["wv"], Kv, Dh)
+    causal = kind in ATTENTION_KINDS and kv_source is None
     window = cfg.window if kind == "local" else 0
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
-        out = attn_lib.flash_attention(q, k, v, True, window,
+        out = attn_lib.flash_attention(q, k, v, causal, window,
                                        cfg.logit_softcap, cfg.attn_chunk)
     else:
-        out = ops.flash_attention(q, k, v, causal=True, window=window,
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=cfg.logit_softcap)
     return out.reshape(B, S, H * Dh) @ p["wo"], (k, v)
 
@@ -249,24 +274,28 @@ def _ffn_apply(p: Dict, h: torch.Tensor, cfg: ModelConfig
 
 
 def _layer_out(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
-               rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+               rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+               enc_out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer's (output, aux) without its cache entry (the training
     body)."""
-    x, _, aux = _layer_apply(p, x, kind, cfg, rope)
+    x, _, aux = _layer_apply(p, x, kind, cfg, rope, enc_out)
     return x, aux
 
 
 def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
-                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                 enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """Returns (x_out, cache_entry, aux_loss): aux is the MoE layer's
     load-balancing loss, None for a dense layer.  The cache entry is the
     attention layer's K/V; ``()`` for "ssm"/"recurrent", whose states
-    only the decode path builds."""
+    only the decode path builds.  A decoder layer of an encoder–decoder
+    model attends to ``enc_out`` after its self-attention (``norm_x``,
+    then ``xattn``)."""
     h = _norm(p["norm1"], x)
     cache_entry: Any = ()
-    if kind in ATTENTION_KINDS:
+    if kind in ATTENTION_KINDS or kind == "enc":
         out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope)
         cache_entry = {"k": k.reshape(*k.shape[:2], -1),
                        "v": v.reshape(*v.shape[:2], -1)}
@@ -275,6 +304,10 @@ def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
     else:
         out = rglru_lib.rglru_block_forward(p["rglru"], h, cfg)
     x = x + out
+    if "xattn" in p and enc_out is not None:
+        out, _ = _attn_apply(p["xattn"], _norm(p["norm_x"], x), cfg,
+                             "cross", None, kv_source=enc_out)
+        x = x + out
     aux = None
     if "norm2" in p:
         out, aux = _ffn_apply(p, _norm(p["norm2"], x), cfg)
@@ -362,16 +395,73 @@ def _layers(params, cfg):
                ("rest", f"r{k}"), None)
 
 
-def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor], return_cache: bool
-            ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    """Embedding and the layer stack on cast params → (x, cache, the
-    layers' summed aux loss); each layer rematerialized under autograd
-    (``cfg.remat``)."""
+def _remat(cfg: ModelConfig) -> bool:
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def encode_frames(params: PyTree, cfg: ModelConfig,
+                  enc_frames: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over precomputed frontend frames (B, T_enc,
+    d) → its output (B, T_enc, d); ``params`` must already be cast.
+
+    Frames in ``cfg.dtype``, positions ``arange(T_enc)`` (RoPE unless
+    ``rope_theta`` is 0), bidirectional "enc" layers, each
+    rematerialized under autograd, then ``enc_norm``.
+    """
+    B, T = enc_frames.shape[:2]
+    x = enc_frames.to(_torch_dtype(cfg.dtype))
+    rope = None
+    if cfg.rope_theta > 0:
+        pos = torch.arange(T, device=x.device).expand(B, T)
+        rope = attn_lib.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    stack = params["encoder"]["groups"]["p0"]
+    for l in range(cfg.n_enc_layers):
+        lp = _index(stack, l)
+        if _remat(cfg):
+            x, _ = checkpoint(_layer_out, lp, x, "enc", cfg, rope,
+                              use_reentrant=False)
+        else:
+            x = _layer_apply(lp, x, "enc", cfg, rope)[0]
+    return _norm(params["encoder"]["enc_norm"], x)
+
+
+def embed_tokens(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 visual_embeds: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Embedding, the VLM frontend and the default positions → ``(x,
+    positions)``; ``params`` must already be cast.  ``visual_embeds``
+    (B, n_vis, d) replace the first ``n_vis`` embedded positions; the
+    default positions are ``arange(S)`` per row, broadcast to (3, B, S)
+    for an M-RoPE config."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
+    if visual_embeds is not None:
+        n_vis = visual_embeds.shape[1]
+        x = torch.cat([visual_embeds.to(x.dtype), x[:, n_vis:]], dim=1)
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
+        if cfg.mrope_sections:
+            positions = positions.expand(3, B, S)
+    return x, positions
+
+
+def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor], return_cache: bool,
+            enc_frames: Optional[torch.Tensor] = None,
+            visual_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """The encoder (encoder–decoder models), the embedding and the layer
+    stack on cast params → (x, cache, the layers' summed aux loss); each
+    layer rematerialized under autograd (``cfg.remat``)."""
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError("encoder-decoder model needs enc_frames")
+        enc_out = encode_frames(params, cfg, enc_frames)
+    x, positions = embed_tokens(params, cfg, tokens, positions,
+                                visual_embeds)
+    B, S = tokens.shape
     rope = _rope(cfg, positions) if _has_attention(cfg) else None
     n_groups = cfg.n_layers // len(cfg.block_pattern)
     KvDh = cfg.n_kv_heads * cfg.head_dim
@@ -382,14 +472,14 @@ def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 n: torch.empty((n_groups, B, S, KvDh), dtype=x.dtype,
                                device=x.device) for n in ("k", "v")
             } if kind in ATTENTION_KINDS else ()
-    remat = cfg.remat and torch.is_grad_enabled() and not return_cache
+    remat = _remat(cfg) and not return_cache
     auxes = []
     for lp, kind, (part, key), l in _layers(params, cfg):
         if remat:
-            x, aux = checkpoint(_layer_out, lp, x, kind, cfg, rope,
+            x, aux = checkpoint(_layer_out, lp, x, kind, cfg, rope, enc_out,
                                 use_reentrant=False)
         else:
-            x, entry, aux = _layer_apply(lp, x, kind, cfg, rope)
+            x, entry, aux = _layer_apply(lp, x, kind, cfg, rope, enc_out)
         if aux is not None:
             auxes.append(aux)
         if return_cache:
@@ -407,20 +497,25 @@ def forward(
     params: PyTree,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # (B, S) int
-    positions: Optional[torch.Tensor] = None,  # (B, S)
+    positions: Optional[torch.Tensor] = None,  # (B, S) or (3, B, S)
+    enc_frames: Optional[torch.Tensor] = None,  # (B, T_enc, d) whisper
+    visual_embeds: Optional[torch.Tensor] = None,  # (B, n_vis, d) vlm
     return_cache: bool = False,
     last_only: bool = False,  # unembed only the final position (prefill)
 ):
     """Full-sequence forward → ``(logits (B, S, V) f32, aux)``, or
     ``(logits, cache, aux)`` with ``return_cache``, as the reference's;
     aux is the layers' summed MoE load-balancing loss (0 when dense).
+    An encoder–decoder model needs ``enc_frames`` (``ValueError``
+    without them).
 
     The cache holds each layer's K/V as ``(…, S, Kv·Dh)``, stacked per
     pattern position like the reference's scan output.
     """
     _check_supported(cfg)
     params = cast_params(params, cfg)
-    x, cache, aux = _hidden(params, cfg, tokens, positions, return_cache)
+    x, cache, aux = _hidden(params, cfg, tokens, positions, return_cache,
+                            enc_frames, visual_embeds)
     if last_only:
         x = x[:, -1:]
     logits = _unembed(params, cfg, x)
@@ -465,7 +560,8 @@ def loss_and_metrics(params: PyTree, cfg: ModelConfig,
     _check_supported(cfg)
     params = cast_params(params, cfg)
     x, _, aux = _hidden(params, cfg, batch["tokens"],
-                        batch.get("positions"), return_cache=False)
+                        batch.get("positions"), False,
+                        batch.get("enc_frames"), batch.get("visual_embeds"))
     nll_sum, w_sum, aux_rest = head_loss_terms(
         params, cfg, x, batch["targets"], batch.get("weights"))
     aux = aux + aux_rest
@@ -491,7 +587,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Empty decode cache: ring buffers for local layers, in
     ``cfg.dtype`` (the decode kernel reads q and the cache in one dtype);
     the "ssm"/"recurrent" layers' states in float32, as the reference
-    makes them whatever the model dtype."""
+    makes them whatever the model dtype.  An encoder–decoder model's
+    attention entries add the cross cache ``xk``/``xv`` (B, enc_len,
+    Kv·Dh), which :func:`fill_cross_cache` fills, and the cache holds
+    ``cross_pos``: the int32 device scalar ``enc_len − 1`` that every
+    cross decode passes to the decode kernel as its query position (no
+    step allocates it or syncs the host)."""
     _check_supported(cfg)
     device = resolve_device(device)
     dt = _torch_dtype(cfg.dtype)
@@ -505,16 +606,51 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         if kind == "recurrent":
             return rglru_lib.rglru_init_cache(cfg, batch, lead, device)
         shp = lead + (batch, _cache_len(cfg, kind, max_len), KvDh)
-        return {"k": torch.zeros(shp, dtype=dt, device=device),
-                "v": torch.zeros(shp, dtype=dt, device=device)}
+        e = {"k": torch.zeros(shp, dtype=dt, device=device),
+             "v": torch.zeros(shp, dtype=dt, device=device)}
+        if cfg.is_encdec:
+            xshp = lead + (batch, cfg.enc_len, KvDh)
+            e["xk"] = torch.zeros(xshp, dtype=dt, device=device)
+            e["xv"] = torch.zeros(xshp, dtype=dt, device=device)
+        return e
 
-    return {
+    cache = {
         "groups": {f"p{k}": entry(cfg.block_pattern[k], (n_groups,))
                    for k in range(P)},
         "rest": {f"r{k}": entry(cfg.block_pattern[k])
                  for k in range(n_rest)},
         "length": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if cfg.is_encdec:
+        cache["cross_pos"] = torch.tensor(cfg.enc_len - 1,
+                                          dtype=torch.int32, device=device)
+    return cache
+
+
+def fill_cross_cache(params: PyTree, cfg: ModelConfig,
+                     enc_frames: torch.Tensor, cache: PyTree) -> PyTree:
+    """Run the encoder over ``enc_frames`` (B, enc_len, d) and write every
+    decoder layer's cross-attention K/V (``enc_out @ xattn.wk / wv``)
+    into the cache, in place; once per request, before the decode
+    (whisper).  → the cache."""
+    if enc_frames.shape[1] != cfg.enc_len:
+        raise ValueError(f"{enc_frames.shape[1]} encoder frames; the cross "
+                         f"cache holds enc_len={cfg.enc_len}")
+    params = cast_params(params, cfg)
+    enc_out = encode_frames(params, cfg, enc_frames)
+    P = len(cfg.block_pattern)
+    layers = ([(cache["groups"][f"p{k}"], params["groups"][f"p{k}"])
+               for k in range(P)]
+              + [(cache["rest"][f"r{k}"], params["rest"][f"r{k}"])
+                 for k in range(cfg.n_layers % P)])
+    for entry, layer in layers:
+        for name, w in (("xk", layer["xattn"]["wk"]),
+                        ("xv", layer["xattn"]["wv"])):
+            # a stacked (L, d, Kv·Dh) weight projects every layer of the
+            # group in one batched matmul: (L, B, T, Kv·Dh)
+            entry[name].copy_(enc_out @ w if w.ndim == 2
+                              else enc_out @ w[:, None])
+    return cache
 
 
 def _decode_attn(a: Dict, h: torch.Tensor, kind: str, cfg: ModelConfig,
@@ -541,9 +677,28 @@ def _decode_attn(a: Dict, h: torch.Tensor, kind: str, cfg: ModelConfig,
     return out.reshape(B, 1, H * Dh) @ a["wo"]
 
 
+def _decode_cross(a: Dict, h: torch.Tensor, cfg: ModelConfig,
+                  cache_entry: Dict, cross_pos: torch.Tensor
+                  ) -> torch.Tensor:
+    """One token's cross-attention over the static cross cache, through
+    the decode kernel at ``cross_pos = Ce − 1``: the ring formula then
+    gives every slot s position s ≤ Ce − 1, so every encoder frame is
+    attended — the reference's mask (``q_pos = Ce`` over ``arange(Ce)``).
+    No RoPE, no window, no softcap, as the reference's cross decode."""
+    B = h.shape[0]
+    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _split_heads(h @ a["wq"], H, Dh)
+    xk, xv = cache_entry["xk"], cache_entry["xv"]
+    Ce = xk.shape[1]
+    out = ops.decode_attention(q, xk.view(B, Ce, Kv, Dh),
+                               xv.view(B, Ce, Kv, Dh), cross_pos)
+    return out.reshape(B, 1, H * Dh) @ a["wo"]
+
+
 def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
                   cache_entry: Dict, pos: torch.Tensor,
-                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                  cross_pos: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     h = _norm(p["norm1"], x1)
     if kind in ATTENTION_KINDS:
@@ -557,6 +712,9 @@ def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
         for name, t in new.items():  # in place, as the ring writes
             cache_entry[name].copy_(t)
     x1 = x1 + out
+    if "xattn" in p and "xk" in cache_entry:
+        x1 = x1 + _decode_cross(p["xattn"], _norm(p["norm_x"], x1), cfg,
+                                cache_entry, cross_pos)
     if "norm2" in p:
         # MoE: N = B tokens, so the capacity drops what the reference's
         # decode step drops
@@ -570,30 +728,40 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
 
     The cache is updated in place — each layer's ring slot and then
     ``length`` — and returned; ``length`` stays an int32 tensor on the
-    device, which the decode kernel reads as the token's position.
+    device, which the decode kernel reads as the token's position.  An
+    M-RoPE model rotates with all three streams at that position, as
+    the reference's decode does.
     """
     _check_supported(cfg)
     pos = cache["length"]
     params = cast_params(params, cfg)
     x = _embed(params, cfg, token)
-    rope = (_rope(cfg, pos.expand(token.shape[0], 1))
-            if _has_attention(cfg) else None)
+    rope = None
+    if _has_attention(cfg):
+        posb = pos.expand(token.shape[0], 1)
+        if cfg.mrope_sections:
+            posb = posb.expand(3, *posb.shape)
+        rope = _rope(cfg, posb)
     for lp, kind, (part, key), l in _layers(params, cfg):
         entry = cache[part][key]
         x = _decode_layer(lp, x, kind, cfg,
                           entry if l is None else _index(entry, l), pos,
-                          rope)
+                          rope, cache.get("cross_pos"))
     logits = _unembed(params, cfg, x)[:, 0]
     cache["length"].add_(1)
     return logits, cache
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None,
+            visual_embeds: Optional[torch.Tensor] = None,
             last_only: bool = False) -> Tuple[torch.Tensor, PyTree]:
     """Full-sequence forward that also materializes the K/V cache
     (full length; :func:`prefill_to_decode_cache` re-lays it) →
     ``(logits, cache)``."""
-    logits, cache, _ = forward(params, cfg, tokens, return_cache=True,
+    logits, cache, _ = forward(params, cfg, tokens, positions, enc_frames,
+                               visual_embeds, return_cache=True,
                                last_only=last_only)
     return logits, cache
 

@@ -52,10 +52,15 @@ def test_rope_matches():
     got = tattn.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
                            500_000.0)
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tattn.apply_rope(torch.from_numpy(x),
-                         torch.zeros((3, 2, 7), dtype=torch.int32),
-                         sections=(2, 3, 3))
+    # M-RoPE: three position streams over the (2, 3, 3) frequency
+    # sections (tests/test_torch_encdec_vlm.py holds more shapes)
+    pos3 = np.stack([pos, pos // 2, pos[:, ::-1]]).astype(np.int32)
+    want = jattn.apply_rope(jnp.asarray(x), jnp.asarray(pos3), 500_000.0,
+                            (2, 3, 3))
+    got = tattn.apply_rope(torch.from_numpy(x),
+                           torch.from_numpy(np.ascontiguousarray(pos3)),
+                           500_000.0, (2, 3, 3))
+    _close(got, want)
 
 
 @pytest.mark.parametrize("causal,window,softcap", [

@@ -96,17 +96,15 @@ def test_registry_names_roadmap_for_unported_archs():
 
     from repro_torch.configs import registry
 
-    assert set(registry.NOT_PORTED) == {"qwen2-vl-2b", "whisper-medium"}
-    for arch in registry.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            registry.get_config(arch)
+    # every reference arch is ported: nothing is left to raise
+    assert registry.NOT_PORTED == ()
     with pytest.raises(ValueError, match="unknown arch"):
         registry.get_config("nope")
     from repro.configs.registry import ARCH_IDS
     from repro.configs.registry import get_config as ref_get_config
     from repro.configs.registry import get_smoke_config as ref_get_smoke
 
-    assert set(ARCH_IDS) == set(registry.ARCH_IDS) | set(registry.NOT_PORTED)
+    assert registry.ARCH_IDS == ARCH_IDS
     for arch in registry.ARCH_IDS:
         for mine, theirs in ((registry.get_config(arch), ref_get_config(arch)),
                              (registry.get_smoke_config(arch),

@@ -113,6 +113,53 @@ def test_decode_kernel_split_sweep_at_the_serve_shape(pos_kind):
         assert _worst_row(got, want) <= 1e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_cross_attention_matches_plain(dtype):
+    """Non-causal attention of S queries over T ≠ S keys (whisper's
+    cross-attention over its encoder's 1500 frames), at G 1 and 6, with
+    the log-sum-exp the training forward saves."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tol = TOLS[dtype]
+    grid = itertools.product([1, 64, 1000], [17, 1500], [1, 6], [64, 128])
+    for S, T, G, Dh in grid:
+        q = _randn(gen, 2, S, 2 * G, Dh, dtype=dtype)
+        k = _randn(gen, 2, T, 2, Dh, dtype=dtype)
+        v = _randn(gen, 2, T, 2, Dh, dtype=dtype)
+        got, lse = flash_attention_fwd(q, k, v, causal=False,
+                                       return_lse=True)
+        want, want_lse = ref.flash_attention_ref(q, k, v, causal=False,
+                                                 return_lse=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernel_over_a_full_cross_cache(dtype):
+    """whisper's cross decode: every slot of a 1500-slot cache valid at
+    q_pos = C − 1 (an int32 device scalar), H = Kv = 16, Dh 64, batch 4:
+    the plain attention over all frames."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, C, Kv, Dh = 4, 1500, 16, 64
+    q = _randn(gen, B, 1, Kv, Dh, dtype=dtype)
+    k = _randn(gen, B, C, Kv * Dh, dtype=dtype).view(B, C, Kv, Dh)
+    v = _randn(gen, B, C, Kv * Dh, dtype=dtype).view(B, C, Kv, Dh)
+    qp = torch.tensor(C - 1, dtype=torch.int32, device="cuda")
+    got = decode_attention_fwd(q, k, v, qp)
+    from repro_torch.models import attention as attn_lib
+
+    want = attn_lib.dense_attention(
+        q, k, v, torch.zeros(1, device="cuda"),
+        torch.zeros(C, device="cuda"), causal=False)
+    tol = TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention_ref(q, k, v, qp).float(),
+        rtol=tol, atol=tol)
+
+
 def _flash_case(gen, case, Dh):
     """(q, k, v, return_lse) of one wgmma-kernel case, bf16, G = 4."""
     B, S, Kv, G = 2, 1000, 2, 4

@@ -14,6 +14,7 @@ import torch
 
 from repro.models import moe as jmoe
 from repro_torch.models import moe as tmoe
+from torch_reference import RecordingOptimizer as _Recording
 from torch_reference import few_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -127,16 +128,6 @@ def test_backward_repeats_bit_for_bit():
 
     for a, b in zip(grads(), grads()):
         assert torch.equal(a, b)
-
-
-class _Recording:
-    """An optimizer that keeps the decoded gradient and updates nothing."""
-
-    def __init__(self):
-        self.grads = None
-
-    def apply_(self, grads, state, params, lr, weight_decay=0.0):
-        self.grads = [g.clone() for g in grads]
 
 
 def test_coded_moe_step_decodes_lambda_data_and_uniform_aux():

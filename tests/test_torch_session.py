@@ -37,10 +37,12 @@ from torch_reference import (  # noqa: F401 (few_threads: autouse)
     REPO,
     RUNS,
     SESSION,
+    coded_q_steps_held,
     few_threads,
     reference_dir,
     subprocess_env,
 )
+from torch_reference import trained_params_off as _trained_params_off
 
 
 @pytest.fixture(scope="module")
@@ -128,19 +130,6 @@ def test_moe_session_matches_reference(moe_reference, run):
     assert off <= (1e-3 * total if comp else 0), (off, total)
 
 
-def _trained_params_off(got, want, init):
-    """Trained values off by more than 1e-4 of their leaf's largest
-    change plus two float32 spacings → (count, of all)."""
-    assert got.keys() == want.keys()
-    off = total = 0
-    for key, w in want.items():
-        tol = (1e-4 * np.abs(w - init[key]).max()
-               + 2 * np.spacing(np.abs(w)))
-        off += int((np.abs(got[key] - w) > tol).sum())
-        total += w.size
-    return off, total
-
-
 @pytest.mark.parametrize("arch", list(RECURRENT_LR))
 def test_recurrent_session_matches_reference(tmp_path_factory, arch):
     """The SSD and RG-LRU layers through the coded_q int8 step (their
@@ -150,29 +139,7 @@ def test_recurrent_session_matches_reference(tmp_path_factory, arch):
     NaN at its third step (its SSD's exp overflows in the masked
     triangle, ROADMAP.md §3); the port's masked segsum keeps every step
     finite."""
-    from repro_torch.checkpoint.params import params_to_numpy
-
-    out = reference_dir(tmp_path_factory)
-    init = dict(np.load(out / f"rec_{arch}_init.npz"))
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-    s = CodedSession(CodedCluster.homogeneous(2, 4), cfg,
-                     planner=planner_for_scheme("hgc", 1, 1), mode="coded_q",
-                     grad_compression="int8", verbose=False, params=init,
-                     device="cpu", **dict(SESSION, lr=RECURRENT_LR[arch]))
-    want = json.loads((out / "recurrent.json").read_text())[arch]
-    held = 0
-    for t in range(4):
-        loss = float(s._iteration(t, **FIT)["loss"])
-        assert np.isfinite(loss), (t, loss)
-        ref_params = dict(np.load(out / f"rec_{arch}_{t}.npz"))
-        if not np.isfinite(want[t]):
-            continue
-        np.testing.assert_allclose(loss, want[t], rtol=0, atol=1e-5)
-        if all(np.isfinite(v).all() for v in ref_params.values()):
-            off, total = _trained_params_off(params_to_numpy(s.params),
-                                             ref_params, init)
-            assert off <= 1e-3 * total, (t, off, total)
-            held += 1
+    held = coded_q_steps_held(reference_dir(tmp_path_factory), arch)
     assert held >= 1  # at least the first step is held
     if arch != "mamba2-370m":
         assert held == 4

@@ -159,22 +159,37 @@ def test_init_params_layout_matches_reference():
 @pytest.mark.parametrize("change", [
     dict(block_pattern=("ssm",)),
     dict(block_pattern=("recurrent", "local")),
-    dict(n_enc_layers=2),
+    dict(n_enc_layers=2, enc_len=6),
     dict(mrope_sections=(2, 3, 3)),
 ], ids=["ssm", "rglru", "encdec", "mrope"])
 def test_unported_kinds_raise(change):
-    """The kinds still queued (encoder–decoder, M-RoPE) raise naming
-    ROADMAP.md; MoE, "ssm" and "recurrent" are ported
-    (tests/test_torch_moe.py, tests/test_torch_ssm_rglru.py,
-    tests/test_torch_archs.py) and build their layers."""
+    """Every kind of the reference is ported and none raises: MoE,
+    "ssm" and "recurrent" build their layers (tests/test_torch_moe.py,
+    tests/test_torch_ssm_rglru.py, tests/test_torch_archs.py); an
+    encoder–decoder config builds ``encoder`` and every layer's
+    ``xattn``, an M-RoPE one runs over (3, B, S) positions, and both run
+    a finite forward (tests/test_torch_encdec_vlm.py holds them against
+    the reference)."""
     _, cfg = _cfgs(False)
     cfg = dataclasses.replace(cfg, **change)
+    params = ttf.init_params(cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(3, 2, 8, cfg.vocab)).long()
     if "block_pattern" in change:
         leaf = {"ssm": "ssm", "recurrent": "rglru"}[change["block_pattern"][0]]
-        assert leaf in ttf.init_params(cfg, device="cpu")["groups"]["p0"]
+        assert leaf in params["groups"]["p0"]
+        return
+    kw = {}
+    if cfg.is_encdec:
+        assert "xattn" in params["groups"]["p0"]
+        assert set(params["encoder"]) == {"enc_norm", "groups"}
+        kw["enc_frames"] = torch.randn(2, cfg.enc_len, cfg.d_model)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ttf.init_params(cfg, device="cpu")
+        kw["positions"] = torch.stack([torch.zeros(2, 8, dtype=torch.long),
+                                       torch.arange(8).expand(2, 8),
+                                       torch.arange(8).flip(0).expand(2, 8)])
+    logits, _ = ttf.forward(params, cfg, toks, **kw)
+    assert logits.shape == (2, 8, cfg.vocab)
+    assert torch.isfinite(logits).all()
     moe = dataclasses.replace(_cfgs(False)[1], n_experts=4, top_k=2)
     assert "moe" in ttf.init_params(moe, device="cpu")["groups"]["p0"]
 

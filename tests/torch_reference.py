@@ -25,13 +25,13 @@ in float32, and writes into one directory:
     coded_q int8: the initial params, each run's trained params, and each
     step's loss and (coded modes) ``aux_loss``,
   * ``rec_<arch>_init.npz``, ``rec_<arch>_<step>.npz``,
-    ``recurrent.json`` — the mamba2-370m and recurrentgemma-2b smoke
-    configs in float32, coded_q int8 for 4 steps, one ``_iteration`` at
-    a time, with edge 1 dropped at step 2 (mamba2 at lr 1e-3): the
-    initial params, the params after each step and each step's loss.
-    The reference's mamba2 gradients can overflow to NaN (its SSD
-    exponentiates the masked triangle, ROADMAP.md §3), after which its
-    params and losses are NaN.
+    ``recurrent.json`` — the mamba2-370m, recurrentgemma-2b and
+    qwen2-vl-2b smoke configs in float32, coded_q int8 for 4 steps, one
+    ``_iteration`` at a time, with edge 1 dropped at step 2 (mamba2 at
+    lr 1e-3): the initial params, the params after each step and each
+    step's loss.  The reference's mamba2 gradients can overflow to NaN
+    (its SSD exponentiates the masked triangle, ROADMAP.md §3), after
+    which its params and losses are NaN.
 
 Test files in several pytest-xdist workers share one run: the first to
 take the lock runs it, the others wait for its ``done`` marker.
@@ -62,6 +62,9 @@ MOE_ARCH = "granite-moe-3b-a800m"
 MOE_RUNS = [("off", ""), ("coded", ""), ("coded_q", "int8")]
 #: the recurrent archs' coded_q int8 runs: arch → sgd learning rate
 RECURRENT_LR = {"mamba2-370m": 1e-3, "recurrentgemma-2b": SESSION["lr"]}
+#: the archs run one coded_q int8 step at a time: the recurrent ones and
+#: qwen2-vl (M-RoPE over its default positions)
+CODED_Q_LR = {**RECURRENT_LR, "qwen2-vl-2b": SESSION["lr"]}
 #: intra-op threads for the port's tiny models: with several pytest-xdist
 #: workers, more threads than that per worker only contend for the cores
 THREADS = 2
@@ -176,13 +179,76 @@ def _run(out: Path) -> None:
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu")
     args = [json.dumps(x) for x in (RUNS, SESSION, FIT, CKPT, SHRINK, GEN,
-                                    MOE_ARCH, MOE_RUNS, RECURRENT_LR)]
+                                    MOE_ARCH, MOE_RUNS, CODED_Q_LR)]
     r = subprocess.run([sys.executable, "-c", _SCRIPT, str(out), *args],
                        cwd=REPO, env=env, capture_output=True, text=True,
                        timeout=600)
     if r.returncode != 0:
         raise RuntimeError("reference sessions failed:\n"
                            + r.stdout[-2000:] + r.stderr[-2000:])
+
+
+class RecordingOptimizer:
+    """An optimizer that keeps the decoded gradient and updates nothing."""
+
+    def __init__(self):
+        self.grads = None
+
+    def apply_(self, grads, state, params, lr, weight_decay=0.0):
+        self.grads = [g.clone() for g in grads]
+
+
+def trained_params_off(got, want, init):
+    """Trained values off by more than 1e-4 of their leaf's largest
+    change plus two float32 spacings → (count, of all)."""
+    import numpy as np
+
+    assert got.keys() == want.keys()
+    off = total = 0
+    for key, w in want.items():
+        tol = (1e-4 * np.abs(w - init[key]).max()
+               + 2 * np.spacing(np.abs(w)))
+        off += int((np.abs(got[key] - w) > tol).sum())
+        total += w.size
+    return off, total
+
+
+def coded_q_steps_held(out: Path, arch: str) -> int:
+    """The port's coded_q int8 session on ``arch``'s float32 smoke config
+    from the reference run's initial params, one ``_iteration`` at a
+    time against the reference's (:data:`CODED_Q_LR`): each loss within
+    1e-5 and the params after each step within :func:`trained_params_off`
+    (a 1e-3 share may differ over the int8 hop), as long as the
+    reference's stay finite; every port loss finite.  → the steps held."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
+    from repro_torch.checkpoint.params import params_to_numpy
+    from repro_torch.configs.registry import get_smoke_config
+
+    init = dict(np.load(out / f"rec_{arch}_init.npz"))
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    s = CodedSession(CodedCluster.homogeneous(2, 4), cfg,
+                     planner=planner_for_scheme("hgc", 1, 1), mode="coded_q",
+                     grad_compression="int8", verbose=False, params=init,
+                     device="cpu", **dict(SESSION, lr=CODED_Q_LR[arch]))
+    want = json.loads((out / "recurrent.json").read_text())[arch]
+    held = 0
+    for t in range(4):
+        loss = float(s._iteration(t, **FIT)["loss"])
+        assert np.isfinite(loss), (t, loss)
+        ref_params = dict(np.load(out / f"rec_{arch}_{t}.npz"))
+        if not np.isfinite(want[t]):
+            continue
+        np.testing.assert_allclose(loss, want[t], rtol=0, atol=1e-5)
+        if all(np.isfinite(v).all() for v in ref_params.values()):
+            off, total = trained_params_off(params_to_numpy(s.params),
+                                            ref_params, init)
+            assert off <= 1e-3 * total, (t, off, total)
+            held += 1
+    return held
 
 
 def reference_dir(tmp_path_factory) -> Path:
