@@ -166,6 +166,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      found by heartbeats alone, at least one replan, no decode fallback,
      finite losses, exact launches per trained round, and no worker
      process with torch loaded (read from its ``/proc/<pid>/maps``).
+  tp. tensor parallelism at tp 2 (after 8, before 9): the parent frees
+     its memory and spawns two ranks on the one card, joined over gloo
+     (NCCL refuses two ranks on one device; the NCCL path is not run
+     here).  (a) llama3-8b at full width cut to 2 layers in float32: a
+     bulk prefill of 2 × 64 tokens and 8 greedy decode steps at tp 2
+     against the same at tp 1 in the parent, from one seed: gathered
+     logits within 2e-3 · max|logit| (phase 3's gate), tokens equal.
+     (b) ``launch.serve.main([..., "--tp", "2"])`` inside the ranks
+     serves phase 4's request (llama3-8b whole, bf16, 4 × 1024-token
+     prompts, 32 tokens): a warm-up, the counted request (exactly 32
+     flash and 1024 decode launches on each rank), rank 0's profiled
+     request of 8 new tokens with the host time inside collectives
+     split out (the ``tp.collective`` profiler spans), each rank's
+     host times and peak memory, and the share of tokens equal to
+     phase 4's (not gated: bf16 rounding depends on the shard layout).
+     (c) ``CodedSession`` in coded_q int8 with tp 2 at the phase-6
+     settings (2 layers, adamw, seq 512, homogeneous(2, 4), hgc (1, 1),
+     K 8, block 64; every (pod, data) group in turn on each rank), 4
+     steps with edge 1 dropped at step 2, twice: exact launches a step
+     on each rank (flash 8 × 2 × 2, ``coded_combine_q`` once per param
+     leaf, on the rank's slice), finite losses, the step-0 loss within
+     2e-3 · |loss| of a tp-1 session's run in the parent on the same
+     weights and batches and the losses of steps 1-3 within
+     ``TP_LOSS_RTOL`` · |loss| of its, the two runs equal bit for bit
+     (losses and every param leaf's bits); host ms a step and peak
+     memory per rank.  A failing rank fails the phase.  Phase 2 adds
+     the attention kernels at a rank's shapes (llama3-8b at tp 2: H 16,
+     Kv 4, serve and training; starcoder2-3b at tp 4: H 6 over one
+     replicated KV head) and ``coded_combine_q`` at K 2 × F 262,668,288
+     (half the embedding leaf).
   9. the paper's evaluation path (``simulate_training``): the CNN under
      hgc and the logreg under greedy, 3 iterations at batch 32 per part,
      on the card and on the CPU from the same weights (times equal,
@@ -896,10 +926,27 @@ def phase_kernels():
             f"{r['library_ms']:.4f} ms")
         torch.cuda.empty_cache()
     _time_encdec_vlm(torch)
+    for label, (S, h, kv, dh, window) in TP_SHAPES.items():
+        for name, timer, kw in (
+                ("decode_attention", _time_decode, {}),
+                ("flash_attention", _time_flash, {}),
+                ("flash_attention", _time_flash,
+                 dict(S=TRAIN_SEQ, with_lse=True))):
+            kw = dict(dict(S=S, H=h, KV=kv, DH=dh, window=window), **kw)
+            r, row_err = timer(torch, **kw)
+            log(f"[kernels] {name} at {label} (B={B} S={kw['S']} H={h} "
+                f"Kv={kv} Dh={dh}{', with log-sum-exp' if 'with_lse' in kw else ''}"
+                f"): max abs err {r['max_abs_err']:.3g}, worst row "
+                f"{row_err:.3g} of its max; kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f} us "
+                f"({r['bound_by']}), sdpa {r['library_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+    # the hop's largest leaf at tp 2 is half the embedding (d-sharded)
     shapes = [("f32", 8, 8, WD_F, 1), ("f32", 1, 8, WD_F, 1),
               ("int8", 1, 2, EMBED_F, HOP_BLOCK),
               ("int4", 1, 2, EMBED_F, HOP_BLOCK),
-              ("fp8", 1, 2, EMBED_F, HOP_BLOCK)]
+              ("fp8", 1, 2, EMBED_F, HOP_BLOCK),
+              ("int8", 1, 2, EMBED_F // TP, HOP_BLOCK)]
     for kind, R, K, F, block in shapes:
         r, share, turns = _time_combine(torch, kind, R, K, F, block)
         name = COMBINE[kind][0]
@@ -1052,6 +1099,7 @@ def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
     if tuple(logits.shape) != (B, cfg.vocab) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"{label} last logits not finite / wrong shape")
+    _SERVED[label] = np.asarray(toks)
     log(f"{tag}launches {counts}; prefill {res['prefill_ms']:.2f} ms, "
         f"decode {res['decode_ms_per_token']:.3f} ms/token, "
         f"{res['tok_per_s']:.1f} tok/s, max memory allocated "
@@ -2312,6 +2360,368 @@ def phase_orchestrate():
     return totals
 
 
+# ----------------------------------------------------------------------
+# phase "tp": tensor parallelism, two ranks sharing the card over gloo
+# ----------------------------------------------------------------------
+TP = 2
+TP_PARITY_STEPS = 8       # greedy decode steps after the 2 × 64 prefill
+TP_TRAIN_STEPS = 4        # coded_q int8, edge 1 dropped at step 2
+TP_PROFILED_GEN = 8       # new tokens of rank 0's profiled request
+#: the tp-2 losses of steps 1-3 against the tp-1 session's, × |loss|:
+#: each rank quantizes its own slice, so the degrees part after step 0
+#: (measured at most 6.9e-5; the updates of steps 1 and 2 move the tp-1
+#: loss by 7.8e-3 and 4.3e-3 × |loss|: PERF.md §6)
+TP_LOSS_RTOL = 5e-4
+# phase 2: the attention kernels at a rank's shapes (S, H, Kv, Dh, window)
+TP_SHAPES = {
+    "llama3-8b tp 2 (a rank's heads)": (PROMPT, H // 2, KV // 2, DH, 0),
+    "starcoder2-3b tp 4 (replicated KV: a rank's head)": (PROMPT, 6, 1,
+                                                          128, 0),
+}
+#: phase 4's greedy tokens (the tp-1 request), held against phase "tp"'s
+_SERVED = {}
+
+
+def _tp_parity_run(ctx):
+    """llama3-8b at full width cut to 2 layers, float32, weights from
+    seed 0 (at tp > 1 this rank's slices of the same draws): a bulk
+    prefill of 2 × 64 tokens, then 8 greedy decode steps → (tokens
+    (2, 9), the 9 steps' full logits on the host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import serving
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+                              dtype="float32")
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tf.init_params(cfg, gen, device="cuda", tp=ctx.tp,
+                                rank=ctx.axis_index())
+        prompt = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                               device="cuda")
+        max_len = 64 + TP_PARITY_STEPS + 1
+        prefill = serving.make_prefill_fn(cfg, max_len, ctx=ctx)
+        decode = serving.make_decode_fn(cfg, ctx=ctx)
+        logits, cache = prefill(params, prompt)
+        toks, full = [], []
+        for step in range(TP_PARITY_STEPS + 1):
+            if logits.shape[-1] != cfg.vocab:
+                full.append(ctx.all_gather(logits, -1).cpu().numpy())
+            else:
+                full.append(logits.cpu().numpy())
+            tok = ctx.argmax(logits, cfg.vocab)[:, None].to(torch.int32)
+            toks.append(tok.cpu().numpy())
+            if step < TP_PARITY_STEPS:
+                logits, cache = decode(params, tok, cache)
+    del params, cache
+    torch.cuda.empty_cache()
+    return np.concatenate(toks, 1), full
+
+
+def _collective_ms(prof, span):
+    """Host ms inside the collectives' spans, by the serve phases (a
+    span belongs to the phase in which it started)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.dist.sharding import SPAN
+
+    events = prof.events()
+    out = dict.fromkeys(span, 0.0)
+    n = 0
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name != SPAN:
+            continue
+        n += 1
+        for ph, (lo, hi) in span.items():
+            if lo <= e.time_range.start < hi:
+                out[ph] += e.time_range.elapsed_us() / 1e3
+    return out, n
+
+
+def _tp_serve(rank):
+    """Rank ``rank``'s part of the served request at tp 2, through the
+    serve CLI (``--tp 2`` joins this world): a warm-up request, the
+    counted one (exactly phase 4's launches on each rank), and on rank 0
+    one profiled request of ``TP_PROFILED_GEN`` new tokens (every rank
+    runs it: it is one program)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "llama3-8b", "--no-smoke", "--batch", str(B),
+            "--prompt-len", str(PROMPT), "--tp", str(TP)]
+    cfg = get_config("llama3-8b")
+    serve.main(argv + ["--gen", str(GEN)])
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    res = serve.main(argv + ["--gen", str(GEN)])
+    counts = _nonzero(ops.launch_counts())
+    want = _serve_launches(cfg, PROMPT)
+    if counts != want:
+        raise AssertionError(f"rank {rank}: serve launches {counts}, "
+                             f"expected {want}")
+    toks = res["tokens"]
+    if toks.shape != (B, GEN) or not torch.isfinite(
+            res["last_logits"]).all():
+        raise AssertionError(f"rank {rank}: bad tokens or logits")
+    out = dict(tokens=np.asarray(toks), counts=counts,
+               prefill_ms=res["prefill_ms"],
+               decode_ms=res["decode_ms_per_token"],
+               tok_per_s=res["tok_per_s"],
+               peak_gib=res["max_memory_allocated"] / 2 ** 30)
+    del res
+    torch.cuda.empty_cache()
+    short = argv + ["--gen", str(TP_PROFILED_GEN)]
+    if rank != 0:
+        serve.main(short)
+        return out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_res = serve.main(short)
+    by_phase = device_ms_by_phase(prof)
+    span = {e.name: e.time_range for e in prof.events()
+            if e.device_type == DeviceType.CPU
+            and e.name in ("serve.prefill", "serve.request")}
+    phases = {"prefill": (span["serve.prefill"].start,
+                          span["serve.prefill"].end),
+              "decode": (span["serve.prefill"].end,
+                         span["serve.request"].end)}
+    coll, n_coll = _collective_ms(prof, phases)
+    host = {"prefill": prof_res["prefill_ms"],
+            "decode": prof_res["decode_ms_per_token"] * TP_PROFILED_GEN}
+    out["profile"] = {
+        ph: dict(host_ms=host[ph], collective_ms=coll[ph],
+                 device_ms=sum(by_phase[ph].values()),
+                 top=by_phase[ph].most_common(6))
+        for ph in phases}
+    out["profile_collectives"] = n_coll
+    del prof, prof_res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _param_bits(params):
+    """One int64 checksum of each float32 param leaf's bits (the sum of
+    its words as int32): two runs that agree bit for bit agree here."""
+    import torch
+
+    from repro_torch import _tree
+
+    return [int(p.detach().view(-1).view(torch.int32).sum(dtype=torch.int64))
+            for p in _tree.leaves(params)]
+
+
+def _tp_train(rank):
+    """Rank ``rank``'s coded_q int8 training at the phase-6 settings with
+    tp 2, twice: exact launches a step, finite losses, the two runs bit
+    for bit (losses and every param leaf's bits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.kernels import ops
+
+    cfg = _train_cfg()
+    totals = {name: 0 for name in ops.KERNELS}
+    runs = []
+    for run in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        session = _session(cfg, "coded_q", "int8", "cuda", tp=TP,
+                           total_steps=TP_TRAIN_STEPS, **_train_kw())
+        want = {"coded_combine_q": len(_tree.leaves(session.params)),
+                "flash_attention": GROUPS * TRAIN_LAYERS * 2}
+        step_ms = []
+        for step in range(TP_TRAIN_STEPS):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.fit(step + 1, force_drop_edge=1, force_drop_step=2)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            counts = ops.launch_counts()
+            if _nonzero(counts) != want:
+                raise AssertionError(f"rank {rank} run {run} step {step}: "
+                                     f"launches {_nonzero(counts)}, "
+                                     f"expected {want}")
+            for k, v in counts.items():
+                totals[k] += v
+        if not np.isfinite(session.losses).all():
+            raise AssertionError(f"rank {rank}: losses {session.losses}")
+        runs.append(dict(losses=list(session.losses), step_ms=step_ms,
+                         bits=_param_bits(session.params),
+                         peak_gib=torch.cuda.max_memory_allocated()
+                         / 2 ** 30, want=want))
+        del session
+    if runs[0]["losses"] != runs[1]["losses"] \
+            or runs[0]["bits"] != runs[1]["bits"]:
+        raise AssertionError(f"rank {rank}: the two tp-2 runs differ: "
+                             f"losses {runs[0]['losses']} and "
+                             f"{runs[1]['losses']}")
+    return runs, totals
+
+
+def _tp_rank():
+    """One rank of phase "tp": (a) the parity run, (b) serving, (c)
+    training; every rank runs every part (one program), rank 0's parity
+    logits come back."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import model_ctx
+
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": dist.get_backend()}
+    t0 = time.perf_counter()
+    toks, logits = _tp_parity_run(model_ctx(TP))
+    out["parity"] = (toks, logits if rank == 0 else None,
+                     time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["serve"] = _tp_serve(rank)
+    out["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"], out["train_totals"] = _tp_train(rank)
+    out["train_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tp():
+    """Tensor parallelism at tp 2: two ranks on the one card over gloo
+    (NCCL refuses two ranks on one device), spawned after the parent
+    frees its memory.  (a) Card against card in float32: llama3-8b at
+    full width cut to 2 layers, the tp-2 ranks against a tp-1 run in
+    this process: logits within 2e-3 · max|logit|, tokens equal.  (b)
+    The serve CLI at ``--tp 2`` (llama3-8b whole, bf16, phase 4's
+    request): exact launches on each rank, rank 0's profiled request
+    with the host time inside collectives split out, the share of
+    tokens equal to phase 4's (not gated: bf16 rounding depends on the
+    shard layout).  (c) coded_q int8 at the phase-6 settings with tp 2,
+    twice: exact launches a step, finite losses, the step-0 loss within
+    2e-3 · |loss| of a tp-1 session's in this process and the losses of
+    steps 1-3 within ``TP_LOSS_RTOL`` · |loss| of it (steps that the
+    decoded, clipped and applied updates decide), the runs bit for bit.
+    → the launches of both ranks' counted runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.launch import run_ranks
+    from repro_torch.dist.sharding import NULL_CTX
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    toks1, logits1 = _tp_parity_run(NULL_CTX)
+    log(f"[tp] (a) tp-1 reference run: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    session = _session(_train_cfg(), "coded_q", "int8", "cuda",
+                       total_steps=TP_TRAIN_STEPS, **_train_kw())
+    session.fit(TP_TRAIN_STEPS, force_drop_edge=1, force_drop_step=2)
+    losses1 = list(session.losses)
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[tp] (c) tp-1 losses {losses1!r} ({time.perf_counter() - t0:.1f}"
+        f" s); spawning {TP} ranks on cuda:0 "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+        f"allocated here)")
+    t0 = time.perf_counter()
+    outs = run_ranks(_tp_rank, TP, device="cuda", backend="gloo",
+                     timeout=900)
+    log(f"[tp] ranks done in {time.perf_counter() - t0:.1f} s (backend "
+        f"{outs[0]['backend']}; parity {outs[0]['parity'][2]:.1f} s, "
+        f"serve {outs[0]['serve_s']:.1f} s, train {outs[0]['train_s']:.1f} "
+        f"s on rank 0)")
+
+    # (a) parity, card against card
+    toks2, logits2, _ = outs[0]["parity"]
+    for o in outs[1:]:
+        if not np.array_equal(o["parity"][0], toks2):
+            raise AssertionError("the ranks decoded different tokens")
+    if not np.array_equal(toks1, toks2):
+        raise AssertionError(f"tp-2 tokens {toks2.tolist()} != tp-1 "
+                             f"{toks1.tolist()}")
+    worst = 0.0
+    for step, (a, b) in enumerate(zip(logits2, logits1)):
+        scale = float(np.abs(b).max())
+        err = float(np.abs(a - b).max())
+        if not err <= 2e-3 * scale:
+            raise AssertionError(f"tp parity step {step}: max |tp2 - tp1| "
+                                 f"{err:.3g} > 2e-3 * {scale:.3g}")
+        worst = max(worst, err / scale)
+    log(f"[tp] (a) llama3-8b full width, 2 layers, f32: tp 2 == tp 1 on "
+        f"the card over the 2 x 64 prefill + {TP_PARITY_STEPS} decode "
+        f"steps, max err {worst:.3g} x max|logit|, tokens equal")
+
+    # (b) serving
+    want_toks = _SERVED.get("")
+    for r, o in enumerate(outs):
+        s = o["serve"]
+        same = (float((s["tokens"] == want_toks).mean())
+                if want_toks is not None else float("nan"))
+        log(f"[tp] (b) rank {r}: launches {s['counts']}; prefill "
+            f"{s['prefill_ms']:.2f} ms, decode {s['decode_ms']:.3f} ms/token"
+            f", {s['tok_per_s']:.1f} tok/s, max memory allocated "
+            f"{s['peak_gib']:.2f} GiB; tokens equal to phase 4's (tp 1): "
+            f"{100 * same:.1f}% (bf16: not gated)")
+    prof = outs[0]["serve"]["profile"]
+    log(f"[profile] tp rank 0, a {B} x {PROMPT} + {TP_PROFILED_GEN}-token "
+        f"request ({outs[0]['serve']['profile_collectives']} collectives)")
+    for ph, p in prof.items():
+        per = 1 if ph == "prefill" else TP_PROFILED_GEN
+        unit = "ms" if ph == "prefill" else "ms/token"
+        log(f"[profile] tp {ph}: host {p['host_ms'] / per:.3f} {unit}, of "
+            f"which inside collectives {p['collective_ms'] / per:.3f} "
+            f"({100 * p['collective_ms'] / p['host_ms']:.1f}%); device "
+            f"{p['device_ms'] / per:.3f} {unit}")
+        for name, ms in p["top"]:
+            log(f"[profile]   {ms / per:9.3f} {unit}  {name[:90]}")
+
+    # (c) training
+    for r, o in enumerate(outs):
+        for n, run in enumerate(o["train"]):
+            log(f"[tp] (c) rank {r} run {n}: losses "
+                f"{[round(x, 5) for x in run['losses']]}, host ms per step "
+                f"{[round(x, 1) for x in run['step_ms']]}, peak "
+                f"{run['peak_gib']:.2f} GiB allocated; launches per step "
+                f"{run['want']}")
+    losses2 = outs[0]["train"][0]["losses"]
+    if any(o["train"][0]["losses"] != losses2 for o in outs):
+        raise AssertionError("the ranks' losses differ")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses2, losses1)]
+    moved = [abs(b - a) / abs(b) for a, b in zip(losses1, losses1[1:])]
+    log(f"[tp] (c) losses tp 2 {losses2!r} vs tp 1 {losses1!r}: "
+        f"|tp2 - tp1| / |loss| by step {rel!r}; the tp-1 loss moved by "
+        f"{moved!r} x |loss| a step")
+    if len(losses2) != len(losses1) or not rel[0] <= 2e-3:
+        raise AssertionError(f"tp-2 step-0 loss {losses2[0]!r} vs tp-1 "
+                             f"{losses1[0]!r}")
+    if not all(r <= TP_LOSS_RTOL for r in rel[1:]):
+        raise AssertionError(f"tp-2 losses {losses2!r} vs tp-1 "
+                             f"{losses1!r}: beyond {TP_LOSS_RTOL} x |loss|")
+    log(f"[tp] (c) every step's loss within {TP_LOSS_RTOL} x |loss| of "
+        f"tp 1 (step 0 within 2e-3); the two tp-2 runs equal bit for bit "
+        f"on every rank")
+    totals = {name: 0 for name in ops.KERNELS}
+    for o in outs:
+        for k, v in o["serve"]["counts"].items():
+            totals[k] += v
+        for k, v in o["train_totals"].items():
+            totals[k] += v
+    return totals
+
+
 def _nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
@@ -2665,11 +3075,13 @@ def main() -> int:
     train_counts = phase(phase_train)
     ckpt_counts = phase(phase_checkpoint)
     orch_counts = phase(phase_orchestrate)
+    tp_counts = phase(phase_tp)
     eval_counts = phase(phase_eval)
     paths = {"archs": archs_counts, "recurrent": rec_counts,
              "encdec_vlm": encdec_counts, "train": train_counts,
              "checkpoint": ckpt_counts,
-             "orchestrate": orch_counts, "eval": eval_counts}
+             "orchestrate": orch_counts, "tp": tp_counts,
+             "eval": eval_counts}
     log(f"[done] launches on the main paths: serve {counts}, " + ", ".join(
         f"{name} { {k: v for k, v in c.items() if v} }"
         for name, c in paths.items()))

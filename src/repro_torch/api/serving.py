@@ -14,6 +14,12 @@ ending in ``decode_step``'s cache layout:
 
 Everything runs eagerly under ``torch.inference_mode()``; the token loop
 keeps tokens on the device and copies them to the host once, at the end.
+
+Under tensor parallelism every rank runs the same loop on its slices
+with a :class:`~repro_torch.dist.sharding.ShardCtx` (``ctx``): its
+decode cache holds its KV heads, and the greedy token of vocab-parallel
+logits is the global argmax (``ShardCtx.argmax``), so every rank feeds
+the same token.
 """
 from __future__ import annotations
 
@@ -24,11 +30,13 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import NULL_CTX, ShardCtx
 from repro_torch.models import transformer as tf
 
 
 def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
-                    exact: bool = False) -> Callable:
+                    exact: bool = False,
+                    ctx: Optional[ShardCtx] = None) -> Callable:
     """→ ``prefill(params, tokens[, enc_frames]) → (last_logits (B, V),
     cache)``; ``enc_frames`` (B, T_enc, d) for an encoder–decoder model.
 
@@ -37,15 +45,18 @@ def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
     upcast in its attention, has no counterpart here.)
     """
     use_bulk = tf.bulk_prefill_supported(cfg) and not exact
+    ctx = ctx or NULL_CTX
 
     def bulk(params, tokens, enc_frames=None):
-        logits, pcache = tf.prefill(params, cfg, tokens, last_only=True)
+        logits, pcache = tf.prefill(params, cfg, tokens, last_only=True,
+                                    ctx=ctx)
         cache = tf.prefill_to_decode_cache(cfg, pcache, max_len)
         return logits[:, -1], cache
 
     def exact_loop(params, tokens, enc_frames=None):
         B, S = tokens.shape
-        cache = tf.init_cache(cfg, B, max_len, device=tokens.device)
+        cache = tf.init_cache(cfg, B, max_len, device=tokens.device,
+                              tp=ctx.tp)
         if cfg.is_encdec:
             # a profiler span (a no-op unless one records): the serve
             # CLI's phase report splits the encoder from the handoff
@@ -54,20 +65,21 @@ def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
         logits = None
         for t in range(S):
             logits, cache = tf.decode_step(params, cfg, tokens[:, t:t + 1],
-                                           cache)
+                                           cache, ctx)
         return logits, cache
 
     return bulk if use_bulk else exact_loop
 
 
-def make_decode_fn(cfg: ModelConfig) -> Callable:
+def make_decode_fn(cfg: ModelConfig,
+                   ctx: Optional[ShardCtx] = None) -> Callable:
     """→ ``decode(params, token, cache) → (logits, cache)``.
 
     The decode-attention kernel is chosen by the device of the tensors
     (``kernels.ops``), so there is no switch to resolve here.
     """
     def decode(params, token, cache):
-        return tf.decode_step(params, cfg, token, cache)
+        return tf.decode_step(params, cfg, token, cache, ctx)
 
     return decode
 
@@ -75,14 +87,27 @@ def make_decode_fn(cfg: ModelConfig) -> Callable:
 def generate_tokens(params, cfg: ModelConfig, prompt: torch.Tensor,
                     gen_len: int, *, prefill_fn: Callable,
                     decode_fn: Callable, enc_frames=None,
-                    greedy: bool = True, seed: int = 0) -> np.ndarray:
+                    greedy: bool = True, seed: int = 0,
+                    ctx: Optional[ShardCtx] = None) -> np.ndarray:
     """The generation loop over prebuilt step fns → (B, gen_len) tokens.
 
     ``enc_frames`` go to the prefill of an encoder–decoder model.
-    Greedy takes the first maximum, as ``jnp.argmax`` does; sampling
-    draws from ``softmax(logits)`` with a ``torch.Generator`` seeded by
-    ``seed`` on the prompt's device.
+    Greedy takes the first maximum, as ``jnp.argmax`` does (under TP
+    over the whole vocabulary: ``ctx.argmax``); sampling draws from
+    ``softmax(logits)`` (vocab-parallel logits gathered first) with a
+    ``torch.Generator`` seeded by ``seed`` on the prompt's device, the
+    same draw on every rank.
     """
+    ctx = ctx or NULL_CTX
+
+    def pick(logits):
+        if greedy:
+            return ctx.argmax(logits, cfg.vocab)[:, None].to(torch.int32)
+        if logits.shape[-1] != cfg.vocab:
+            logits = ctx.all_gather(logits, -1)
+        probs = torch.softmax(logits.float(), -1)
+        return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+
     if cfg.is_encdec:
         logits, cache = prefill_fn(params, prompt, enc_frames)
     else:
@@ -91,15 +116,11 @@ def generate_tokens(params, cfg: ModelConfig, prompt: torch.Tensor,
     if not greedy:
         gen = torch.Generator(device=prompt.device).manual_seed(seed)
     out = []
-    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    tok = ctx.argmax(logits, cfg.vocab)[:, None].to(torch.int32)
     for _ in range(gen_len):
         out.append(tok)
         logits, cache = decode_fn(params, tok, cache)
-        if greedy:
-            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-        else:
-            probs = torch.softmax(logits.float(), -1)
-            tok = torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+        tok = pick(logits)
     return torch.cat(out, dim=1).cpu().numpy()
 
 
@@ -138,12 +159,14 @@ def prefill_into_cache(params, cfg: ModelConfig, tokens, max_len: int,
 def generate(params, cfg: ModelConfig, prompt, gen_len: int,
              max_len: Optional[int] = None, enc_frames=None,
              greedy: bool = True, seed: int = 0,
-             exact_handoff: bool = False, device="cuda") -> np.ndarray:
-    """Single-host generation → (B, gen_len) int32 tokens (numpy).
+             exact_handoff: bool = False, device="cuda",
+             ctx: Optional[ShardCtx] = None) -> np.ndarray:
+    """Generation → (B, gen_len) int32 tokens (numpy).
 
     Runs on ``device`` (the card unless the caller asks for the CPU);
     ``params`` must already live there.  An encoder–decoder model takes
-    its ``enc_frames`` (B, T_enc, d).
+    its ``enc_frames`` (B, T_enc, d).  Under TP (``ctx``) every rank
+    calls it with its slices and gets the same tokens.
     """
     device = resolve_device(device)
     _on_device(params, device)
@@ -152,8 +175,9 @@ def generate(params, cfg: ModelConfig, prompt, gen_len: int,
     max_len = max_len or prompt.shape[1] + gen_len + 1
     return generate_tokens(
         params, cfg, prompt, gen_len,
-        prefill_fn=make_prefill_fn(cfg, max_len, exact=exact_handoff),
-        decode_fn=make_decode_fn(cfg),
+        prefill_fn=make_prefill_fn(cfg, max_len, exact=exact_handoff,
+                                   ctx=ctx),
+        decode_fn=make_decode_fn(cfg, ctx=ctx),
         enc_frames=frames_on(enc_frames, device), greedy=greedy,
-        seed=seed,
+        seed=seed, ctx=ctx,
     )

@@ -8,8 +8,10 @@ the session's mode:
   * ``"off"``        — single-host reference: λ rides the per-example
     batch weights and the one gradient is the decoded aggregate,
   * ``"coded"``      — the (pod, data) mesh on one card
-    (:class:`repro_torch.dist.mesh.OneCardMesh`) with the two-stage
-    coded decode, λ a runtime operand,
+    (:class:`repro_torch.dist.mesh.OneCardMesh`), or over the ranks of a
+    ``torch.distributed`` world (:class:`repro_torch.dist.mesh.DistMesh`,
+    with ``tp`` "model" ranks of Megatron tensor parallelism), with the
+    two-stage coded decode, λ a runtime operand,
   * ``"coded_int8"`` — same, with the blockwise-int8 + error-feedback
     edge→master hop (per-pod EF residuals ride the session state),
   * ``"coded_q"``    — same hop with the codec ``grad_compression``
@@ -19,9 +21,17 @@ Beside training: the checkpoint round trip in the reference's layout
 (``checkpoint_dir`` / ``resume``; bit-for-bit kill/resume, and a
 reference checkpoint resumes here), ``shrink`` past permanent failures,
 ``eval_step``, and ``generate`` (``cluster=None`` builds a serve-only
-session).  Not ported yet (they raise, naming ROADMAP.md): the TP/SP/PP
-options.  The session runs on the card unless ``device="cpu"`` is
-given.
+session).  Not ported yet (they raise, naming ROADMAP.md): the SP/PP
+options (``seq_shard``, ``pp``, ``microbatches``).  The session runs on
+the card unless ``device="cpu"`` is given.
+
+Under tensor parallelism (``tp > 1``, a coded mode) the session is one
+rank of a world that the caller set up (``dist.launch.run_ranks``,
+``torchrun``, or ``launch.train --tp``, which spawns it): every rank
+builds the same session, holds its slices of the params and the state,
+and runs the same steps; rank 0 prints and writes checkpoints, which
+hold the gathered full arrays (the tp-1 format: they restore at any
+degree).  A drop or a replan changes only λ, as at tp 1.
 
 Quickstart::
 
@@ -40,6 +50,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import _tree
 from repro_torch._device import resolve_device
@@ -48,7 +59,12 @@ from repro_torch.api.cluster import CodedCluster, sample_straggler_pattern
 from repro_torch.api.planner import Planner, get_planner
 from repro_torch.checkpoint.params import (
     _flatten,
+    _unflatten,
+    gather_params,
+    leaf_keys,
     params_from_numpy,
+    shard_array,
+    shard_params,
     tensor_from_numpy,
 )
 from repro_torch.checkpoint.store import CheckpointStore, config_hash
@@ -57,6 +73,14 @@ from repro_torch.core.hgc import HGCCode
 from repro_torch.core.topology import Tolerance
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.dist.elastic import Plan, price_tolerance
+from repro_torch.dist.sharding import (
+    NULL_CTX,
+    check_tp_supported,
+    model_ctx,
+    param_axes,
+    state_axis,
+    validate_tp,
+)
 from repro_torch.models import transformer as tf
 from repro_torch.optim import make_optimizer
 
@@ -189,11 +213,23 @@ class CodedSession:
     ):
         if mode not in MODES:
             raise ValueError(f"unknown session mode {mode!r}")
-        if max(int(tp), 1) > 1 or seq_shard or max(int(pp), 1) > 1 \
-                or microbatches:
-            raise _not_ported("tensor, sequence and pipeline parallelism "
-                              "(tp / seq_shard / pp / microbatches: the "
-                              "dist regimes)")
+        if seq_shard or max(int(pp), 1) > 1 or microbatches:
+            raise _not_ported("sequence and pipeline parallelism "
+                              "(seq_shard / pp / microbatches: the dist "
+                              "regimes)")
+        self.tp = max(int(tp), 1)
+        if self.tp > 1:
+            if cluster is not None and mode == "off":
+                raise ValueError("tp > 1 needs a coded mode (the dist "
+                                 "train step); mode 'off' is single-host")
+            validate_tp(cfg, self.tp)
+            check_tp_supported(cfg, self.tp)
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    f"tp={self.tp}: the session is one rank of a "
+                    f"torch.distributed world; run it in the ranks of "
+                    f"repro_torch.dist.launch.run_ranks, under torchrun, "
+                    f"or through launch.train --tp (which spawns them)")
         if mode == "coded_int8":
             if grad_compression and grad_compression != "int8":
                 raise ValueError(
@@ -222,24 +258,33 @@ class CodedSession:
         self.part_batch = part_batch
         self.seed = seed
         self.log_every = log_every
-        self.verbose = verbose
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        #: this rank's index on the "model" axis (rank-major layout)
+        self.model_rank = self.rank % self.tp
+        self._axes = param_axes(cfg, self.tp)  # flat key → split axis
+        self.verbose = verbose and self.rank == 0
         self.losses: List[float] = []
         #: the coded MoE steps' aux losses, of this process's steps
         self.aux_losses: List[float] = []
         self._serve_cache: Dict = {}
 
         if params is not None:
-            self.params = params_from_numpy(params, self.device,
-                                            dtype=torch.float32)
+            self.params = params_from_numpy(
+                shard_params(params, cfg, self.tp, self.model_rank,
+                             self._axes),
+                self.device, dtype=torch.float32)
         else:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.params = tf.init_params(cfg, gen, device=self.device,
-                                         dtype=torch.float32)
+                                         dtype=torch.float32, tp=self.tp,
+                                         rank=self.model_rank)
+        self._ctx = NULL_CTX
         if cluster is None:  # serve-only: no optimizer, no plan
             self.plan = self.code = self.tcfg = None
             self._optimizer = self.opt_state = self.store = None
             self._step = 0
             self._mesh = None
+            self._ctx = model_ctx(self.tp)
             return
         for p in _tree.leaves(self.params):
             p.requires_grad_(True)
@@ -303,16 +348,21 @@ class CodedSession:
     def _resume(self):
         start, state, extra = self.store.restore()
         self._restored_extra = extra
-        self.params = params_from_numpy(_flatten(state["params"]),
-                                        self.device, dtype=torch.float32)
+        # the file holds full arrays: under TP each rank keeps its slices
+        self.params = params_from_numpy(
+            shard_params(_flatten(state["params"]), self.cfg, self.tp,
+                         self.model_rank, self._axes),
+            self.device, dtype=torch.float32)
         for p in _tree.leaves(self.params):
             p.requires_grad_(True)
         if "opt_state" in state:
             # stateless optimizers (sgd) flatten to an empty subtree: the
             # freshly initialized state is already right then
-            self.opt_state = _tree.map(
-                lambda a: tensor_from_numpy(a, self.device),
-                state["opt_state"])
+            flat = {k: tensor_from_numpy(
+                        shard_array(a, state_axis(k, self._axes), self.tp,
+                                    self.model_rank), self.device)
+                    for k, a in _flatten(state["opt_state"]).items()}
+            self.opt_state = _unflatten(flat)
         del state
         cl = extra.get("cluster")
         if cl and (cl.get("dead_edges") or cl.get("dead_workers")):
@@ -372,9 +422,10 @@ class CodedSession:
     # the train step of the mode
     # ------------------------------------------------------------------
     def _setup_train_step(self):
-        """The train step of the mode; in the coded modes the one-card
-        mesh and the per-pod EF residuals (one list entry per param leaf,
-        in leaf order)."""
+        """The train step of the mode; in the coded modes the mesh (one
+        card, or the ranks of the world) and the per-pod EF residuals
+        (one list entry per param leaf, in leaf order, this rank's
+        slices under TP)."""
         from repro_torch.launch import steps as steps_lib
 
         topo = self.cluster.topo
@@ -393,11 +444,18 @@ class CodedSession:
                 f"mesh, got m={topo.m}")
         self._require_dist_uniform_load(self.code)
         from repro_torch.dist import compression
-        from repro_torch.dist.mesh import OneCardMesh
+        from repro_torch.dist.mesh import DistMesh, OneCardMesh
 
-        self._mesh = OneCardMesh(topo.n, topo.m[0])
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            self._mesh = DistMesh.for_world(topo.n, topo.m[0], self.tp)
+            self._ctx = self._mesh.ctx
+            where = (f"ranks (pod {self._mesh.pod_ranks} × data "
+                     f"{self._mesh.data_ranks} × model {self.tp})")
+        else:
+            self._mesh = OneCardMesh(topo.n, topo.m[0])
+            where = "one-card mesh"
         if self.verbose:
-            print(f"[train] dist={self.mode}: one-card mesh (pod={topo.n} "
+            print(f"[train] dist={self.mode}: {where} (pod={topo.n} "
                   f"× data={topo.m[0]}) on {self.device}, "
                   f"grad_compression={self.tcfg.grad_compression}")
         if self.tcfg.grad_compression != "none":
@@ -408,9 +466,13 @@ class CodedSession:
                 # params): a later rebuild must carry the LIVE residual,
                 # not roll back to this one
                 saved = self._restored_extra.pop("ef_residual")
+                keys = leaf_keys(self.params)
                 self.residual = [
-                    tensor_from_numpy(r, self.device).float()
-                    for r in _tree.leaves_like(saved, self.params)]
+                    tensor_from_numpy(shard_array(
+                        r, self._axes.get(k), self.tp, self.model_rank),
+                        self.device).float()
+                    for k, r in zip(keys,
+                                    _tree.leaves_like(saved, self.params))]
             else:
                 self.residual = _tree.leaves(
                     compression.init_pod_residuals(self.params, topo.n))
@@ -616,9 +678,16 @@ class CodedSession:
 
     def shrink(self, dead_edges=(), dead_workers=()):
         """Drop PERMANENTLY failed nodes, replan on the survivors, and go
-        on training.  In the coded modes the one-card mesh is rebuilt
-        with the new pod count and the surviving pods keep their own EF
-        residual rows; the shrink record rides checkpoints."""
+        on training.  In the coded modes the mesh is rebuilt with the new
+        pod count and the surviving pods keep their own EF residual rows;
+        the shrink record rides checkpoints.  Over ranks only the layout
+        whose pods and workers all run on every rank (``pod_ranks =
+        data_ranks = 1``) shrinks."""
+        mesh = self._mesh
+        if getattr(mesh, "pod_ranks", 1) > 1 or \
+                getattr(mesh, "data_ranks", 1) > 1:
+            raise _not_ported("shrink on a mesh whose pods or workers "
+                              "are ranks of their own")
         old_topo = self.cluster.topo
         old_cluster = self.cluster
         keep = [i for i in range(old_topo.n) if i not in set(dead_edges)]
@@ -663,22 +732,57 @@ class CodedSession:
         the params) in the reference's layout."""
         if self.store is None:
             raise RuntimeError("session has no checkpoint_dir")
+        step = self._step if step is None else step
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            return self._save_gathered(step)
+        extra = self._extra_state()
+        if self.tcfg.grad_compression != "none" and self._mesh is not None:
+            extra["ef_residual"] = _tree.unflatten_like(self.params,
+                                                        self.residual)
+        return self.store.save(
+            step, {"params": self.params, "opt_state": self.opt_state},
+            extra=extra)
+
+    def _extra_state(self) -> Dict:
         # the detector rides the top-level key only (one source of truth)
         cluster_state = self.cluster.state_dict()
         cluster_state.pop("detector", None)
-        extra = {
+        return {
             "streams": [s.state_dict() for s in self.streams],
             "detector": self.cluster.detector.state_dict(),
             "code": _code_desc(self.code),
             "cluster": cluster_state,
         }
-        if self.tcfg.grad_compression != "none" and self._mesh is not None:
-            extra["ef_residual"] = _tree.unflatten_like(self.params,
-                                                        self.residual)
-        return self.store.save(
-            self._step if step is None else step,
-            {"params": self.params, "opt_state": self.opt_state},
-            extra=extra)
+
+    def _save_gathered(self, step: int) -> str:
+        """The checkpoint of a session over ranks: every rank gathers the
+        full arrays (params, optimizer state, EF residual rows, one leaf
+        at a time), rank 0 writes them in the tp-1 format, and every rank
+        returns once the file is in place."""
+        params = gather_params(_flatten(self.params), self.cfg, self._ctx,
+                               self._axes)
+        flat_opt = _flatten(self.opt_state)
+        opt = gather_params(flat_opt, self.cfg, self._ctx,
+                            {k: state_axis(k, self._axes) for k in flat_opt})
+        extra = self._extra_state()
+        if self.tcfg.grad_compression != "none":
+            keys = leaf_keys(self.params)
+            rows = {k: self._mesh.gather_pod_rows(r)
+                    for k, r in zip(keys, self.residual)}
+            extra["ef_residual"] = gather_params(rows, self.cfg, self._ctx,
+                                                 self._axes)
+        path = ""
+        if self.rank == 0:
+            path = self.store.save(step, {"params": params,
+                                          "opt_state": opt}, extra=extra)
+        dist.barrier()
+        return path
+
+    def full_params(self) -> Dict[str, np.ndarray]:
+        """The params as full host arrays by flat key (under TP gathered
+        from every rank: collective)."""
+        return gather_params(_flatten(self.params), self.cfg, self._ctx,
+                             self._axes)
 
     def jit_cache_entries(self) -> int:
         """-1: the port's step is eager, so there is no executable cache
@@ -702,7 +806,8 @@ class CodedSession:
         no coding — plain evaluation)."""
         batch = self._to_device(batch)
         with torch.no_grad():
-            _, metrics = tf.loss_and_metrics(self.params, self.cfg, batch)
+            _, metrics = tf.loss_and_metrics(self.params, self.cfg, batch,
+                                             ctx=self._ctx)
         return {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
@@ -714,8 +819,9 @@ class CodedSession:
         key = (max_len, exact)
         if key not in self._serve_cache:
             self._serve_cache[key] = (
-                serving.make_prefill_fn(self.cfg, max_len, exact=exact),
-                serving.make_decode_fn(self.cfg))
+                serving.make_prefill_fn(self.cfg, max_len, exact=exact,
+                                        ctx=self._ctx),
+                serving.make_decode_fn(self.cfg, ctx=self._ctx))
         return self._serve_cache[key]
 
     @torch.inference_mode()
@@ -737,4 +843,4 @@ class CodedSession:
             params, self.cfg, prompts, gen_len, prefill_fn=prefill_fn,
             decode_fn=decode_fn,
             enc_frames=serving.frames_on(enc_frames, self.device),
-            greedy=greedy, seed=seed)
+            greedy=greedy, seed=seed, ctx=self._ctx)

@@ -7,10 +7,16 @@ The port's own copy of the ``.npz`` key scheme of
 package into the port's nested dict of tensors under the same keys;
 ``params_to_numpy`` goes back; ``classic_params_from_reference``
 carries the paper models' weights (``models.classic``).
+
+Under tensor parallelism a rank holds a slice of each model-sharded
+leaf (``dist.sharding.shard_axis``): :func:`shard_params` cuts a rank's
+slices out of full arrays and :func:`gather_params` rebuilds the full
+arrays from every rank's, both by flat key, so a checkpoint holds the
+full arrays whatever the degree that wrote it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -102,3 +108,66 @@ def classic_params_from_reference(tree: Dict[str, Any], device) -> Any:
         return tensor_from_numpy(arr, device)
 
     return _unflatten({k: leaf(k, v) for k, v in _flatten(tree).items()})
+
+
+def _block(n: int, tp: int, rank: int) -> slice:
+    per = n // tp
+    return slice(rank * per, (rank + 1) * per)
+
+
+def shard_array(arr, axis: Optional[int], tp: int, rank: int):
+    """Rank ``rank``'s slice of ``arr`` on ``axis``, a contiguous copy,
+    for numpy arrays and tensors alike; ``arr`` itself when ``axis`` is
+    None (replicated)."""
+    if axis is None or tp <= 1:
+        return arr
+    idx = [slice(None)] * arr.ndim
+    idx[axis] = _block(arr.shape[axis], tp, rank)
+    part = arr[tuple(idx)]
+    if isinstance(part, torch.Tensor):
+        return part.contiguous()
+    return np.ascontiguousarray(part)
+
+
+def shard_params(flat_np: Dict[str, np.ndarray], cfg, tp: int, rank: int,
+                 axes: Optional[Dict[str, Optional[int]]] = None
+                 ) -> Dict[str, np.ndarray]:
+    """Rank ``rank``'s slices of full flat-key arrays (params, or any
+    tree whose keys ``axes`` maps; default the params' axes of ``cfg`` at
+    ``tp``) → flat ``{key: array}``."""
+    from repro_torch.dist.sharding import param_axes
+
+    axes = param_axes(cfg, tp) if axes is None else axes
+    return {k: shard_array(v, axes.get(k), tp, rank)
+            for k, v in flat_np.items()}
+
+
+def gather_params(flat: Dict[str, torch.Tensor], cfg, ctx,
+                  axes: Optional[Dict[str, Optional[int]]] = None
+                  ) -> Dict[str, np.ndarray]:
+    """The full arrays of every rank's flat-key slices (collective over
+    ``ctx``'s group: every rank calls it with the same keys) → flat
+    ``{key: full}`` host numpy arrays (bfloat16 as float32), gathered
+    one leaf at a time."""
+    from repro_torch.dist.sharding import all_gather_cat, param_axes
+
+    axes = param_axes(cfg, ctx.tp) if axes is None else axes
+    out = {}
+    for k, v in flat.items():
+        ax = axes.get(k)
+        full = v.detach()
+        if ax is not None and ctx.active:
+            full = all_gather_cat(full.contiguous(), ax, ctx.rank, ctx.tp,
+                                  ctx.group)
+        full = full.cpu()
+        out[k] = (full.float() if full.dtype == torch.bfloat16
+                  else full).numpy()
+    return out
+
+
+def leaf_keys(tree: Any):
+    """The flat keys of ``tree``'s leaves in :func:`repro_torch._tree.
+    leaves` order (sorted dict keys)."""
+    from repro_torch import _tree
+
+    return _tree.leaves(_unflatten({k: k for k in _flatten(tree)}))

@@ -14,8 +14,12 @@ edge→master hop optionally rides :mod:`repro_torch.dist.compression`,
 decoded by the fused dequant combine kernels; the bulk encode/decode of
 the code rides the ``coded_combine`` kernel (``kernels.ops``).
 
-The collectives are those of :class:`repro_torch.dist.mesh.OneCardMesh`.
-Gradients are lists of leaves in :func:`repro_torch._tree.leaves` order.
+The collectives are those of :class:`repro_torch.dist.mesh.OneCardMesh`
+or, across ranks, :class:`repro_torch.dist.mesh.DistMesh`: each process
+decodes its own pods, then the pod collective finishes the sum.  Under
+tensor parallelism the gradient leaves, and the EF residuals that
+telescope against them, are this rank's shards.  Gradients are lists of
+leaves in :func:`repro_torch._tree.leaves` order.
 """
 from __future__ import annotations
 
@@ -51,10 +55,11 @@ def coded_weighted_psum(mesh, group_fn: GroupFn, lam
     ``(decoded leaves, Σ_ij λ_ij · loss_ij)``.
     """
     total, loss = None, None
-    for pod in range(mesh.pods):
+    for pod in mesh.pod_indices():
         part, loss_i = mesh.psum_data(pod, group_fn, lam)  # eq. 25
         total = mesh.psum_pod(total, part)                   # eq. 27
         loss = loss_i if loss is None else loss + loss_i
+    *total, loss = mesh.reduce_pods(total + [loss])
     return total, loss
 
 
@@ -83,13 +88,15 @@ def compressed_coded_psum(mesh, group_fn: GroupFn, lam,
     coefficients (eq. 27 over quantized payloads).  ``residual`` leaves
     are ``(n_pods, *leaf.shape)`` float32 and are updated in place to
     what the payload failed to carry (EF-SGD: transmitted values
-    telescope).  Returns ``(decoded leaves, Σ_ij λ_ij · loss_ij)``.
+    telescope).  A process encodes only its own pods' partials (its
+    rows of ``residual``); the all-gather fills the other rows of the
+    payload.  Returns ``(decoded leaves, Σ_ij λ_ij · loss_ij)``.
     """
     qbuf: List[torch.Tensor] = []  # per leaf (n_pods, payload)
     sbuf: List[torch.Tensor] = []  # per leaf (n_pods, n_blocks)
     shapes: Optional[List[torch.Size]] = None
     loss = None
-    for pod in range(mesh.pods):
+    for pod in mesh.pod_indices():
         part, loss_i = mesh.psum_data(pod, group_fn, lam)  # exact eq. 25
         loss = loss_i if loss is None else loss + loss_i
         if len(part) != len(residual):
@@ -99,11 +106,12 @@ def compressed_coded_psum(mesh, group_fn: GroupFn, lam,
         for n, r in enumerate(residual):
             q, s = _encode_hop(part[n], r[pod], block, mode)
             part[n] = None  # one pod's f32 partial alive at a time
-            if pod == 0:
+            if len(qbuf) == n:
                 qbuf.append(q.new_empty((mesh.pods,) + tuple(q.shape)))
                 sbuf.append(s.new_empty((mesh.pods,) + tuple(s.shape)))
             mesh.all_gather_pod(qbuf[n], pod, q)
             mesh.all_gather_pod(sbuf[n], pod, s)
+    loss, = mesh.reduce_pods([loss])
     ones = torch.ones((1, mesh.pods), dtype=torch.float32,
                       device=residual[0].device)
     decoded = []

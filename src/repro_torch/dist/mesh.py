@@ -16,15 +16,30 @@ on one device, in turn.  Each collective becomes what it computes there:
   * ``psum_pod`` — the pods' partials summed.
 
 The decode loops over pods outermost (``grad_sync``), so only one pod's
-float32 partial is alive at a time.  A ``torch.distributed`` mesh over
-several cards implements the same three calls (ROADMAP.md).
+float32 partial is alive at a time.
+
+:class:`DistMesh` is the same mesh over the ranks of a
+``torch.distributed`` world, with a "model" axis of ``tp`` ranks for
+tensor parallelism (``dist.sharding``): ``world = pod_ranks ×
+data_ranks × tp`` with ``pod_ranks ∈ {1, pods}`` and ``data_ranks ∈
+{1, data}``.  Each rank runs, in turn, the (pod, data) groups at its
+coordinates, and a call becomes a collective where its axis spans
+ranks: ``psum_data`` the local loop, then an ``all_reduce`` over the
+data group; ``all_gather_pod`` an all-gather over the pod group;
+``psum_pod`` an ``all_reduce`` over it.  With ``pod_ranks = pods`` and
+``data_ranks = data`` each group has ranks of its own (the reference's
+layout); with both 1 only "model" spans ranks (the layout of one card
+shared by the ranks).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist.sharding import ShardCtx, all_reduce, gather_rows
 
 #: one group's local step: ``(pod, data) → (gradient leaves, loss)``
 GroupFn = Callable[[int, int], Tuple[List[torch.Tensor], torch.Tensor]]
@@ -59,7 +74,7 @@ class OneCardMesh:
         lam = np.asarray(lam, np.float32)
         partial: Optional[List[torch.Tensor]] = None
         loss = None
-        for j in range(self.data):
+        for j in self.data_indices():
             lam_ij = float(lam[pod, j])
             grads, loss_ij = group_fn(pod, j)
             if lam_ij != 1.0:  # unit weights (the MoE objective): no pass
@@ -75,8 +90,15 @@ class OneCardMesh:
             del grads
         return partial, loss
 
-    @staticmethod
-    def all_gather_pod(out: torch.Tensor, pod: int,
+    def pod_indices(self) -> Sequence[int]:
+        """The pods whose groups this process runs: all of them."""
+        return range(self.pods)
+
+    def data_indices(self) -> Sequence[int]:
+        """The data indices of a pod that this process runs: all."""
+        return range(self.data)
+
+    def all_gather_pod(self, out: torch.Tensor, pod: int,
                        local: torch.Tensor) -> None:
         """Pod ``pod``'s tensor into row ``pod`` of ``out``, the
         ``(n_pods, *local.shape)`` gathered operand."""
@@ -86,9 +108,135 @@ class OneCardMesh:
     def psum_pod(total: Optional[List[torch.Tensor]],
                  part: List[torch.Tensor]) -> List[torch.Tensor]:
         """Stage 2 (eq. 27), one pod at a time: ``part`` folded into the
-        running sum over pods (``part`` itself when it is the first)."""
+        running sum over this process's pods (``part`` itself when it is
+        the first); :meth:`reduce_pods` finishes the sum."""
         if total is None:
             return part
         for acc, x in zip(total, part):
             acc.add_(x)
         return total
+
+    def reduce_pods(self, tensors: List[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """Sums over pods held by other processes: none here."""
+        return tensors
+
+    def gather_pod_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """A per-pod ``(n_pods, …)`` array (the EF residual) with every
+        pod's row current: here every row is this process's own."""
+        return rows
+
+
+#: process groups by (world, member ranks), made once per world
+_GROUPS: Dict[Tuple, object] = {}
+
+
+def _axis_groups(rank_lists: List[List[int]]) -> Dict[int, object]:
+    """One process group per member list, made by every rank in the same
+    order (``new_group`` is collective over the world) → rank → its
+    group."""
+    out = {}
+    for ranks in rank_lists:
+        key = (id(dist.group.WORLD), tuple(ranks))
+        if key not in _GROUPS:
+            _GROUPS[key] = dist.new_group(list(ranks))
+        for r in ranks:
+            out[r] = _GROUPS[key]
+    return out
+
+
+class DistMesh(OneCardMesh):
+    """The (pod, data) mesh and a "model" axis over the ranks of the
+    current ``torch.distributed`` world.
+
+    Rank ``(p · data_ranks + d) · tp + m`` holds pod coordinate ``p``,
+    data coordinate ``d`` and model index ``m``; it runs the groups
+    :meth:`pod_indices` × :meth:`data_indices`.  ``ctx`` is the
+    :class:`~repro_torch.dist.sharding.ShardCtx` of its model group.
+    """
+
+    def __init__(self, pods: int, data: int, tp: int = 1, *,
+                 pod_ranks: int = 1, data_ranks: int = 1):
+        super().__init__(pods, data)
+        if (pod_ranks, data_ranks) not in ((1, 1), (self.pods, self.data)) \
+                or tp < 1:
+            raise ValueError(
+                f"mesh ranks (pod {pod_ranks}, data {data_ranks}, model "
+                f"{tp}) for ({self.pods} x {self.data}) groups: (pod, "
+                f"data) ranks must be (1, 1) or ({self.pods}, {self.data})")
+        world = pod_ranks * data_ranks * tp
+        if not dist.is_initialized() or dist.get_world_size() != world:
+            have = dist.get_world_size() if dist.is_initialized() else 1
+            raise ValueError(
+                f"mesh of {pod_ranks} x {data_ranks} x {tp} ranks needs a "
+                f"world of {world}, this one has {have}")
+        self.tp, self.pod_ranks, self.data_ranks = tp, pod_ranks, data_ranks
+        rank = dist.get_rank()
+        self.model_rank = rank % tp
+        self.data_rank = (rank // tp) % data_ranks
+        self.pod_rank = rank // (tp * data_ranks)
+        P, D = range(pod_ranks), range(data_ranks)
+
+        def at(p, d, m):
+            return (p * data_ranks + d) * tp + m
+
+        model = _axis_groups([[at(p, d, m) for m in range(tp)]
+                              for p in P for d in D]) if tp > 1 else {}
+        self._data_group = _axis_groups(
+            [[at(p, d, m) for d in D] for p in P for m in range(tp)]
+        ).get(rank) if data_ranks > 1 else None
+        self._pod_group = _axis_groups(
+            [[at(p, d, m) for p in P] for d in D for m in range(tp)]
+        ).get(rank) if pod_ranks > 1 else None
+        self.ctx = ShardCtx(tp=tp, rank=self.model_rank,
+                            group=model.get(rank))
+
+    @classmethod
+    def for_world(cls, pods: int, data: int, tp: int) -> "DistMesh":
+        """The layout the world's size implies: ``world / tp`` ranks over
+        (pod, data) are 1 (every group in turn on each rank) or ``pods ×
+        data`` (a group each)."""
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world % tp:
+            raise ValueError(f"a world of {world} ranks does not split "
+                             f"into tp={tp}")
+        n = world // tp
+        for pr, dr in ((1, 1), (pods, data)):
+            if pr * dr == n:
+                return cls(pods, data, tp, pod_ranks=pr, data_ranks=dr)
+        raise ValueError(
+            f"a world of {world} ranks at tp={tp} leaves {n} ranks for "
+            f"({pods} x {data}) groups: 1 or {pods * data} fit")
+
+    def pod_indices(self) -> Sequence[int]:
+        return range(self.pods) if self.pod_ranks == 1 else [self.pod_rank]
+
+    def data_indices(self) -> Sequence[int]:
+        return (range(self.data) if self.data_ranks == 1
+                else [self.data_rank])
+
+    def psum_data(self, pod, group_fn, lam):
+        partial, loss = super().psum_data(pod, group_fn, lam)
+        if self._data_group is not None:
+            partial = [all_reduce(g, self._data_group) for g in partial]
+            loss = all_reduce(loss, self._data_group)
+        return partial, loss
+
+    def all_gather_pod(self, out, pod, local):
+        if self._pod_group is None:
+            out[pod].copy_(local)
+        else:
+            gather_rows(out, pod, local, self._pod_group)
+
+    def reduce_pods(self, tensors):
+        if self._pod_group is None:
+            return tensors
+        return [all_reduce(t, self._pod_group) for t in tensors]
+
+    def gather_pod_rows(self, rows):
+        if self._pod_group is None:
+            return rows
+        out = torch.empty_like(rows)
+        gather_rows(out, self.pod_rank, rows[self.pod_rank],
+                    self._pod_group)
+        return out

@@ -1,0 +1,393 @@
+"""Tensor parallelism of the port: the ``ShardCtx`` seam and the per-leaf
+rule.
+
+PyTorch counterpart of the tensor-parallel part of
+``repro.dist.sharding``:
+
+  * :class:`ShardCtx` — the execution seam the model code calls
+    (``psum`` finishes a row-parallel matmul, ``all_gather`` rebuilds
+    the d-sharded embedding, ``local_block`` slices a replicated array to
+    this rank's feature block, ``pmax``/``axis_index`` for the
+    vocab-parallel cross-entropy).  The reference runs them inside
+    ``shard_map``; the port is SPMD, one process a rank, and they are
+    collectives over the "model" process group.  Their gradients are the
+    transposes JAX takes (``psum`` → ``psum``, a tiled ``all_gather`` →
+    sum then this rank's block), so a rank's backward computes what a
+    shard's does in the reference, and the train step corrects it as
+    the reference's ``tp_correct`` does.
+  * :func:`validate_tp` — the reference's divisibility check, with its
+    messages;
+  * :func:`shard_axis` — ``_param_rule`` / ``params_pspecs(head_aligned=
+    True)`` projected onto the "model" axis (``model_axis_only``) and
+    fitted to divisibility (``fit_spec``): the axis a leaf is split on,
+    or None (replicated); :func:`param_axes` applies it to a config's
+    flat keys and :func:`model_sharded_mask` is its boolean view.
+
+The collectives move CUDA tensors over gloo when several ranks share a
+card (NCCL refuses two ranks on one device): gloo takes CUDA tensors in
+``all_reduce`` and ``broadcast`` only, so there an all-gather is the
+``all_reduce`` of a zeroed ``(tp, …)`` buffer holding this rank's block,
+summed as bytes (exact for any dtype; gloo has no fp8).  Under NCCL it
+is ``all_gather_into_tensor``.  The choice is made by the backend's name.
+
+FSDP, the pjit anchors and ``serve_shardings`` are XLA's and have no
+counterpart; sequence parallelism (``seq_shard``) is not ported yet
+(its helpers raise, naming ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md")
+
+
+# ----------------------------------------------------------------------
+# collectives on a process group
+# ----------------------------------------------------------------------
+#: the profiler span around every collective (a no-op unless a
+#: ``torch.profiler`` records): a profile splits out the time inside them
+SPAN = "tp.collective"
+
+
+def all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """A reduced copy of ``x`` over ``group`` (``x`` is left alone)."""
+    buf = x.detach().clone(memory_format=torch.contiguous_format)
+    with torch.profiler.record_function(SPAN):
+        dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
+    return buf
+
+
+def gather_rows(out: torch.Tensor, index: int, local: torch.Tensor,
+                group) -> None:
+    """Every member's ``local`` into its row of ``out`` ``(n, *local.
+    shape)``, member ``index`` writing row ``index``: an all-gather.
+
+    NCCL: ``all_gather_into_tensor``.  Otherwise (gloo, whose CUDA
+    collectives are ``all_reduce`` and ``broadcast``) the ``all_reduce``
+    of the zeroed buffer holding this member's row, summed as bytes:
+    each byte is its owner's plus zeros, so the result is exact for any
+    dtype (and fp8, which gloo lacks, travels as bytes).
+    """
+    if dist.get_backend(group) == "nccl":
+        with torch.profiler.record_function(SPAN):
+            dist.all_gather_into_tensor(
+                out.view(torch.uint8), local.contiguous().view(torch.uint8),
+                group=group)
+        return
+    out.zero_()
+    out[index].copy_(local)
+    with torch.profiler.record_function(SPAN):
+        dist.all_reduce(out.view(torch.uint8), group=group)
+
+
+def all_gather_cat(x: torch.Tensor, axis: int, index: int, n: int,
+                   group) -> torch.Tensor:
+    """The members' blocks of ``x`` concatenated along ``axis`` (tiled)."""
+    buf = x.new_empty((n,) + tuple(x.shape))
+    gather_rows(buf, index, x.detach(), group)
+    return torch.cat(buf.unbind(0), dim=axis % x.ndim)
+
+
+class _PSum(torch.autograd.Function):
+    """``psum`` over the model group; its transpose is ``psum`` too."""
+
+    @staticmethod
+    def forward(ctx, x, sc):
+        ctx.sc = sc
+        return all_reduce(x, sc.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.sc.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled ``all_gather``; its transpose sums the cotangent over the
+    group and keeps this rank's block (``psum_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, x, sc, axis):
+        ctx.sc, ctx.axis, ctx.n = sc, axis % x.ndim, x.shape[axis]
+        return all_gather_cat(x, axis, sc.rank, sc.tp, sc.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g, ctx.sc.group)
+        return g.narrow(ctx.axis, ctx.sc.rank * ctx.n, ctx.n), None, None
+
+
+# ----------------------------------------------------------------------
+# ShardCtx — the execution seam between launch.steps and models/
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The "model" axis as the model code sees it.
+
+    ``tp`` ranks in ``group`` (None: the default group), this process at
+    index ``rank`` on it.  Inactive (``tp`` 1) every method is the
+    identity, so the model code calls them unconditionally, as the
+    reference's does.  Every sharded-or-replicated decision the model
+    code makes from it compares a local shape with the config's.
+    """
+
+    tp: int = 1
+    rank: int = 0
+    group: Any = None
+    seq_shard: bool = False
+
+    @property
+    def active(self) -> bool:
+        return self.tp > 1
+
+    @property
+    def sp(self) -> bool:
+        return self.active and self.seq_shard
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Finish a row-parallel matmul (partial sums → full value)."""
+        if not self.active:
+            return x
+        return _PSum.apply(x, self)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the group; no gradient (the reference takes it
+        of a ``stop_gradient``)."""
+        if not self.active:
+            return x
+        return all_reduce(x, self.group, dist.ReduceOp.MAX)
+
+    def axis_index(self) -> int:
+        return self.rank if self.active else 0
+
+    def all_gather(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        """Concatenate the per-rank blocks along ``axis`` (tiled)."""
+        if not self.active:
+            return x
+        return _AllGather.apply(x, self, axis)
+
+    def local_block(self, v: torch.Tensor, local: int,
+                    axis: int = -1) -> torch.Tensor:
+        """This rank's feature block of a replicated array; a no-op when
+        ``v`` already has the local size on ``axis``."""
+        if not self.active or v.shape[axis] == local:
+            return v
+        return v.narrow(axis % v.ndim, self.rank * local, local)
+
+    def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group outside autograd (the optimizer's and
+        the step's reductions)."""
+        if not self.active:
+            return x
+        return all_reduce(x, self.group)
+
+    def argmax(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
+        """Greedy token of vocab-parallel logits (…, vocab / tp): the
+        global argmax, the lowest index on ties, as ``argmax`` over the
+        whole vocabulary takes it.  Full logits (…, vocab) take the plain
+        ``argmax``."""
+        idx = torch.argmax(logits, -1)
+        if not self.active or logits.shape[-1] == vocab:
+            return idx
+        V = logits.shape[-1]
+        best = torch.gather(logits, -1, idx[..., None])[..., 0]
+        # values and global indices of every rank's local argmax; f64
+        # holds both exactly
+        mine = torch.stack([best.double(), (idx + self.rank * V).double()])
+        allv = all_gather_cat(mine[None], 0, self.rank, self.tp,
+                              self.group)  # (tp, 2, …)
+        top = allv[:, 0].amax(0)
+        # the first rank holding the max has the lowest index: its block
+        # comes first and its local argmax is its first max
+        first = (allv[:, 0] == top).to(torch.int8).argmax(0)
+        return torch.gather(allv[:, 1], 0, first[None])[0].to(idx.dtype)
+
+    # ---- sequence parallelism: not ported ----------------------------
+    def gather_seq(self, x, axis: int = 1):
+        if self.sp:
+            raise _not_ported("sequence parallelism (seq_shard)")
+        return x
+
+    def scatter_seq(self, x, axis: int = 1):
+        if self.sp:
+            raise _not_ported("sequence parallelism (seq_shard)")
+        return x
+
+    def psum_scatter(self, x, axis: int = 1):
+        if self.sp:
+            raise _not_ported("sequence parallelism (seq_shard)")
+        return self.psum(x)
+
+
+#: inactive context: the one-rank paths and every default caller
+NULL_CTX = ShardCtx()
+
+
+def model_ctx(tp: int) -> ShardCtx:
+    """The context of a world that is the "model" axis alone (serving):
+    ``tp`` must be the world's size."""
+    if tp <= 1:
+        return NULL_CTX
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != tp:
+        raise ValueError(f"tp={tp} needs a world of {tp} ranks, this one "
+                         f"has {world}")
+    return ShardCtx(tp=tp, rank=dist.get_rank(), group=None)
+
+
+# ----------------------------------------------------------------------
+# validation
+# ----------------------------------------------------------------------
+def validate_tp(cfg, tp: int) -> None:
+    """Clear error (instead of a shape crash) for a bad ``--tp`` degree.
+
+    Checks the arch config's divisibility constraints for real
+    tensor-parallel execution.  KV heads are exempt: when ``n_kv_heads``
+    does not divide, K/V projections replicate (Megatron-style GQA
+    fallback) as long as the local Q heads still group evenly.
+    """
+    if tp <= 1:
+        return
+    errs = []
+    kinds = set(cfg.block_pattern)
+    if cfg.d_model % tp:
+        errs.append(f"d_model={cfg.d_model} not divisible by tp={tp}")
+    if kinds & {"global", "local"} or cfg.is_encdec:
+        if cfg.n_heads % tp:
+            errs.append(f"n_heads={cfg.n_heads} not divisible by tp={tp}")
+        elif cfg.n_kv_heads % tp and tp % cfg.n_kv_heads:
+            errs.append(
+                f"GQA: n_kv_heads={cfg.n_kv_heads} neither divides nor "
+                f"is divided by tp={tp} — KV heads can neither shard "
+                f"nor replicate consistently"
+            )
+    if cfg.d_ff > 0 and kinds != {"ssm"}:
+        ffd = cfg.d_ff_dense or cfg.d_ff
+        if ffd % tp:
+            errs.append(f"d_ff={ffd} not divisible by tp={tp}")
+    if "ssm" in kinds:
+        nh = (cfg.expand * cfg.d_model) // cfg.ssm_head_dim
+        if nh % tp:
+            errs.append(f"ssm heads={nh} not divisible by tp={tp}")
+    if "recurrent" in kinds:
+        r = cfg.lru_width or cfg.d_model
+        if r % tp:
+            errs.append(f"lru_width={r} not divisible by tp={tp}")
+    if errs:
+        raise ValueError(
+            f"{cfg.name}: tensor parallelism tp={tp} violates "
+            f"divisibility constraints: " + "; ".join(errs)
+        )
+
+
+def check_tp_supported(cfg, tp: int) -> None:
+    """The archs whose tensor-parallel branches are not ported raise,
+    naming ROADMAP.md: MoE (expert parallelism), the SSM and RG-LRU
+    layers, and whisper's encoder and cross block.  Run after
+    :func:`validate_tp`."""
+    if tp <= 1:
+        return
+    if cfg.is_moe:
+        raise _not_ported(f"{cfg.name}: tensor parallelism of the MoE "
+                          f"layer (expert parallelism)")
+    rec = sorted(set(cfg.block_pattern) & {"ssm", "recurrent"})
+    if rec:
+        raise _not_ported(f"{cfg.name}: tensor parallelism of the {rec} "
+                          f"layers")
+    if cfg.is_encdec:
+        raise _not_ported(f"{cfg.name}: tensor parallelism of the "
+                          f"encoder and the cross-attention block")
+
+
+# ----------------------------------------------------------------------
+# the per-leaf rule
+# ----------------------------------------------------------------------
+# the dense decoder's leaves (the reference's rules for the MoE, SSM,
+# RG-LRU and conv leaves come with their TP branches: ROADMAP.md)
+# column-parallel (shard the OUTPUT features over "model"): y = x @ W
+_COL_PARALLEL = {"wq", "wk", "wv", "wg", "wu", "w1"}
+# row-parallel (shard the INPUT features; the output needs a psum)
+_ROW_PARALLEL = {"wo", "wd", "w2"}
+# head-granular weights: only whole heads (or KV groups) shard
+_HEAD_OF = {"wq": "q", "wo": "q", "wk": "kv", "wv": "kv"}
+
+
+def shard_axis(name: str, shape, cfg, tp: int) -> Optional[int]:
+    """The axis (negative) that leaf ``name`` of full ``shape`` is split
+    on over ``tp`` "model" ranks, or None when it is replicated.
+
+    The reference's ``_param_rule`` with ``head_aligned=True`` on the
+    "model" axis only (the FSDP entries are XLA's), then dropped where
+    the dim does not divide (``fit_spec``): K/V projections replicate
+    when ``n_kv_heads`` does not divide tp, an untied head when the
+    vocabulary does not.  1-D vectors stay replicated.
+    """
+    if tp <= 1:
+        return None
+    nd = len(shape)
+    if name in _HEAD_OF:
+        heads = cfg.n_heads if _HEAD_OF[name] == "q" else cfg.n_kv_heads
+        if not heads or heads % tp:
+            return None
+    ax = None
+    if name in _COL_PARALLEL and nd >= 2:
+        ax = -1
+    elif name in _ROW_PARALLEL and nd >= 2:
+        ax = -2
+    elif name in ("table", "w") and nd >= 2:
+        # the embedding (V, d) is d-sharded (gathered at the use site);
+        # the untied head (d, V) gives vocab-parallel logits
+        ax = -1
+    if ax is None or shape[ax] % tp:
+        return None
+    return ax
+
+
+def param_axes(cfg, tp: int) -> Dict[str, Optional[int]]:
+    """:func:`shard_axis` of every param leaf of ``cfg``, by flat key
+    (``checkpoint.params._flatten``'s), from the full shapes (made on
+    the ``meta`` device: no memory)."""
+    from repro_torch.checkpoint.params import _flatten
+    from repro_torch.models import transformer as tf
+
+    check_tp_supported(cfg, tp)
+    shapes = tf.init_params(cfg, device="meta", dtype=torch.float32)
+    return {k: shard_axis(k.rsplit("/", 1)[-1], tuple(v.shape), cfg, tp)
+            for k, v in _flatten(shapes).items()}
+
+
+def model_sharded_mask(cfg, tp: int) -> Dict[str, bool]:
+    """True per flat key iff the leaf is split over the "model" axis.
+
+    The dist step's gradient correction keys off this: each rank's
+    backward computes ``∂(Σ_ranks φ)/∂(its copy)`` of the replicated
+    objective, so model-sharded leaves divide by tp and replicated
+    leaves psum over "model" then divide by tp.
+    """
+    return {k: ax is not None for k, ax in param_axes(cfg, tp).items()}
+
+
+def state_axis(key: str, axes: Dict[str, Optional[int]]) -> Optional[int]:
+    """The split axis of an optimizer-state leaf (flat key ``key``),
+    from its parameter's: moments (``m/…``, ``v/…``) follow their
+    parameter; adafactor's ``vr`` (the last dim reduced) and ``vc`` (the
+    second to last reduced) keep the entries that survive; scalars and
+    vector accumulators are replicated."""
+    slot, _, rest = key.partition("/")
+    if slot in ("m", "v") and rest in axes:
+        return axes[rest]
+    if slot == "acc":
+        pkey, _, trail = rest.rpartition("/")
+        ax = axes.get(pkey)
+        if ax is None or trail == "v":
+            return None
+        if trail == "vr":
+            return None if ax == -1 else ax + 1
+        if trail == "vc":
+            return None if ax == -2 else (-1 if ax == -1 else ax + 1)
+    return None

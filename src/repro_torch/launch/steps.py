@@ -8,7 +8,9 @@ PyTorch counterpart of ``repro.launch.steps``:
     per-example coded weights (coeff × λ) in ``batch["weights"]`` and the
     fixed ``batch["denom"]`` make the gradient the decoded aggregate.
   * :func:`_make_dist_train_step` — the coded step (modes ``coded``,
-    ``coded_int8``, ``coded_q``) on the one-card (pod, data) mesh: each
+    ``coded_int8``, ``coded_q``) on the (pod, data) mesh — on one card
+    (``OneCardMesh``) or over ranks with tensor parallelism
+    (``DistMesh``): each
     group's gradient of its own coeff-weighted loss IS its message G_ij
     (eq. 22), decoded by the two-stage λ-weighted sum of
     :mod:`repro_torch.dist.grad_sync` (eqs. 25/27), with the quantized +
@@ -17,8 +19,8 @@ PyTorch counterpart of ``repro.launch.steps``:
     aux gradient decoded with uniform weights (the reference's rule).
 
 Steps update the params and the optimizer state in place and return
-them.  Tensor, sequence and pipeline parallelism are not ported
-(ROADMAP.md).
+them.  Sequence and pipeline parallelism (and the pipeline's
+microbatches) are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,7 +30,14 @@ import numpy as np
 import torch
 
 from repro_torch import _tree
+from repro_torch.checkpoint.params import leaf_keys
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.dist.sharding import (
+    NULL_CTX,
+    ShardCtx,
+    model_sharded_mask,
+    param_axes,
+)
 from repro_torch.models import transformer as tf
 from repro_torch.optim import (
     clip_by_global_norm_,
@@ -53,8 +62,9 @@ def default_optimizer_name(cfg: ModelConfig, tcfg: TrainConfig) -> str:
 def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
     if tcfg.pp_stages > 1 or tcfg.microbatches or tcfg.seq_shard_activations:
         raise NotImplementedError(
-            "pipeline and sequence parallelism are not ported to "
-            "repro_torch yet; see the dist regimes in ROADMAP.md")
+            "pipeline and sequence parallelism (and the pipeline's "
+            "microbatches) are not ported to repro_torch yet; see the "
+            "dist regimes in ROADMAP.md")
 
 
 def _batch_rows(batch: Dict[str, torch.Tensor], B: int, rows: slice
@@ -75,7 +85,7 @@ def _batch_rows(batch: Dict[str, torch.Tensor], B: int, rows: slice
 
 
 def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-           objective: Optional[Callable] = None):
+           objective: Optional[Callable] = None, ctx: ShardCtx = NULL_CTX):
     """(gradient leaves in leaf order, metrics) of ``loss_and_metrics``'s
     total, or of ``objective(metrics)`` when given.  A leaf the loss
     does not reach (whisper's encoder layers carry a cross-attention
@@ -83,7 +93,7 @@ def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     gives it."""
     leaves = _tree.leaves(params)
     with torch.enable_grad():
-        total, metrics = tf.loss_and_metrics(params, cfg, batch)
+        total, metrics = tf.loss_and_metrics(params, cfg, batch, ctx=ctx)
         if objective is not None:
             total = objective(metrics)
         grads = torch.autograd.grad(total, leaves, allow_unused=True,
@@ -92,15 +102,19 @@ def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def _finish(params, opt_state, grads, optimizer, tcfg, lr_at, step,
-            metrics):
+            metrics, ctx: ShardCtx = NULL_CTX, axes=None):
     """Clip, schedule and apply the update in place; the shared tail of
-    both steps.  Returns the metrics."""
+    both steps (under TP each rank's slices, the norm and adafactor's
+    statistics reduced over "model": ``ctx``, ``axes``).  Returns the
+    metrics."""
     with torch.no_grad():
         if tcfg.grad_clip > 0:
-            clip_by_global_norm_(grads, tcfg.grad_clip)
-        grad_norm = global_norm(grads)
+            clip_by_global_norm_(grads, tcfg.grad_clip, ctx, axes)
+        grad_norm = global_norm(grads, ctx, axes)
         lr = lr_at(step).to(grads[0].device)
-        optimizer.apply_(grads, opt_state, params, lr, tcfg.weight_decay)
+        tp = dict(ctx=ctx, axes=axes) if ctx.active else {}
+        optimizer.apply_(grads, opt_state, params, lr, tcfg.weight_decay,
+                         **tp)
     metrics = dict(metrics)
     metrics["lr"] = lr
     metrics["grad_norm"] = grad_norm
@@ -153,9 +167,27 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
+def tp_correct(grads, sharded, ctx: ShardCtx):
+    """A rank's gradients of the model-replicated objective → exact, in
+    place (``sharded``: each leaf's ``model_sharded_mask`` entry).  Each
+    rank's backward yields ``∂(Σ_ranks φ)/∂(its copy)`` (the
+    collectives' transposes are JAX's): sharded leaves carry a uniform
+    tp factor; replicated leaves also hold only their own rank's partial
+    paths, so they are summed over "model" first."""
+    if not ctx.active:
+        return grads
+    for i, (g, split) in enumerate(zip(grads, sharded)):
+        if split:
+            g.div_(ctx.tp)
+        else:
+            grads[i] = ctx.reduce_sum(g).div_(ctx.tp)
+    return grads
+
+
 def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
                           optimizer=None) -> Callable:
-    """The coded step on ``mesh`` (:class:`repro_torch.dist.mesh.OneCardMesh`).
+    """The coded step on ``mesh`` (:class:`repro_torch.dist.mesh.OneCardMesh`
+    or :class:`~repro_torch.dist.mesh.DistMesh`).
 
     Returns ``train_step(params, opt_state, batch, lam, residual, step)
     → (params, opt_state, residual, metrics)``.  Group (i, j) takes its
@@ -173,6 +205,13 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     weights, stragglers included, so it does not depend on the straggler
     pattern — and the two-stage sum runs with unit weights.  The metrics
     then carry ``aux_loss`` = Σ_ij aux_ij / n_groups.
+
+    On a ``DistMesh`` with a "model" axis of ``tp > 1`` ranks the step
+    runs Megatron tensor parallelism: params are this rank's slices
+    (``dist.sharding.shard_axis``), each group's gradient goes through
+    :func:`tp_correct` before the coded decode, and the group's loss is
+    already equal on every "model" rank (the cross-entropy summed over
+    it once), so the decode sums it over (data, pod) only.
     """
     from repro_torch.dist import grad_sync
 
@@ -190,17 +229,23 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
                 f"{('none',) + compression.COMPRESSION_MODES}")
 
     n_groups = mesh.pods * mesh.data
+    ctx = getattr(mesh, "ctx", NULL_CTX)
+    axes_by_key = param_axes(cfg, ctx.tp)
+    mask = model_sharded_mask(cfg, ctx.tp)
 
     def train_step(params, opt_state, batch, lam, residual, step):
         B = batch["tokens"].shape[0]
         aux_terms = []  # MoE: aux_ij / n_groups of each group
+        keys = leaf_keys(params)
+        axes = [axes_by_key[k] for k in keys]
+        sharded = [mask[k] for k in keys]
 
         def group_fn(pod, data):
             rows = mesh.group_rows(pod, data, B)
             local = _batch_rows(batch, B, rows)
             if not cfg.is_moe:
-                grads, m = _grads(params, cfg, local)
-                return grads, m["loss"]
+                grads, m = _grads(params, cfg, local, ctx=ctx)
+                return tp_correct(grads, sharded, ctx), m["loss"]
             lam_ij = float(np.asarray(lam, np.float32)[pod, data])
             grads, m = _grads(
                 params, cfg, local,
@@ -224,7 +269,7 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         if cfg.is_moe:
             metrics["aux_loss"] = torch.stack(aux_terms).sum()
         metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
-                          step, metrics)
+                          step, metrics, ctx, axes)
         return params, opt_state, residual, metrics
 
     train_step.optimizer = optimizer

@@ -15,9 +15,17 @@ Checkpoints are atomic and in the reference's layout: a run killed
 with ``--stop-after`` and rerun with ``--resume`` and the SAME
 ``--steps`` (``total_steps`` sets the LR schedule) reproduces the
 uninterrupted run's losses bit for bit.  Runs on the card unless
-``--device cpu`` is given.  Not ported yet (the flags raise, naming
-ROADMAP.md): ``--tp``/``--model-shards`` > 1, ``--seq-shard``, ``--pp``
-and ``--microbatches``.
+``--device cpu`` is given.
+
+``--tp N`` (or ``--model-shards N``) with a ``--dist`` mode trains with
+Megatron tensor parallelism over N ranks that the CLI spawns
+(``dist.launch.run_ranks``), every (pod, data) group in turn on each
+rank; under a launcher that sets ``RANK``/``WORLD_SIZE`` (torchrun) it
+joins that world instead, whose size may also give the pods or the
+workers ranks of their own (``DistMesh.for_world``).  Rank 0 prints,
+writes ``--metrics-out`` and the checkpoints (the full arrays, which
+restore at any degree).  Not ported yet (the flags raise, naming
+ROADMAP.md): ``--seq-shard``, ``--pp`` and ``--microbatches``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -29,6 +37,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 4 --seq-len 16 --dist coded_q --checkpoint-dir /tmp/ck \\
       --checkpoint-every 2 --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --steps 4 --seq-len 16 --dist coded_q --tp 2
 """
 from __future__ import annotations
 
@@ -36,11 +46,17 @@ import argparse
 import json
 import sys
 
+from repro_torch._device import resolve_device
 from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.dist.launch import join_launcher_world, run_ranks
 
 
-def main(argv=None):
+def main(argv=None, full_params: bool = False):
+    """Run the CLI → the session's params at tp 1; under ``--tp N``,
+    rank 0's gathered full arrays by flat key when ``full_params`` is
+    set (every rank joins the gather), else ``None``: at full width
+    they are the whole model in float32."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b", choices=list(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true",
@@ -69,9 +85,9 @@ def main(argv=None):
                          "decode on the one-card (pod, data) mesh, or "
                          "coded with the quantized + EF cross-pod hop")
     ap.add_argument("--model-shards", type=int, default=1,
-                    help="'model' mesh axis size (not ported: 1 only)")
+                    help="'model' mesh axis size (alias of --tp)")
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor-parallel degree (not ported: 0 or 1)")
+                    help="tensor-parallel degree: the ranks to spawn")
     ap.add_argument("--seq-shard", dest="seq_shard", action="store_const",
                     const=True, default=None,
                     help="sequence parallelism (not ported)")
@@ -113,6 +129,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
@@ -121,6 +138,10 @@ def main(argv=None):
         raise SystemExit("--tp requires a --dist mode")
     if args.dist == "off" and args.pp > 1:
         raise SystemExit("--pp requires a --dist mode")
+    if tp > 1 and not join_launcher_world(args.device):
+        resolve_device(args.device)  # no CUDA: raise here, not in a rank
+        return run_ranks(main, tp, args=(argv, full_params),
+                         device=args.device, timeout=86400.0)[0]
     ctor = CodedCluster.hetero if args.cluster == "hetero" \
         else CodedCluster.homogeneous
     try:
@@ -143,6 +164,9 @@ def main(argv=None):
         force_drop_edge=args.force_drop_edge,
         force_drop_step=args.force_drop_step, stop_after=args.stop_after,
     )
+    full = session.full_params() if full_params and tp > 1 else None
+    if session.rank != 0:
+        return None
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(report, f, indent=1)
@@ -151,7 +175,7 @@ def main(argv=None):
         print("[train] WARNING: jit cache size unavailable (the port's "
               "step is eager); zero-recompile check skipped",
               file=sys.stderr)
-    return session.params
+    return full if tp > 1 else session.params
 
 
 if __name__ == "__main__":

@@ -24,6 +24,19 @@ import torch
 NEG_INF = -1e30
 
 
+def local_head_counts(p, head_dim: int) -> Tuple[int, int]:
+    """(H, Kv) as seen by THIS rank's projection weights.
+
+    Under tensor parallelism the attention weights are per-rank
+    column/row blocks, so the head counts come from the local shapes,
+    not the config: Q heads shard over the "model" axis while K/V heads
+    replicate whenever ``n_kv_heads`` does not divide the degree
+    (Megatron's GQA fallback).  Everything downstream (RoPE, GQA
+    grouping, the attention kernels) keys off these shapes.
+    """
+    return p["wq"].shape[-1] // head_dim, p["wk"].shape[-1] // head_dim
+
+
 # ----------------------------------------------------------------------
 # RoPE
 # ----------------------------------------------------------------------

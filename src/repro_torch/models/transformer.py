@@ -28,6 +28,19 @@ embeddings in the first positions):
     forward, the reference's recompute backward) and each layer is
     rematerialized with ``torch.utils.checkpoint``, as ``_remat_wrap``
     does with ``jax.checkpoint``.
+
+Tensor parallelism threads a :class:`~repro_torch.dist.sharding.ShardCtx`
+(``ctx``) through the dense path, as the reference's
+``models.transformer`` threads it: column-parallel q/k/v and MLP
+in-projections, row-parallel ``wo``/``wd``/``w2`` finished by
+``ctx.psum``, K/V replicated when ``n_kv_heads`` does not divide the
+degree (each rank then attends with the one KV head of its Q block), a
+d-sharded embedding gathered at the use site, an untied head giving
+vocab-parallel logits (decoded by the cross-entropy's one fused psum),
+a tied one row-parallel through ``ctx.local_block``.  Every decision is
+a comparison of a local shape with the config's; inactive (tp 1) every
+``ctx`` call is the identity.  The MoE, SSM, RG-LRU and encoder–decoder
+branches under TP are not ported (``dist.sharding.check_tp_supported``).
 """
 from __future__ import annotations
 
@@ -39,6 +52,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (
+    NULL_CTX,
+    ShardCtx,
+    check_tp_supported,
+    shard_axis,
+    validate_tp,
+)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -58,10 +78,21 @@ def _torch_dtype(name) -> torch.dtype:
 ATTENTION_KINDS = ("global", "local")
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX) -> None:
     unknown = set(cfg.block_pattern) - {*ATTENTION_KINDS, "ssm", "recurrent"}
     if unknown:
         raise ValueError(f"unknown layer kinds {sorted(unknown)}")
+    check_tp_supported(cfg, ctx.tp)
+
+
+def local_kv_heads(cfg: ModelConfig, tp: int) -> int:
+    """K/V heads a rank attends with: its share when ``n_kv_heads``
+    divides ``tp``, else one (the replicated-KV fallback slices the head
+    of its Q block; MQA keeps its one head)."""
+    Kv = cfg.n_kv_heads
+    if tp <= 1:
+        return Kv
+    return Kv // tp if Kv % tp == 0 else 1
 
 
 def _has_attention(cfg: ModelConfig) -> bool:
@@ -103,7 +134,8 @@ def _norm(p: Dict, x: torch.Tensor) -> torch.Tensor:
 # init
 # ----------------------------------------------------------------------
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cuda", dtype=None) -> PyTree:
+                device="cuda", dtype=None, tp: int = 1,
+                rank: int = 0) -> PyTree:
     """Random weights N(0, 0.02²), laid out as the reference's pytree.
 
     Serving allocates the cast working copy directly, as
@@ -126,25 +158,38 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     the reference's do (its ``stack_layers`` closes over ``cross``):
     never used, their gradients are zero, but the flat keys and an
     optimizer's decay of them match the reference's.
+
+    With ``tp > 1`` the result is rank ``rank``'s slices
+    (``dist.sharding.shard_axis``): each full leaf is drawn in turn, as
+    at tp 1, and only its slice kept, so one seed gives the slices of
+    the tp-1 weights and the peak is one full leaf.  ``device="meta"``
+    gives the shapes alone (no generator).
     """
-    _check_supported(cfg)
-    device = resolve_device(device)
-    if generator is None:
+    if tp > 1:
+        validate_tp(cfg, tp)
+    _check_supported(cfg, ShardCtx(tp=tp))
+    device = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     dt = _torch_dtype(dtype or cfg.dtype)
     d, V, H, Kv, Dh = (cfg.d_model, cfg.vocab, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim)
     ff = cfg.d_ff_dense or cfg.d_ff
 
-    def normal(*shape):
+    def normal(name, *shape):
         t = torch.randn(shape, generator=generator, dtype=dt, device=device)
+        ax = shard_axis(name, shape, cfg, tp)
+        if ax is not None:
+            n = shape[ax] // tp
+            t = t.narrow(ax, rank * n, n).clone()
         return t.mul_(0.02)
 
     def attn(lead):
-        return {"wq": normal(*lead, d, H * Dh),
-                "wk": normal(*lead, d, Kv * Dh),
-                "wv": normal(*lead, d, Kv * Dh),
-                "wo": normal(*lead, H * Dh, d)}
+        return {"wq": normal("wq", *lead, d, H * Dh),
+                "wk": normal("wk", *lead, d, Kv * Dh),
+                "wv": normal("wv", *lead, d, Kv * Dh),
+                "wo": normal("wo", *lead, H * Dh, d)}
 
     def layers(lead: Tuple[int, ...], kind: str, moe: bool) -> Dict:
         ndt = dt if lead else torch.float32
@@ -170,20 +215,20 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                     d, cfg.d_ff, cfg.n_experts, cfg.n_shared_experts,
                     generator, device, dt, lead)
             elif cfg.mlp == "swiglu":
-                p["mlp"] = {"wg": normal(*lead, d, ff),
-                            "wu": normal(*lead, d, ff),
-                            "wd": normal(*lead, ff, d)}
+                p["mlp"] = {"wg": normal("wg", *lead, d, ff),
+                            "wu": normal("wu", *lead, d, ff),
+                            "wd": normal("wd", *lead, ff, d)}
             else:
-                p["mlp"] = {"w1": normal(*lead, d, ff),
-                            "w2": normal(*lead, ff, d)}
+                p["mlp"] = {"w1": normal("w1", *lead, d, ff),
+                            "w2": normal("w2", *lead, ff, d)}
         return p
 
     params: Dict[str, Any] = {
-        "embed": {"table": normal(V, d)},
+        "embed": {"table": normal("table", V, d)},
         "final_norm": _init_norm(cfg, (d,), device),
     }
     if not cfg.tie_embeddings:
-        params["head"] = {"w": normal(d, V)}
+        params["head"] = {"w": normal("w", d, V)}
     P = len(cfg.block_pattern)
     n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
     params["groups"] = {f"p{k}": layers((n_groups,), cfg.block_pattern[k],
@@ -217,9 +262,24 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
                                 cfg.mrope_sections)
 
 
+def _kv_slice(ctx: ShardCtx, cfg: ModelConfig, H: int, Kv: int) -> bool:
+    """The replicated-KV GQA fallback (TP with ``n_kv_heads`` ∤ tp):
+    every rank computes all KV heads, but its Q block lies inside ONE KV
+    group (``validate_tp``: tp a multiple of ``n_kv_heads``), so it keeps
+    that head and the local Q→KV pairing matches the unsharded model."""
+    return (ctx.active and H != cfg.n_heads and Kv == cfg.n_kv_heads
+            and Kv > 1)
+
+
+def _kv_head(x: torch.Tensor, ctx: ShardCtx, Kv: int) -> torch.Tensor:
+    """(…, Kv, Dh) → this rank's KV head (…, 1, Dh)."""
+    return x.narrow(-2, ctx.axis_index() * Kv // ctx.tp, 1)
+
+
 def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                kv_source: Optional[torch.Tensor] = None
+                kv_source: Optional[torch.Tensor] = None,
+                ctx: ShardCtx = NULL_CTX
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Attention block; returns (output, (k, v) for caching).
 
@@ -232,18 +292,22 @@ def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     ``cfg.flash`` says: the reference's two branches compute the same
     values over ``arange`` positions; over others (M-RoPE's vision
     layout) only its flash branch masks by index (ROADMAP.md §3).
+
+    Under TP (``ctx`` active) the heads are this rank's block
+    (``local_head_counts``) and the row-parallel out-projection is
+    finished by one psum over "model".
     """
     B, S, _ = x.shape
-    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    H, Kv = attn_lib.local_head_counts(p, Dh)
+    src = x if kv_source is None else kv_source
     q = _split_heads(x @ p["wq"], H, Dh)
-    if kv_source is None:
-        k = _split_heads(x @ p["wk"], Kv, Dh)
-        if rope is not None:
-            q, k = attn_lib.rotate(q, *rope), attn_lib.rotate(k, *rope)
-        v = _split_heads(x @ p["wv"], Kv, Dh)
-    else:
-        k = _split_heads(kv_source @ p["wk"], Kv, Dh)
-        v = _split_heads(kv_source @ p["wv"], Kv, Dh)
+    k = _split_heads(src @ p["wk"], Kv, Dh)
+    v = _split_heads(src @ p["wv"], Kv, Dh)
+    if _kv_slice(ctx, cfg, H, Kv):
+        k, v = _kv_head(k, ctx, Kv), _kv_head(v, ctx, Kv)
+    if kv_source is None and rope is not None:
+        q, k = attn_lib.rotate(q, *rope), attn_lib.rotate(k, *rope)
     causal = kind in ATTENTION_KINDS and kv_source is None
     window = cfg.window if kind == "local" else 0
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
@@ -252,40 +316,55 @@ def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=cfg.logit_softcap)
-    return out.reshape(B, S, H * Dh) @ p["wo"], (k, v)
+    out = out.reshape(B, S, H * Dh) @ p["wo"]
+    if ctx.active and H != cfg.n_heads:
+        out = ctx.psum(out)  # row-parallel out-projection
+    return out, (k, v)
 
 
-def _mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+               ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """Matmuls in the operands' promoted dtype: after a ``rest`` recurrent
     layer, whose float32 biases promote the residual stream as in the
-    reference, a bf16 model's later layers run in float32."""
+    reference, a bf16 model's later layers run in float32.  Under TP the
+    in-projections are column-parallel and the down-projection
+    row-parallel, finished by one psum."""
     if cfg.mlp == "swiglu" and "wg" in p:
-        return _mm(F.silu(_mm(x, p["wg"])) * _mm(x, p["wu"]), p["wd"])
-    # jax.nn.gelu defaults to the tanh approximation
-    return _mm(F.gelu(_mm(x, p["w1"]), approximate="tanh"), p["w2"])
+        out = _mm(F.silu(_mm(x, p["wg"])) * _mm(x, p["wu"]), p["wd"])
+        down = p["wd"]
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        out = _mm(F.gelu(_mm(x, p["w1"]), approximate="tanh"), p["w2"])
+        down = p["w2"]
+    if ctx.active and down.shape[-2] != (cfg.d_ff_dense or cfg.d_ff):
+        out = ctx.psum(out)  # row-parallel down-projection
+    return out
 
 
-def _ffn_apply(p: Dict, h: torch.Tensor, cfg: ModelConfig
+def _ffn_apply(p: Dict, h: torch.Tensor, cfg: ModelConfig,
+               ctx: ShardCtx = NULL_CTX
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's feed-forward half → (output, MoE aux loss or None)."""
     if "moe" in p:
         return moe_lib.moe_ffn(p["moe"], h, cfg.top_k, cfg.capacity_factor)
-    return _mlp_apply(p["mlp"], h, cfg), None
+    return _mlp_apply(p["mlp"], h, cfg, ctx), None
 
 
 def _layer_out(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
                rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-               enc_out: Optional[torch.Tensor] = None
+               enc_out: Optional[torch.Tensor] = None,
+               ctx: ShardCtx = NULL_CTX
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer's (output, aux) without its cache entry (the training
     body)."""
-    x, _, aux = _layer_apply(p, x, kind, cfg, rope, enc_out)
+    x, _, aux = _layer_apply(p, x, kind, cfg, rope, enc_out, ctx)
     return x, aux
 
 
 def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                 enc_out: Optional[torch.Tensor] = None
+                 enc_out: Optional[torch.Tensor] = None,
+                 ctx: ShardCtx = NULL_CTX
                  ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """Returns (x_out, cache_entry, aux_loss): aux is the MoE layer's
     load-balancing loss, None for a dense layer.  The cache entry is the
@@ -296,7 +375,7 @@ def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
     h = _norm(p["norm1"], x)
     cache_entry: Any = ()
     if kind in ATTENTION_KINDS or kind == "enc":
-        out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope)
+        out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope, ctx=ctx)
         cache_entry = {"k": k.reshape(*k.shape[:2], -1),
                        "v": v.reshape(*v.shape[:2], -1)}
     elif kind == "ssm":
@@ -310,7 +389,7 @@ def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
         x = x + out
     aux = None
     if "norm2" in p:
-        out, aux = _ffn_apply(p, _norm(p["norm2"], x), cfg)
+        out, aux = _ffn_apply(p, _norm(p["norm2"], x), cfg, ctx)
         x = x + out
     return x, cache_entry, aux
 
@@ -335,14 +414,19 @@ def cast_params(params: PyTree, cfg: ModelConfig) -> PyTree:
     return cast(params)
 
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, ctx: ShardCtx = NULL_CTX):
     """Row lookup.  ``F.embedding`` rather than ``table[tokens]``: the
     indexing backward accumulates repeated ids in a thread-dependent
     order on the CPU, and kill/resume must repeat a run bit for bit;
     ``F.embedding``'s backward sums them in a fixed order on the CPU and
-    on the card."""
+    on the card.  Under TP the table is d-sharded: each rank looks up
+    its feature block and the blocks are gathered back to full width
+    (the gather's transpose gives each rank its block's gradient)."""
     table = params["embed"]["table"].to(_torch_dtype(cfg.dtype))
-    return F.embedding(tokens, table)
+    x = F.embedding(tokens, table)
+    if ctx.active and table.shape[-1] != cfg.d_model:
+        x = ctx.all_gather(x, axis=-1)
+    return x
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -376,10 +460,19 @@ def _matmul_f32(x, w, cfg):
     return x.float() @ w.float()
 
 
-def _unembed(params, cfg, x):
+def _unembed(params, cfg, x, ctx: ShardCtx = NULL_CTX):
+    """Final norm and the vocab matmul → f32 logits.  Under TP a tied
+    head is the transposed d-sharded table, row-parallel: this rank's
+    d-block of x times its rows, psum'd (full-vocab logits); an untied
+    head (d, V) is column-parallel: vocab-parallel local logits, which
+    the cross-entropy and the greedy argmax decode."""
     x = _norm(params["final_norm"], x)
     if cfg.tie_embeddings:
-        return _matmul_f32(x, params["embed"]["table"].T, cfg)
+        w = params["embed"]["table"].T
+        if ctx.active and w.shape[0] != cfg.d_model:
+            return ctx.psum(
+                _matmul_f32(ctx.local_block(x, w.shape[0]), w, cfg))
+        return _matmul_f32(x, w, cfg)
     return _matmul_f32(x, params["head"]["w"], cfg)
 
 
@@ -427,7 +520,8 @@ def encode_frames(params: PyTree, cfg: ModelConfig,
 
 def embed_tokens(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
-                 visual_embeds: Optional[torch.Tensor] = None
+                 visual_embeds: Optional[torch.Tensor] = None,
+                 ctx: ShardCtx = NULL_CTX
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedding, the VLM frontend and the default positions → ``(x,
     positions)``; ``params`` must already be cast.  ``visual_embeds``
@@ -435,7 +529,7 @@ def embed_tokens(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     default positions are ``arange(S)`` per row, broadcast to (3, B, S)
     for an M-RoPE config."""
     B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, ctx)
     if visual_embeds is not None:
         n_vis = visual_embeds.shape[1]
         x = torch.cat([visual_embeds.to(x.dtype), x[:, n_vis:]], dim=1)
@@ -449,7 +543,8 @@ def embed_tokens(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
 def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor], return_cache: bool,
             enc_frames: Optional[torch.Tensor] = None,
-            visual_embeds: Optional[torch.Tensor] = None
+            visual_embeds: Optional[torch.Tensor] = None,
+            ctx: ShardCtx = NULL_CTX
             ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """The encoder (encoder–decoder models), the embedding and the layer
     stack on cast params → (x, cache, the layers' summed aux loss); each
@@ -460,11 +555,11 @@ def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError("encoder-decoder model needs enc_frames")
         enc_out = encode_frames(params, cfg, enc_frames)
     x, positions = embed_tokens(params, cfg, tokens, positions,
-                                visual_embeds)
+                                visual_embeds, ctx)
     B, S = tokens.shape
     rope = _rope(cfg, positions) if _has_attention(cfg) else None
     n_groups = cfg.n_layers // len(cfg.block_pattern)
-    KvDh = cfg.n_kv_heads * cfg.head_dim
+    KvDh = local_kv_heads(cfg, ctx.tp) * cfg.head_dim
     cache: Dict[str, Dict] = {"groups": {}, "rest": {}}
     if return_cache:
         for k, kind in enumerate(cfg.block_pattern):
@@ -477,9 +572,10 @@ def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     for lp, kind, (part, key), l in _layers(params, cfg):
         if remat:
             x, aux = checkpoint(_layer_out, lp, x, kind, cfg, rope, enc_out,
-                                use_reentrant=False)
+                                ctx, use_reentrant=False)
         else:
-            x, entry, aux = _layer_apply(lp, x, kind, cfg, rope, enc_out)
+            x, entry, aux = _layer_apply(lp, x, kind, cfg, rope, enc_out,
+                                         ctx)
         if aux is not None:
             auxes.append(aux)
         if return_cache:
@@ -502,6 +598,7 @@ def forward(
     visual_embeds: Optional[torch.Tensor] = None,  # (B, n_vis, d) vlm
     return_cache: bool = False,
     last_only: bool = False,  # unembed only the final position (prefill)
+    ctx: Optional[ShardCtx] = None,  # tensor parallelism (dist.sharding)
 ):
     """Full-sequence forward → ``(logits (B, S, V) f32, aux)``, or
     ``(logits, cache, aux)`` with ``return_cache``, as the reference's;
@@ -510,44 +607,65 @@ def forward(
     without them).
 
     The cache holds each layer's K/V as ``(…, S, Kv·Dh)``, stacked per
-    pattern position like the reference's scan output.
+    pattern position like the reference's scan output (under TP this
+    rank's KV heads; its logits vocab-parallel for an untied head).
     """
-    _check_supported(cfg)
+    ctx = ctx or NULL_CTX
+    _check_supported(cfg, ctx)
     params = cast_params(params, cfg)
     x, cache, aux = _hidden(params, cfg, tokens, positions, return_cache,
-                            enc_frames, visual_embeds)
+                            enc_frames, visual_embeds, ctx)
     if last_only:
         x = x[:, -1:]
-    logits = _unembed(params, cfg, x)
+    logits = _unembed(params, cfg, x, ctx)
     return (logits, cache, aux) if return_cache else (logits, aux)
 
 
 # ----------------------------------------------------------------------
 # training loss
 # ----------------------------------------------------------------------
-def _ce_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Per-token negative log-likelihood (B, S)."""
+def _ce_nll(logits: torch.Tensor, targets: torch.Tensor,
+            cfg: Optional[ModelConfig] = None,
+            ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """Per-token negative log-likelihood (B, S).
+
+    Vocab-parallel logits (TP, untied head) are decoded with ONE fused
+    psum over "model" (the local exp-sums and this rank's masked target
+    logit together), after a ``pmax`` for the shift, which takes no
+    gradient: it cancels analytically."""
+    V = logits.shape[-1]
+    if ctx.active and cfg is not None and V != cfg.vocab:
+        m = ctx.pmax(logits.detach().amax(-1))
+        s = torch.exp(logits - m[..., None]).sum(-1)
+        tloc = targets.long() - ctx.axis_index() * V
+        valid = (tloc >= 0) & (tloc < V)
+        ll = torch.gather(logits, -1, tloc.clamp(0, V - 1)[..., None])[..., 0]
+        ll = torch.where(valid, ll, torch.zeros_like(ll))
+        s, ll = ctx.psum(torch.stack([s, ll])).unbind(0)
+        return torch.log(s) + m - ll
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return lse - ll
 
 
 def head_loss_terms(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
-                    targets: torch.Tensor, weights: Optional[torch.Tensor]
+                    targets: torch.Tensor, weights: Optional[torch.Tensor],
+                    ctx: ShardCtx = NULL_CTX
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Unembed + weighted CE on the layer stack's output; ``params`` must
     already be cast.  Returns the un-normalized ``(Σ nll·w, Σ w, aux)``
     so the caller picks the denominator; aux is that of the layers run
     here, none in the port (``_hidden`` runs the rest layers), so 0."""
-    logits = _unembed(params, cfg, x)
-    nll = _ce_nll(logits, targets)
+    logits = _unembed(params, cfg, x, ctx)
+    nll = _ce_nll(logits, targets, cfg, ctx)
     w = weights if weights is not None else torch.ones_like(nll)
     return (nll * w).sum(), w.sum(), torch.zeros((), device=x.device)
 
 
 def loss_and_metrics(params: PyTree, cfg: ModelConfig,
                      batch: Dict[str, torch.Tensor],
-                     aux_weight: float = AUX_WEIGHT
+                     aux_weight: float = AUX_WEIGHT,
+                     ctx: Optional[ShardCtx] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted token cross-entropy → ``(total, metrics)``.
 
@@ -556,14 +674,17 @@ def loss_and_metrics(params: PyTree, cfg: ModelConfig,
     message ``G_ij``.  ``batch["denom"]``, when given, is the fixed
     normalizer that keeps the loss linear in the weights, which exact
     coded aggregation needs; otherwise the weights' sum (at least 1).
+    Under TP (``ctx``) the loss comes out equal on every "model" rank.
     """
-    _check_supported(cfg)
+    ctx = ctx or NULL_CTX
+    _check_supported(cfg, ctx)
     params = cast_params(params, cfg)
     x, _, aux = _hidden(params, cfg, batch["tokens"],
                         batch.get("positions"), False,
-                        batch.get("enc_frames"), batch.get("visual_embeds"))
+                        batch.get("enc_frames"), batch.get("visual_embeds"),
+                        ctx)
     nll_sum, w_sum, aux_rest = head_loss_terms(
-        params, cfg, x, batch["targets"], batch.get("weights"))
+        params, cfg, x, batch["targets"], batch.get("weights"), ctx)
     aux = aux + aux_rest
     denom = batch.get("denom")
     if denom is None:
@@ -583,7 +704,7 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> PyTree:
+               device="cuda", tp: int = 1) -> PyTree:
     """Empty decode cache: ring buffers for local layers, in
     ``cfg.dtype`` (the decode kernel reads q and the cache in one dtype);
     the "ssm"/"recurrent" layers' states in float32, as the reference
@@ -592,11 +713,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     Kv·Dh), which :func:`fill_cross_cache` fills, and the cache holds
     ``cross_pos``: the int32 device scalar ``enc_len − 1`` that every
     cross decode passes to the decode kernel as its query position (no
-    step allocates it or syncs the host)."""
-    _check_supported(cfg)
+    step allocates it or syncs the host).  Under TP (``tp``) the K/V
+    width is this rank's heads' (:func:`local_kv_heads`)."""
+    _check_supported(cfg, ShardCtx(tp=tp))
     device = resolve_device(device)
     dt = _torch_dtype(cfg.dtype)
-    KvDh = cfg.n_kv_heads * cfg.head_dim
+    KvDh = local_kv_heads(cfg, tp) * cfg.head_dim
     P = len(cfg.block_pattern)
     n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
 
@@ -655,13 +777,19 @@ def fill_cross_cache(params: PyTree, cfg: ModelConfig,
 
 def _decode_attn(a: Dict, h: torch.Tensor, kind: str, cfg: ModelConfig,
                  cache_entry: Dict, pos: torch.Tensor,
-                 rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """One token's self-attention against the layer's ring buffers."""
+                 rope: Tuple[torch.Tensor, torch.Tensor],
+                 ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """One token's self-attention against the layer's ring buffers (under
+    TP this rank's heads, the out-projection psum'd)."""
     B = h.shape[0]
-    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    H, Kv = attn_lib.local_head_counts(a, Dh)
     q = attn_lib.rotate(_split_heads(h @ a["wq"], H, Dh), *rope)
-    k = attn_lib.rotate(_split_heads(h @ a["wk"], Kv, Dh), *rope)
+    k = _split_heads(h @ a["wk"], Kv, Dh)
     v = _split_heads(h @ a["wv"], Kv, Dh)
+    if _kv_slice(ctx, cfg, H, Kv):
+        k, v, Kv = _kv_head(k, ctx, Kv), _kv_head(v, ctx, Kv), 1
+    k = attn_lib.rotate(k, *rope)
     kc, vc = cache_entry["k"], cache_entry["v"]
     C = kc.shape[1]
     window = cfg.window if kind == "local" else 0
@@ -674,7 +802,10 @@ def _decode_attn(a: Dict, h: torch.Tensor, kind: str, cfg: ModelConfig,
     out = ops.decode_attention(
         q, kc.view(B, C, Kv, Dh), vc.view(B, C, Kv, Dh), pos,
         window=window, softcap=cfg.logit_softcap)
-    return out.reshape(B, 1, H * Dh) @ a["wo"]
+    out = out.reshape(B, 1, H * Dh) @ a["wo"]
+    if ctx.active and H != cfg.n_heads:
+        out = ctx.psum(out)
+    return out
 
 
 def _decode_cross(a: Dict, h: torch.Tensor, cfg: ModelConfig,
@@ -698,11 +829,12 @@ def _decode_cross(a: Dict, h: torch.Tensor, cfg: ModelConfig,
 def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
                   cache_entry: Dict, pos: torch.Tensor,
                   rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                  cross_pos: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  cross_pos: Optional[torch.Tensor] = None,
+                  ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     h = _norm(p["norm1"], x1)
     if kind in ATTENTION_KINDS:
-        out = _decode_attn(p["attn"], h, kind, cfg, cache_entry, pos, rope)
+        out = _decode_attn(p["attn"], h, kind, cfg, cache_entry, pos, rope,
+                           ctx)
     else:
         if kind == "ssm":
             out, new = ssm_lib.ssm_decode_step(p["ssm"], h, cache_entry, cfg)
@@ -718,24 +850,27 @@ def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
     if "norm2" in p:
         # MoE: N = B tokens, so the capacity drops what the reference's
         # decode step drops
-        x1 = x1 + _ffn_apply(p, _norm(p["norm2"], x1), cfg)[0]
+        x1 = x1 + _ffn_apply(p, _norm(p["norm2"], x1), cfg, ctx)[0]
     return x1
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
-                cache: PyTree) -> Tuple[torch.Tensor, PyTree]:
+                cache: PyTree, ctx: Optional[ShardCtx] = None
+                ) -> Tuple[torch.Tensor, PyTree]:
     """One decode step against the cache; returns (logits (B, V), cache).
 
     The cache is updated in place — each layer's ring slot and then
     ``length`` — and returned; ``length`` stays an int32 tensor on the
     device, which the decode kernel reads as the token's position.  An
     M-RoPE model rotates with all three streams at that position, as
-    the reference's decode does.
+    the reference's decode does.  Under TP (``ctx``) the logits of an
+    untied head are vocab-parallel (``ShardCtx.argmax`` decodes them).
     """
-    _check_supported(cfg)
+    ctx = ctx or NULL_CTX
+    _check_supported(cfg, ctx)
     pos = cache["length"]
     params = cast_params(params, cfg)
-    x = _embed(params, cfg, token)
+    x = _embed(params, cfg, token, ctx)
     rope = None
     if _has_attention(cfg):
         posb = pos.expand(token.shape[0], 1)
@@ -746,8 +881,8 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
         entry = cache[part][key]
         x = _decode_layer(lp, x, kind, cfg,
                           entry if l is None else _index(entry, l), pos,
-                          rope, cache.get("cross_pos"))
-    logits = _unembed(params, cfg, x)[:, 0]
+                          rope, cache.get("cross_pos"), ctx)
+    logits = _unembed(params, cfg, x, ctx)[:, 0]
     cache["length"].add_(1)
     return logits, cache
 
@@ -756,13 +891,14 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             enc_frames: Optional[torch.Tensor] = None,
             visual_embeds: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> Tuple[torch.Tensor, PyTree]:
+            last_only: bool = False, ctx: Optional[ShardCtx] = None
+            ) -> Tuple[torch.Tensor, PyTree]:
     """Full-sequence forward that also materializes the K/V cache
     (full length; :func:`prefill_to_decode_cache` re-lays it) →
     ``(logits, cache)``."""
     logits, cache, _ = forward(params, cfg, tokens, positions, enc_frames,
                                visual_embeds, return_cache=True,
-                               last_only=last_only)
+                               last_only=last_only, ctx=ctx)
     return logits, cache
 
 

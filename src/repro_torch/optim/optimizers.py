@@ -15,12 +15,20 @@ into the old state's tensors and drops the leaf's gradient, so a step
 never holds a second copy of the params or the state: what lets the
 full-width model train on one card.  Its ``grads`` is a list in
 :func:`repro_torch._tree.leaves` order, emptied as it goes.
+
+Under tensor parallelism each rank updates its own slices, so every
+reduction over a leaf must span the ranks: ``global_norm`` (and the
+clip) all-reduce the sharded leaves' square sums over "model" and count
+a replicated leaf once; adafactor's row and column statistics and its
+update-RMS clip all-reduce over the sharded axis.  ``ctx`` is the
+:class:`~repro_torch.dist.sharding.ShardCtx` and ``axes`` the split
+axis of each leaf (None: replicated), in leaf order.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,10 +45,23 @@ class Optimizer:
     apply_: Callable[..., PyTree]
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.to(torch.float32)))
-          for x in _tree.leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree: PyTree, ctx=None,
+                axes: Optional[Sequence[Optional[int]]] = None
+                ) -> torch.Tensor:
+    """√Σ over every leaf of its square sum; under TP the sharded leaves'
+    part is all-reduced over "model" and each replicated leaf counted
+    once."""
+    flat = _tree.leaves(tree)
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in flat]
+    if ctx is None or not ctx.active:
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    zero = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    rep = [q for q, ax in zip(sq, axes) if ax is None]
+    shard = [q for q, ax in zip(sq, axes) if ax is not None]
+    total = torch.sum(torch.stack(rep)) if rep else zero
+    if shard:
+        total = total + ctx.reduce_sum(torch.sum(torch.stack(shard)))
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
@@ -49,11 +70,12 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
     return _tree.map(lambda g: g * scale.to(g.dtype), grads)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
-                         ) -> List[torch.Tensor]:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         ctx=None, axes=None) -> List[torch.Tensor]:
     """:func:`clip_by_global_norm` in place on a list of leaves (the same
-    arithmetic, no second copy of the gradient)."""
-    norm = global_norm(grads)
+    arithmetic, no second copy of the gradient); under TP the norm is
+    the global one (:func:`global_norm`)."""
+    norm = global_norm(grads, ctx, axes)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))
@@ -75,12 +97,43 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
 
 
 # ----------------------------------------------------------------------
+class _Split:
+    """How one leaf is split over the "model" ranks, for the reductions
+    of its update: a mean over the split dim is the mean of the ranks'
+    means (equal blocks)."""
+
+    def __init__(self, axis: Optional[int] = None, ctx=None, ndim: int = 0):
+        self.axis = None if axis is None or ctx is None or not ctx.active \
+            else axis % ndim
+        self.ctx, self.ndim = ctx, ndim
+
+    def mean(self, x, dim: int, leaf_dim: Optional[int] = None,
+             keepdim: bool = False):
+        """``x.mean(dim)``; ``leaf_dim`` is that dim in the leaf's
+        coordinates (default ``dim``: ``x`` has the leaf's shape)."""
+        m = x.mean(dim, keepdim=keepdim)
+        d = dim if leaf_dim is None else leaf_dim
+        if self.axis is not None and d % self.ndim == self.axis:
+            m = self.ctx.reduce_sum(m) / self.ctx.tp
+        return m
+
+    def mean_all(self, x):
+        m = torch.mean(x)
+        if self.axis is not None:
+            m = self.ctx.reduce_sum(m) / self.ctx.tp
+        return m
+
+
+_WHOLE = _Split()
+
+
 def _optimizer(name: str, slots: Tuple[str, ...], init_leaf, leaf,
                counted: bool) -> Optimizer:
     """An optimizer from its per-leaf rule.
 
     ``init_leaf(p)`` → the leaf's state, a dict over ``slots``;
-    ``leaf(g, p, st, lr, wd, t)`` → ``(update, new_st)``.  The state tree
+    ``leaf(g, p, st, lr, wd, t, split)`` → ``(update, new_st)``, with
+    ``split`` the leaf's :class:`_Split`.  The state tree
     is ``{slot: tree of that slot}`` (+ ``"t"``, an int32 step count,
     when ``counted``), laid out as the reference's.
     """
@@ -105,7 +158,7 @@ def _optimizer(name: str, slots: Tuple[str, ...], init_leaf, leaf,
 
     def update(grads, state, params, lr, weight_decay=0.0):
         flat_p, sts, t = _per_leaf(state, params)
-        outs = [leaf(g, p, st, lr, weight_decay, t)
+        outs = [leaf(g, p, st, lr, weight_decay, t, _WHOLE)
                 for g, p, st in zip(_tree.leaves(grads), flat_p, sts)]
         new_state = {s: _tree.unflatten_like(params, [n[s] for _, n in outs])
                      for s in slots}
@@ -113,10 +166,13 @@ def _optimizer(name: str, slots: Tuple[str, ...], init_leaf, leaf,
             new_state["t"] = t
         return _tree.unflatten_like(params, [u for u, _ in outs]), new_state
 
-    def apply_(grads: List, state, params, lr, weight_decay=0.0):
+    def apply_(grads: List, state, params, lr, weight_decay=0.0, *,
+               ctx=None, axes=None):
         flat_p, sts, t = _per_leaf(state, params)
         for i, (p, st) in enumerate(zip(flat_p, sts)):
-            u, nst = leaf(grads[i], p, st, lr, weight_decay, t)
+            split = (_Split(axes[i], ctx, p.ndim) if axes is not None
+                     else _WHOLE)
+            u, nst = leaf(grads[i], p, st, lr, weight_decay, t, split)
             # the new state goes into the old tensors, so old and new are
             # never both held beyond one leaf
             grads[i] = None
@@ -135,7 +191,7 @@ def _f32(x):
 
 
 def sgd() -> Optimizer:
-    def leaf(g, p, st, lr, wd, t):
+    def leaf(g, p, st, lr, wd, t, split):
         return -(lr * (_f32(g) + wd * _f32(p))).to(p.dtype), {}
 
     return _optimizer("sgd", (), lambda p: {}, leaf, counted=False)
@@ -146,7 +202,7 @@ def momentum(beta: float = 0.9) -> Optimizer:
         return {"m": torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device)}
 
-    def leaf(g, p, st, lr, wd, t):
+    def leaf(g, p, st, lr, wd, t, split):
         m = beta * st["m"] + _f32(g)
         return -(lr * (m + wd * _f32(p))).to(p.dtype), {"m": m}
 
@@ -158,7 +214,7 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
         z = lambda: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"m": z(), "v": z()}
 
-    def leaf(g, p, st, lr, wd, t):
+    def leaf(g, p, st, lr, wd, t, split):
         g = _f32(g)
         m = b1 * st["m"] + (1 - b1) * g
         v = b2 * st["v"] + (1 - b2) * torch.square(g)
@@ -174,7 +230,9 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
 
 def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0) -> Optimizer:
     """Factored second moments (Shazeer & Stern), β1 = 0: matrices keep
-    one row and one column accumulator over their trailing two dims."""
+    one row and one column accumulator over their trailing two dims.
+    Under TP the means over a split dim and the update's RMS span the
+    ranks (``split``)."""
 
     def init_leaf(p):
         kw = dict(dtype=torch.float32, device=p.device)
@@ -184,15 +242,17 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0) -> Optimizer:
                                               **kw)}}
         return {"acc": {"v": torch.zeros(p.shape, **kw)}}
 
-    def leaf(g, p, st, lr, wd, t):
+    def leaf(g, p, st, lr, wd, t, split):
         beta2 = 1.0 - torch.pow(t.to(torch.float32), -0.8)
         acc = st["acc"]
         gf = _f32(g)
         g2 = torch.square(gf) + eps
         if p.ndim >= 2:
-            vr = beta2 * acc["vr"] + (1 - beta2) * g2.mean(-1)
-            vc = beta2 * acc["vc"] + (1 - beta2) * g2.mean(-2)
-            denom = torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+            vr = beta2 * acc["vr"] + (1 - beta2) * split.mean(g2, -1)
+            vc = beta2 * acc["vc"] + (1 - beta2) * split.mean(g2, -2)
+            # vr's last dim is the leaf's second to last
+            denom = torch.clamp(split.mean(vr, -1, leaf_dim=-2,
+                                           keepdim=True), min=eps)
             vhat = (vr[..., None] / denom[..., None]) * vc[..., None, :]
             step = gf / torch.sqrt(vhat + eps)
             new_acc = {"vr": vr, "vc": vc}
@@ -200,7 +260,7 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0) -> Optimizer:
             v = beta2 * acc["v"] + (1 - beta2) * g2
             step = gf / torch.sqrt(v + eps)
             new_acc = {"v": v}
-        rms = torch.sqrt(torch.mean(torch.square(step)) + eps)
+        rms = torch.sqrt(split.mean_all(torch.square(step)) + eps)
         step = step / torch.clamp(rms / clip_thresh, min=1.0)
         step = step + wd * _f32(p)
         return (-(lr * step)).to(p.dtype), {"acc": new_acc}

@@ -539,3 +539,38 @@ def test_simulate_training_on_the_card_repeats_bit_for_bit(monkeypatch):
     np.testing.assert_array_equal(a.accuracies, b.accuracies)
     for name, value in caller.items():
         assert getattr(torch.backends.cudnn, name) == value
+
+
+# a rank's attention shapes under tensor parallelism: llama3-8b at tp 2
+# (H 16 over Kv 4) and starcoder2-3b at tp 4 (H 6 over its one
+# replicated KV head), batch 4, Dh 128
+TP_RANK_SHAPES = [(16, 4), (6, 1)]
+
+
+@pytest.mark.parametrize("H,Kv", TP_RANK_SHAPES,
+                         ids=[f"H{h}-Kv{k}" for h, k in TP_RANK_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_kernels_at_a_tp_rank_shapes(H, Kv, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tol = TOLS[dtype]
+    for S, lse in ((1024, False), (512, True)):  # prefill; training
+        q = _randn(gen, 4, S, H, 128, dtype=dtype)
+        k = _randn(gen, 4, S, Kv, 128, dtype=dtype)
+        v = _randn(gen, 4, S, Kv, 128, dtype=dtype)
+        got = flash_attention_fwd(q, k, v, causal=True, return_lse=lse)
+        want = ref.flash_attention_ref(q, k, v, causal=True, return_lse=lse)
+        if lse:
+            torch.testing.assert_close(got[1], want[1], rtol=tol, atol=tol)
+            got, want = got[0], want[0]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    C = 1024 + 32 + 1  # the served prompt, 32 tokens and one slot
+    for pos in (1024 + 16, 2 * C + 3):  # mid-generation; a wrapped ring
+        q = _randn(gen, 4, 1, H, 128, dtype=dtype)
+        k = _randn(gen, 4, C, Kv, 128, dtype=dtype)
+        v = _randn(gen, 4, C, Kv, 128, dtype=dtype)
+        got = decode_attention_fwd(q, k, v, pos)
+        want = ref.decode_attention_ref(q, k, v, pos)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)

@@ -72,5 +72,16 @@ def test_serve_cli_on_cpu(tmp_path):
                         "--prompt-len", "8", "--gen", "5",
                         "--exact-handoff"])
     np.testing.assert_array_equal(exact["tokens"], toks)
-    with pytest.raises(NotImplementedError, match="tp=1"):
-        serve.main(["--device", "cpu", "--tp", "2"])
+    # tensor parallelism: the CLI spawns its ranks; rank 0 writes the
+    # tokens, those of tp 1 in float32
+    out2 = tmp_path / "tokens_tp2.json"
+    tp2 = serve.main(["--device", "cpu", "--f32", "--batch", "3",
+                      "--prompt-len", "8", "--gen", "5", "--tp", "2",
+                      "--tokens-out", str(out2)])
+    np.testing.assert_array_equal(json.load(open(out2))["tokens"], toks)
+    np.testing.assert_array_equal(tp2["tokens"], toks)
+    np.testing.assert_allclose(tp2["last_logits"].numpy(),
+                               res["last_logits"].numpy(), rtol=0,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="divisibility"):
+        serve.main(["--device", "cpu", "--tp", "3"])

@@ -1,0 +1,311 @@
+"""Rank bodies of the port's tensor-parallel tests (no jax here).
+
+The tests run these in the ranks of ``repro_torch.dist.launch.run_ranks``
+over gloo on the CPU; the spawned ranks import this module by name, so
+it imports only the port, torch and numpy.  Each body returns host
+values (numpy, floats), rank 0's full arrays where a test compares
+parameters.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import _tree
+from repro_torch.checkpoint.params import (
+    _flatten,
+    gather_params,
+    leaf_keys,
+    params_from_numpy,
+    shard_array,
+    shard_params,
+)
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.dist import compression, grad_sync
+from repro_torch.dist.mesh import DistMesh, OneCardMesh
+from repro_torch.dist.sharding import model_ctx, param_axes, state_axis
+from repro_torch.launch import steps
+from repro_torch.models import transformer as tf
+from repro_torch.optim import make_optimizer
+
+DENSE = ("llama3-8b", "granite-8b", "starcoder2-3b", "gemma3-27b",
+         "qwen2-vl-2b")
+MODES = ("int8", "int4", "fp8")
+LEAF_SHAPES = [(5, 7), (130,), (3,)]
+
+
+def f32_cfg(arch):
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32")
+
+
+# ----------------------------------------------------------------------
+# the mesh's three calls
+# ----------------------------------------------------------------------
+def _group_fn(pod, data):
+    rng = np.random.default_rng(100 * pod + data)
+    grads = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in LEAF_SHAPES]
+    return grads, torch.tensor(float(rng.standard_normal()))
+
+
+def _lam(pods, data):
+    return np.arange(1, pods * data + 1, dtype=np.float32).reshape(
+        pods, data) / 7.0
+
+
+def mesh_decodes(mesh, residual_seed=3):
+    """Every decode of ``mesh``: the f32 λ-weighted sum and each codec's
+    hop (payloads decoded by the fused combine's plain version, EF rows
+    updated) → host arrays."""
+    lam = _lam(mesh.pods, mesh.data)
+    out = {}
+    g, loss = grad_sync.coded_weighted_psum(mesh, _group_fn, lam)
+    out["f32"] = [x.numpy() for x in g] + [loss.numpy()]
+    for mode in MODES:
+        rng = np.random.default_rng(residual_seed)
+        res = [torch.from_numpy(rng.standard_normal(
+            (mesh.pods,) + s).astype(np.float32) * 1e-2)
+            for s in LEAF_SHAPES]
+        g, loss = grad_sync.compressed_coded_psum(mesh, _group_fn, lam, res,
+                                                  block=8, mode=mode)
+        rows = [mesh.gather_pod_rows(r).numpy() for r in res]
+        out[mode] = [x.numpy() for x in g] + [loss.numpy()] + rows
+    return out
+
+
+def one_card_decodes(pods, data):
+    return mesh_decodes(OneCardMesh(pods, data))
+
+
+def mesh_rank(pods, data, tp):
+    """A rank of a (pod, data, model) world: the mesh's decodes, and with
+    a "model" axis the ShardCtx collectives on known inputs."""
+    mesh = DistMesh.for_world(pods, data, tp)
+    out = {"decodes": mesh_decodes(mesh),
+           "coords": (mesh.pod_rank, mesh.data_rank, mesh.model_rank)}
+    ctx = mesh.ctx
+    if ctx.active:
+        r = ctx.axis_index()
+        x = torch.arange(6, dtype=torch.float32).reshape(2, 3) * (r + 1)
+        out["axis_index"] = r
+        out["psum"] = ctx.psum(x).numpy()
+        out["pmax"] = ctx.pmax(x - 10 * r).numpy()
+        out["all_gather0"] = ctx.all_gather(x, axis=0).numpy()
+        out["all_gather1"] = ctx.all_gather(x, axis=-1).numpy()
+        # the gradients of psum and all_gather (JAX's transposes)
+        xg = x.clone().requires_grad_(True)
+        (ctx.psum(xg) * 2.0).sum().backward()
+        out["psum_grad"] = xg.grad.numpy()
+        xg = x.clone().requires_grad_(True)
+        w = torch.arange(6 * ctx.tp, dtype=torch.float32).reshape(2, -1)
+        (ctx.all_gather(xg, axis=-1) * w).sum().backward()
+        out["gather_grad"] = xg.grad.numpy()
+        # greedy over vocab-parallel logits: ties resolve to the lowest
+        # global index, within a block and across blocks
+        V = 4
+        lg = torch.zeros(3, V)
+        lg[0, 1] = lg[0, 3] = 5.0          # a tie inside every block
+        lg[1, 2] = 7.0                     # a tie across every block
+        lg[2, :] = -1.0
+        if r == ctx.tp - 1:
+            lg[2, 0] = 9.0                 # the max on the last rank only
+        out["argmax"] = ctx.argmax(lg, V * ctx.tp).numpy()
+        out["argmax_full"] = ctx.argmax(lg, V).numpy()
+    return out
+
+
+def shard_round_trip(tp):
+    """shard_params → gather_params for every dense config, and
+    ``init_params(tp=tp, rank=r)`` against the slice of tp 1."""
+    ctx = model_ctx(tp)
+    r = dist.get_rank()
+    bad = []
+    for arch in DENSE:
+        cfg = f32_cfg(arch)
+        full = tf.init_params(cfg, torch.Generator().manual_seed(5),
+                              device="cpu", dtype=torch.float32)
+        flat = {k: v.numpy() for k, v in _flatten(full).items()}
+        local = shard_params(flat, cfg, tp, r)
+        back = gather_params({k: torch.from_numpy(v)
+                              for k, v in local.items()}, cfg, ctx)
+        for k, v in flat.items():
+            if not np.array_equal(back[k], v):
+                bad.append((arch, "round trip", k))
+        mine = tf.init_params(cfg, torch.Generator().manual_seed(5),
+                              device="cpu", dtype=torch.float32, tp=tp,
+                              rank=r)
+        for k, v in _flatten(mine).items():
+            if not np.array_equal(v.numpy(), local[k]):
+                bad.append((arch, "init slice", k))
+        axes = param_axes(cfg, tp)
+        if not any(ax is not None for ax in axes.values()):
+            bad.append((arch, "nothing sharded"))
+        # optimizer state: each leaf's slice is the state of the slices
+        for name in ("adamw", "adafactor", "momentum"):
+            opt = make_optimizer(name)
+            whole = _flatten(opt.init(full))
+            local_st = _flatten(opt.init(mine))
+            g = torch.Generator().manual_seed(9)
+            whole = {k: torch.rand(v.shape, generator=g)
+                     for k, v in whole.items()}
+            st_axes = {k: state_axis(k, axes) for k in whole}
+            for k, v in whole.items():
+                part = shard_array(v, st_axes[k], tp, r)
+                if part.shape != local_st[k].shape:
+                    bad.append((arch, name, k, "shape"))
+            back = gather_params({k: shard_array(v, st_axes[k], tp, r)
+                                  for k, v in whole.items()}, cfg, ctx,
+                                 st_axes)
+            for k, v in whole.items():
+                if not np.array_equal(back[k], v.numpy()):
+                    bad.append((arch, name, k, "round trip"))
+    return bad
+
+
+def optimizer_reductions(tp):
+    """The optimizer on a rank's slices against the same on the full
+    leaves: the global norm, a clip and one adafactor and one adamw
+    update of llama3-8b's smoke params under random gradients → the
+    largest differences (gathered)."""
+    from repro_torch.optim import clip_by_global_norm_, global_norm
+
+    ctx = model_ctx(tp)
+    r = dist.get_rank()
+    cfg = f32_cfg("llama3-8b")
+    axes = param_axes(cfg, tp)
+    g = torch.Generator().manual_seed(3)
+    full = tf.init_params(cfg, g, device="cpu", dtype=torch.float32)
+    keys = leaf_keys(full)
+    grads = [torch.randn(p.shape, generator=g) for p in _tree.leaves(full)]
+    ax = [axes[k] for k in keys]
+    mine = [shard_array(x, a, tp, r) for x, a in zip(grads, ax)]
+    out = {"norm": abs(float(global_norm(mine, ctx, ax))
+                       - float(global_norm(grads)))
+           / float(global_norm(grads))}
+    clipped = [x.clone() for x in grads]
+    clip_by_global_norm_(clipped, 1.0)
+    clip_by_global_norm_(mine, 1.0, ctx, ax)
+    out["clip"] = max(float((shard_array(c, a, tp, r) - m).abs().max())
+                      for c, m, a in zip(clipped, mine, ax))
+    for name in ("adafactor", "adamw"):
+        opt = make_optimizer(name)
+        p_full = _tree.map(lambda t: t.clone(), full)
+        p_mine = _tree.map(lambda t: t, params_from_numpy(shard_params(
+            {k: v.numpy() for k, v in _flatten(full).items()}, cfg, tp, r),
+            "cpu"))
+        st_full, st_mine = opt.init(p_full), opt.init(p_mine)
+        lr = torch.tensor(0.1)
+        opt.apply_([x.clone() for x in clipped], st_full, p_full, lr)
+        opt.apply_([shard_array(x, a, tp, r) for x, a in
+                    zip(clipped, ax)], st_mine, p_mine, lr, ctx=ctx,
+                   axes=ax)
+        back = gather_params(_flatten(p_mine), cfg, ctx, axes)
+        out[name] = max(float(np.abs(back[k] - v.numpy()).max())
+                        for k, v in _flatten(p_full).items())
+    return out
+
+
+def divide(n):
+    """Rank 1 divides by ``n``; rank 0 waits for it in a barrier."""
+    if dist.get_rank() == 1:
+        return 1 / n
+    dist.barrier()
+
+
+def mesh_world(pods, data, tp):
+    out = mesh_rank(pods, data, tp)
+    if tp > 1 and dist.get_world_size() == tp:
+        out["round_trip"] = shard_round_trip(tp)
+        out["optimizer"] = optimizer_reductions(tp)
+    return out
+
+
+# ----------------------------------------------------------------------
+# the dist train step against a single-device step
+# ----------------------------------------------------------------------
+def train_cases(cases):
+    """Each case: one step of the port's dist train step on this world
+    → rank 0's (loss, grad_norm, full params by flat key)."""
+    out = []
+    for c in cases:
+        cfg = f32_cfg(c["arch"])
+        tp = c["tp"]
+        mesh = DistMesh.for_world(c["pods"], c["data"], tp)
+        tcfg = TrainConfig(**c["tcfg"])
+        params = params_from_numpy(
+            shard_params(c["params"], cfg, tp, mesh.model_rank), "cpu")
+        for p in _tree.leaves(params):
+            p.requires_grad_(True)
+        step = steps._make_dist_train_step(cfg, tcfg, mesh)
+        state = step.optimizer.init(params)
+        residual = (_tree.leaves(compression.init_pod_residuals(
+            params, c["pods"])) if tcfg.grad_compression != "none" else [])
+        batch = {k: torch.from_numpy(np.asarray(v)) for k, v in
+                 c["batch"].items()}
+        batch["tokens"] = batch["tokens"].long()
+        batch["targets"] = batch["targets"].long()
+        lam = np.full((c["pods"], c["data"]),
+                      1.0 / (c["pods"] * c["data"]), np.float32)
+        params, state, residual, m = step(params, state, batch, lam,
+                                          residual, 0)
+        full = gather_params(_flatten(params), cfg, mesh.ctx)
+        out.append({"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "params": full} if dist.get_rank() == 0 else None)
+    return out
+
+
+# ----------------------------------------------------------------------
+# serving
+# ----------------------------------------------------------------------
+def serve_cases(cases, tp):
+    """Each case: the reference-initialized weights (full flat arrays),
+    a prompt → this rank's greedy tokens at tp, the prefill's gathered
+    logits, and rank 0's serve CLI result."""
+    from repro_torch.api import serving
+
+    ctx = model_ctx(tp)
+    out = []
+    for c in cases:
+        cfg = f32_cfg(c["arch"])
+        params = params_from_numpy(
+            shard_params(c["params"], cfg, tp, ctx.rank), "cpu")
+        toks = serving.generate(params, cfg, c["prompt"], c["gen"],
+                                max_len=c["max_len"],
+                                exact_handoff=c["exact"], device="cpu",
+                                ctx=ctx)
+        with torch.no_grad():
+            logits, _ = tf.forward(params, cfg,
+                                   torch.from_numpy(c["prompt"]).long(),
+                                   ctx=ctx)
+        if logits.shape[-1] != cfg.vocab:
+            logits = ctx.all_gather(logits, -1)
+        out.append({"tokens": toks, "logits": logits.numpy()})
+    return out
+
+
+# ----------------------------------------------------------------------
+# sessions
+# ----------------------------------------------------------------------
+def session_run(kw, fit_kw, ckpt_step=0):
+    """A coded session in this world → rank 0's losses, grad norms and
+    full params (after a checkpoint at ``ckpt_step`` when it is set)."""
+    from repro_torch.api import CodedCluster, CodedSession
+
+    cl = kw.pop("cluster")
+    cluster = (CodedCluster.hetero if cl[0] == "hetero"
+               else CodedCluster.homogeneous)(cl[1], cl[2])
+    s = CodedSession(cluster, f32_cfg(kw.pop("arch")), device="cpu",
+                     verbose=False, **kw)
+    s.fit(**fit_kw)
+    if ckpt_step:
+        s.save_checkpoint(ckpt_step)
+    full = s.full_params()
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    return {"losses": list(s.losses), "params": full}
+
