@@ -177,7 +177,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      serves phase 4's request (llama3-8b whole, bf16, 4 × 1024-token
      prompts, 32 tokens): a warm-up, the counted request (exactly 32
      flash and 1024 decode launches on each rank), rank 0's profiled
-     request of 8 new tokens with the host time inside collectives
+     request of 4 new tokens with the host time inside collectives
      split out (the ``tp.collective`` profiler spans), each rank's
      host times and peak memory, and the share of tokens equal to
      phase 4's (not gated: bf16 rounding depends on the shard layout).
@@ -189,13 +189,46 @@ Phases, in order; any failure exits non-zero and prints no result line:
      leaf, on the rank's slice), finite losses, the step-0 loss within
      2e-3 · |loss| of a tp-1 session's run in the parent on the same
      weights and batches and the losses of steps 1-3 within
-     ``TP_LOSS_RTOL`` · |loss| of its, the two runs equal bit for bit
-     (losses and every param leaf's bits); host ms a step and peak
-     memory per rank.  A failing rank fails the phase.  Phase 2 adds
-     the attention kernels at a rank's shapes (llama3-8b at tp 2: H 16,
-     Kv 4, serve and training; starcoder2-3b at tp 4: H 6 over one
-     replicated KV head) and ``coded_combine_q`` at K 2 × F 262,668,288
-     (half the embedding leaf).
+     ``TP_LOSS_RTOL`` · |loss| of its, adamw's first moment after step 0
+     (0.1 × the decoded step-0 gradient: lr is 0 there) leaf by leaf,
+     each rank's slice, within ``TP_LEAF_SHARE`` = 3/127 of the leaf's
+     max |m| in the tp-1 session (its moments saved as ``.npy`` files
+     that the ranks read a slice at a time), the two runs equal bit for
+     bit (losses and every param leaf's bits); host ms a step and peak
+     memory per rank.
+     (d) the same with ``seq_shard=True`` (sequence parallelism: 256
+     tokens a rank between the collective pairs), against the same tp-1
+     session, with the peak memory a rank beside (c)'s.  (e)
+     granite-moe-3b-a800m and llama4-maverick (2 layers, one dense and
+     one MoE; 16 of its 128 experts: one float32 MoE layer of 128 is 64
+     GB), mamba2-370m (2 layers), recurrentgemma-2b (5) and
+     whisper-medium (2 + 2) at full width in float32: the prefill of 2
+     × 64 tokens and 8 decode steps at tp 2, fed the tp-1 run's tokens,
+     logits within 2e-3 · max|logit| of the tp-1 run in the parent, the
+     greedy tokens' match printed; two sgd steps (lr 1e-3, no warm-up)
+     of the dist train step at tp 2 with and without SP, both losses
+     and gradient norms within ``TP_LOSS_RTOL`` of tp 1's.  (f) the
+     serve CLI at ``--tp 2`` serves granite-moe-3b-a800m whole as (b)
+     (exact launches, rank 0 profiled, the tokens' match with phase
+     "archs"' not gated), and a ``CodedSession`` trains it (4 layers)
+     in coded_q int8 at tp 2 with SP at the phase-6 settings but for 2
+     steps (edge 1 dropped at step 1, so adamw's moments and the EF
+     residual carry across a step; an MoE step at tp 2 takes ~10–15 s
+     over gloo), twice, bit for bit (losses, aux losses, every trained
+     leaf), exact launches a step; then ``serve.serve`` serves
+     llama4-maverick in bf16 at tp 2 with all 128 experts (64 a rank),
+     cut to 2 layers as phase "archs" serves it, phase 4's request:
+     exact launches on each rank, finite tokens.  In (b) and (f) both
+     ranks must serve the same tokens.  A failing rank fails the
+     phase.  Phase 2 adds the attention kernels
+     at a rank's shapes (llama3-8b at tp 2: H 16, Kv 4, serve and
+     training; starcoder2-3b at tp 4: H 6 over one replicated KV head;
+     recurrentgemma-2b at tp 2: H 5 over its one KV head at Dh 256,
+     decode at its served prompt and flash at the training shape with
+     the log-sum-exp; whisper-medium at tp 2: the encoder's 1500 frames
+     at H = Kv = 8, non-causal, and the cross cache's decode; granite-moe
+     at tp 2: H 12, Kv 4, flash and decode) and ``coded_combine_q`` at
+     K 2 × F 262,668,288 (half the embedding leaf).
   9. the paper's evaluation path (``simulate_training``): the CNN under
      hgc and the logreg under greedy, 3 iterations at batch 32 per part,
      on the card and on the CPU from the same weights (times equal,
@@ -926,6 +959,16 @@ def phase_kernels():
             f"{r['library_ms']:.4f} ms")
         torch.cuda.empty_cache()
     _time_encdec_vlm(torch)
+    for label, (kind, kw) in TP_ARCH_SHAPES.items():
+        timer = _time_decode if kind == "decode" else _time_flash
+        r, row_err = timer(torch, **kw)
+        log(f"[kernels] {kind}_attention at {label} (B={B} H={kw['H']} "
+            f"Kv={kw['KV']} Dh={kw['DH']}): max abs err "
+            f"{r['max_abs_err']:.3g}, worst row {row_err:.3g} of its max; "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), sdpa "
+            f"{r['library_ms']:.4f} ms")
+        torch.cuda.empty_cache()
     for label, (S, h, kv, dh, window) in TP_SHAPES.items():
         for name, timer, kw in (
                 ("decode_attention", _time_decode, {}),
@@ -1176,8 +1219,8 @@ class _RouteLog:
     def __enter__(self):
         route = self.orig = self.moe_lib.route
 
-        def recorded(router, xf, top_k):
-            out = route(router, xf, top_k)
+        def recorded(router, xf, top_k, *a, **kw):
+            out = route(router, xf, top_k, *a, **kw)
             self.calls.append(out[2].cpu())
             return out
 
@@ -2372,21 +2415,86 @@ TP_PROFILED_GEN = 8       # new tokens of rank 0's profiled request
 #: (measured at most 6.9e-5; the updates of steps 1 and 2 move the tp-1
 #: loss by 7.8e-3 and 4.3e-3 × |loss|: PERF.md §6)
 TP_LOSS_RTOL = 5e-4
+#: adamw's first moment after step 0 at tp 2 against the tp-1 session's,
+#: leaf by leaf, × the leaf's max |m|: m is then 0.1 × the decoded step-0
+#: gradient (lr 0 at step 0: the params have not moved).  Each of the two
+#: pods' int8 partials rounds within one int8 step (block max / 127) of
+#: its block at either degree, 2/127, and bf16 partial sums that differ
+#: at the two degrees add a little: 3/127 (read 0.0172 at tp 2, with SP
+#: too; norm scales' gradients left local under SP read 0.85).  The
+#: params after the 4 steps are no yardstick: adamw's first steps move a
+#: weight by about ±lr whatever its gradient's size, so an element that
+#: the int8 hop rounds to 0 at one degree and to one quantum at the
+#: other moves by lr (PERF.md §6)
+TP_LEAF_SHARE = 3 / 127
+# phase (e): the configs whose tensor-parallel branches are the MoE, SSM,
+# RG-LRU and encoder–decoder ones, at full width, float32, cut to the
+# depths of the parity legs of phases "archs", "recurrent" and
+# "encdec_vlm": arch → (layers, further changes).  maverick keeps 16 of
+# its 128 experts (d, ff, top-k and the shared expert whole): at 128, one
+# float32 MoE layer is 64 GB, and both ranks share one 80 GB card
+TP_ARCHS = {
+    "granite-moe-3b-a800m": (2, {}),
+    "llama4-maverick-400b-a17b": (2, dict(n_experts=16)),
+    "mamba2-370m": (2, {}),
+    "recurrentgemma-2b": (5, {}),
+    "whisper-medium": (2, dict(n_enc_layers=2)),
+}
+TP_ARCH_SEQ = 64          # (e): the prompt and the training sequence
+TP_ARCH_LR = 1e-3         # (e): sgd, no warm-up, two steps
+TP_MOE = "granite-moe-3b-a800m"  # (f): served whole and trained at tp 2
+TP_MOE_STEPS = 2          # (f): each of the two runs, edge 1 dropped at
+#                           step 1, so adamw's moments and the EF residual
+#                           carry across a step and a drop mid-run
+#: (f): maverick served in bf16 at tp 2 with all 128 experts (64 a rank)
+#: at the depth phase "archs" serves it: one dense and one MoE layer
+TP_MAVERICK = ("llama4-maverick-400b-a17b", 2)
+TP_WARM_GEN = 2           # (f): new tokens of the warm-up requests
 # phase 2: the attention kernels at a rank's shapes (S, H, Kv, Dh, window)
 TP_SHAPES = {
     "llama3-8b tp 2 (a rank's heads)": (PROMPT, H // 2, KV // 2, DH, 0),
     "starcoder2-3b tp 4 (replicated KV: a rank's head)": (PROMPT, 6, 1,
                                                           128, 0),
 }
+#: phase 2: the new per-rank shapes of the archs at tp 2, each kernel
+#: beside its plain version, SDPA and its bound: label → (timer, kwargs)
+TP_ARCH_SHAPES = {
+    "recurrentgemma-2b tp 2 decode (H 5 over the one KV head, the "
+    f"served prompt S={REC_PROMPT})": (
+        "decode", dict(S=REC_PROMPT, H=5, KV=1, DH=256, window=2048)),
+    f"recurrentgemma-2b tp 2 training (S={TRAIN_SEQ}, with log-sum-exp)": (
+        "flash", dict(S=TRAIN_SEQ, H=5, KV=1, DH=256, window=2048,
+                      with_lse=True)),
+    f"whisper-medium tp 2 encoder (S=T={ENC_LEN}, non-causal)": (
+        "flash", dict(S=ENC_LEN, H=8, KV=8, DH=64, causal=False)),
+    f"whisper-medium tp 2 cross cache (C={ENC_LEN}, q_pos={ENC_LEN - 1})": (
+        "decode", dict(C=ENC_LEN, q_pos=ENC_LEN - 1, H=8, KV=8, DH=64)),
+    f"granite-moe-3b-a800m tp 2 (S={PROMPT}, H 12, Kv 4)": (
+        "flash", dict(S=PROMPT, H=12, KV=4, DH=64)),
+    f"granite-moe-3b-a800m tp 2 decode (C={PROMPT + GEN + 1})": (
+        "decode", dict(S=PROMPT, H=12, KV=4, DH=64)),
+}
 #: phase 4's greedy tokens (the tp-1 request), held against phase "tp"'s
 _SERVED = {}
 
 
-def _tp_parity_run(ctx):
-    """llama3-8b at full width cut to 2 layers, float32, weights from
-    seed 0 (at tp > 1 this rank's slices of the same draws): a bulk
-    prefill of 2 × 64 tokens, then 8 greedy decode steps → (tokens
-    (2, 9), the 9 steps' full logits on the host)."""
+def _tp_arch_cfg(arch):
+    """A phase-(e) config: full width, float32, the leg's depth."""
+    from repro_torch.configs.registry import get_config
+
+    layers, changes = TP_ARCHS[arch]
+    return dataclasses.replace(get_config(arch), n_layers=layers,
+                               dtype="float32", **changes)
+
+
+def _tp_parity_run(ctx, cfg=None, feed=None):
+    """``cfg`` (default llama3-8b at full width cut to 2 layers) in
+    float32, weights from seed 0 (at tp > 1 this rank's slices of the
+    same draws): a prefill of 2 × 64 tokens (an encoder–decoder model's
+    over 2 × ``enc_len`` frames from the seed), then 8 decode steps fed
+    the greedy tokens, or ``feed``'s (2, 9) where it is given (a tp-1
+    run's: teacher-forced) → (this run's greedy tokens (2, 9), the 9
+    steps' full logits on the host)."""
     import numpy as np
     import torch
 
@@ -2394,18 +2502,23 @@ def _tp_parity_run(ctx):
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
-                              dtype="float32")
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+                                  dtype="float32")
     with torch.inference_mode():
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = tf.init_params(cfg, gen, device="cuda", tp=ctx.tp,
                                 rank=ctx.axis_index())
-        prompt = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
-                               device="cuda")
-        max_len = 64 + TP_PARITY_STEPS + 1
+        prompt = torch.randint(0, cfg.vocab, (2, TP_ARCH_SEQ),
+                               generator=gen, device="cuda")
+        frames = ()
+        if cfg.is_encdec:
+            frames = (torch.randn((2, cfg.enc_len, cfg.d_model),
+                                  generator=gen, device="cuda"),)
+        max_len = TP_ARCH_SEQ + TP_PARITY_STEPS + 1
         prefill = serving.make_prefill_fn(cfg, max_len, ctx=ctx)
         decode = serving.make_decode_fn(cfg, ctx=ctx)
-        logits, cache = prefill(params, prompt)
+        logits, cache = prefill(params, prompt, *frames)
         toks, full = [], []
         for step in range(TP_PARITY_STEPS + 1):
             if logits.shape[-1] != cfg.vocab:
@@ -2414,11 +2527,62 @@ def _tp_parity_run(ctx):
                 full.append(logits.cpu().numpy())
             tok = ctx.argmax(logits, cfg.vocab)[:, None].to(torch.int32)
             toks.append(tok.cpu().numpy())
+            if feed is not None:
+                tok = torch.as_tensor(feed[:, step:step + 1], device="cuda")
             if step < TP_PARITY_STEPS:
                 logits, cache = decode(params, tok, cache)
-    del params, cache
+    del params, cache, frames
     torch.cuda.empty_cache()
     return np.concatenate(toks, 1), full
+
+
+def _tp_arch_train(mesh, cfg, seq_shard):
+    """Two sgd steps of the dist train step (no warm-up, no clip) on
+    ``mesh`` (a ``OneCardMesh(1, 1)`` at tp 1, the world's ``DistMesh``
+    at tp 2), float32, weights and a 2 × 64 batch (an encoder–decoder
+    model's with its frames) from seed 1 → (the two losses, the two
+    gradient norms): the second loss and both norms see the backward."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    ctx = getattr(mesh, "ctx", None)
+    tp, rank = (ctx.tp, ctx.axis_index()) if ctx is not None else (1, 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = tf.init_params(cfg, gen, device="cuda", dtype=torch.float32,
+                            tp=tp, rank=rank)
+    for p in _tree.leaves(params):
+        p.requires_grad_(True)
+    shape = (2, TP_ARCH_SEQ)
+    batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                     device="cuda"),
+             "targets": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                      device="cuda"),
+             "weights": torch.ones(shape, device="cuda"),
+             "denom": torch.tensor(float(shape[0] * shape[1]),
+                                   device="cuda")}
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn((2, cfg.enc_len, cfg.d_model),
+                                          generator=gen, device="cuda")
+    tcfg = TrainConfig(optimizer="sgd", lr=TP_ARCH_LR, total_steps=10,
+                       warmup_steps=0, grad_clip=0.0,
+                       seq_shard_activations=seq_shard)
+    step = steps._make_dist_train_step(cfg, tcfg, mesh)
+    state = step.optimizer.init(params)
+    losses, norms = [], []
+    for s in range(2):
+        params, state, _, m = step(params, state, batch,
+                                   np.ones((1, 1), np.float32), [], s)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, norms
 
 
 def _collective_ms(prof, span):
@@ -2441,37 +2605,53 @@ def _collective_ms(prof, span):
     return out, n
 
 
-def _tp_serve(rank):
-    """Rank ``rank``'s part of the served request at tp 2, through the
-    serve CLI (``--tp 2`` joins this world): a warm-up request, the
-    counted one (exactly phase 4's launches on each rank), and on rank 0
-    one profiled request of ``TP_PROFILED_GEN`` new tokens (every rank
-    runs it: it is one program)."""
+def _tp_serve(rank, arch, layers=None, warm_gen=GEN, profiled=True):
+    """Rank ``rank``'s part of the served request at tp 2: ``arch`` at
+    full width, bf16, phase 4's request, through the serve CLI (``--tp
+    2`` joins this world), or with ``layers`` through ``serve.serve``
+    at this world's ctx with the config cut to that depth; a warm-up
+    request of ``warm_gen`` new tokens, the counted one (exactly phase
+    4's launches on each rank), and, if ``profiled``, on rank 0 one
+    profiled request of ``TP_PROFILED_GEN`` new tokens (every rank runs
+    it: it is one program)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.dist.sharding import model_ctx
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    argv = ["--arch", "llama3-8b", "--no-smoke", "--batch", str(B),
-            "--prompt-len", str(PROMPT), "--tp", str(TP)]
-    cfg = get_config("llama3-8b")
-    serve.main(argv + ["--gen", str(GEN)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    if layers is None:
+        argv = ["--arch", arch, "--no-smoke", "--batch", str(B),
+                "--prompt-len", str(PROMPT), "--tp", str(TP)]
+
+        def request(gen):
+            return serve.main(argv + ["--gen", str(gen)])
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+
+        def request(gen):
+            return serve.serve(cfg, batch=B, prompt_len=PROMPT, gen_len=gen,
+                               ctx=model_ctx(TP))
+    request(warm_gen)
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    res = serve.main(argv + ["--gen", str(GEN)])
+    res = request(GEN)
     counts = _nonzero(ops.launch_counts())
     want = _serve_launches(cfg, PROMPT)
     if counts != want:
-        raise AssertionError(f"rank {rank}: serve launches {counts}, "
+        raise AssertionError(f"rank {rank} {arch}: serve launches {counts}, "
                              f"expected {want}")
     toks = res["tokens"]
     if toks.shape != (B, GEN) or not torch.isfinite(
             res["last_logits"]).all():
-        raise AssertionError(f"rank {rank}: bad tokens or logits")
+        raise AssertionError(f"rank {rank} {arch}: bad tokens or logits")
     out = dict(tokens=np.asarray(toks), counts=counts,
                prefill_ms=res["prefill_ms"],
                decode_ms=res["decode_ms_per_token"],
@@ -2479,13 +2659,14 @@ def _tp_serve(rank):
                peak_gib=res["max_memory_allocated"] / 2 ** 30)
     del res
     torch.cuda.empty_cache()
-    short = argv + ["--gen", str(TP_PROFILED_GEN)]
+    if not profiled:
+        return out
     if rank != 0:
-        serve.main(short)
+        request(TP_PROFILED_GEN)
         return out
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_res = serve.main(short)
+        prof_res = request(TP_PROFILED_GEN)
     by_phase = device_ms_by_phase(prof)
     span = {e.name: e.time_range for e in prof.events()
             if e.device_type == DeviceType.CPU
@@ -2519,17 +2700,52 @@ def _param_bits(params):
             for p in _tree.leaves(params)]
 
 
-def _tp_train(rank):
-    """Rank ``rank``'s coded_q int8 training at the phase-6 settings with
-    tp 2, twice: exact launches a step, finite losses, the two runs bit
-    for bit (losses and every param leaf's bits)."""
+def _ref_file(ref_dir: Path, name: str, key: str) -> Path:
+    return ref_dir / f"{name}.{key.replace('/', '.')}.npy"
+
+
+def _leaf_diffs(leaves, axes, ref_dir: Path, name: str, rank):
+    """max |this rank's slice − the same slice of the tp-1 session's leaf|
+    of every leaf of ``leaves`` (flat key → this rank's tensor; ``axes``
+    their split axes); the tp-1 leaves are ``.npy`` files ``name.<key>``
+    in ``ref_dir``, read a slice at a time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.params import shard_array
+
+    out = {}
+    for k, p in leaves.items():
+        ref = np.load(_ref_file(ref_dir, name, k), mmap_mode="r")
+        want = np.array(shard_array(ref, axes.get(k), TP, rank))
+        out[k] = float((p.detach() - torch.from_numpy(want).to(p.device))
+                       .abs().max())
+    return out
+
+
+def _first_moment(session):
+    """adamw's first moment by the param's flat key (this rank's slices)."""
+    from repro_torch.checkpoint.params import _flatten
+
+    return {k[2:]: v for k, v in _flatten(session.opt_state).items()
+            if k.startswith("m/")}
+
+
+def _tp_train(rank, cfg, seq_shard=False, ref_dir=None,
+              steps=TP_TRAIN_STEPS):
+    """Rank ``rank``'s coded_q int8 training of ``cfg`` at the phase-6
+    settings with tp 2 (``seq_shard``: sequence-parallel too), ``steps``
+    steps with edge 1 dropped at step ``min(2, steps - 1)``, twice: exact
+    launches a step, finite losses, the two runs bit for bit (losses and
+    every param leaf's bits); with ``ref_dir`` the first run's adamw
+    first moment after step 0 against the tp-1 session's
+    (:func:`_leaf_diffs`)."""
     import numpy as np
     import torch
 
     from repro_torch import _tree
     from repro_torch.kernels import ops
 
-    cfg = _train_cfg()
     totals = {name: 0 for name in ops.KERNELS}
     runs = []
     for run in range(2):
@@ -2537,15 +2753,17 @@ def _tp_train(rank):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         session = _session(cfg, "coded_q", "int8", "cuda", tp=TP,
-                           total_steps=TP_TRAIN_STEPS, **_train_kw())
+                           seq_shard=seq_shard, total_steps=steps,
+                           **_train_kw())
         want = {"coded_combine_q": len(_tree.leaves(session.params)),
-                "flash_attention": GROUPS * TRAIN_LAYERS * 2}
+                "flash_attention": GROUPS * _attn_layers(cfg) * 2}
         step_ms = []
-        for step in range(TP_TRAIN_STEPS):
+        for step in range(steps):
             ops.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            session.fit(step + 1, force_drop_edge=1, force_drop_step=2)
+            session.fit(step + 1, force_drop_edge=1,
+                        force_drop_step=min(2, steps - 1))
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
             counts = ops.launch_counts()
@@ -2555,14 +2773,21 @@ def _tp_train(rank):
                                      f"expected {want}")
             for k, v in counts.items():
                 totals[k] += v
+            if ref_dir is not None and run == 0 and step == 0:
+                m0 = _leaf_diffs(_first_moment(session), session._axes,
+                                 ref_dir, "m0", rank)
         if not np.isfinite(session.losses).all():
             raise AssertionError(f"rank {rank}: losses {session.losses}")
         runs.append(dict(losses=list(session.losses), step_ms=step_ms,
+                         aux=list(session.aux_losses),
                          bits=_param_bits(session.params),
                          peak_gib=torch.cuda.max_memory_allocated()
                          / 2 ** 30, want=want))
+        if ref_dir is not None and run == 0:
+            runs[0]["m0"] = m0
         del session
     if runs[0]["losses"] != runs[1]["losses"] \
+            or runs[0]["aux"] != runs[1]["aux"] \
             or runs[0]["bits"] != runs[1]["bits"]:
         raise AssertionError(f"rank {rank}: the two tp-2 runs differ: "
                              f"losses {runs[0]['losses']} and "
@@ -2570,155 +2795,316 @@ def _tp_train(rank):
     return runs, totals
 
 
-def _tp_rank():
+def _tp_rank(ref):
     """One rank of phase "tp": (a) the parity run, (b) serving, (c)
-    training; every rank runs every part (one program), rank 0's parity
-    logits come back."""
+    training, (d) training with SP, (e) the other archs' parity and
+    training, (f) granite-moe served and trained, maverick served with
+    all its experts; every rank runs every part (one program), rank 0's
+    parity logits come back.  ``ref`` holds the parent's tp-1 results
+    that the ranks need: the step-0 first moments' directory and phase
+    (e)'s tp-1 tokens."""
     import torch
     import torch.distributed as dist
 
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.mesh import DistMesh
     from repro_torch.dist.sharding import model_ctx
 
     rank = dist.get_rank()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"backend": dist.get_backend()}
+    secs = out["seconds"] = {}
     t0 = time.perf_counter()
     toks, logits = _tp_parity_run(model_ctx(TP))
-    out["parity"] = (toks, logits if rank == 0 else None,
-                     time.perf_counter() - t0)
+    out["parity"] = (toks, logits if rank == 0 else None)
+    secs["a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["serve"] = _tp_serve(rank)
-    out["serve_s"] = time.perf_counter() - t0
+    out["serve"] = _tp_serve(rank, "llama3-8b")
+    secs["b"] = time.perf_counter() - t0
+    ref_dir = Path(ref["ref_dir"])
+    for leg, sp in (("c", False), ("d", True)):
+        t0 = time.perf_counter()
+        out[leg] = _tp_train(rank, _train_cfg(), sp, ref_dir)
+        secs[leg] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["train"], out["train_totals"] = _tp_train(rank)
-    out["train_s"] = time.perf_counter() - t0
+    out["e"] = {}
+    mesh = DistMesh.for_world(1, 1, TP)
+    for arch in TP_ARCHS:
+        cfg = _tp_arch_cfg(arch)
+        toks, logits = _tp_parity_run(mesh.ctx, cfg, feed=ref["feed"][arch])
+        train = {sp: _tp_arch_train(mesh, cfg, sp) for sp in (False, True)}
+        out["e"][arch] = (toks, logits if rank == 0 else None, train)
+    secs["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["f_serve"] = _tp_serve(rank, TP_MOE, warm_gen=TP_WARM_GEN)
+    cfg = dataclasses.replace(get_config(TP_MOE), n_layers=MOE_TRAIN_LAYERS)
+    out["f_train"] = _tp_train(rank, cfg, seq_shard=True,
+                               steps=TP_MOE_STEPS)
+    arch, layers = TP_MAVERICK
+    out["f_maverick"] = _tp_serve(rank, arch, layers, warm_gen=TP_WARM_GEN,
+                                  profiled=False)
+    secs["f"] = time.perf_counter() - t0
     return out
 
 
+def _close_logits(got, want, what, fail):
+    """Each step's logits within 2e-3 · max|logit| (phase 3's gate) →
+    the worst share."""
+    import numpy as np
+
+    worst = 0.0
+    for step, (a, b) in enumerate(zip(got, want)):
+        scale = float(np.abs(b).max())
+        err = float(np.abs(a - b).max())
+        if not err <= 2e-3 * scale:
+            fail(f"{what} step {step}: max |tp2 - tp1| {err:.3g} > 2e-3 * "
+                 f"{scale:.3g}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def _log_train(leg, outs, label, key=None):
+    for r, o in enumerate(outs):
+        for n, run in enumerate(o[key or leg][0]):
+            log(f"[tp] ({leg}) {label} rank {r} run {n}: losses "
+                f"{[round(x, 5) for x in run['losses']]}"
+                + (f", aux {[round(x, 5) for x in run['aux']]}"
+                   if run["aux"] else "")
+                + f", host ms per step {[round(x, 1) for x in run['step_ms']]}"
+                f", peak {run['peak_gib']:.2f} GiB allocated; launches per "
+                f"step {run['want']}")
+
+
+def _gate_losses(leg, losses2, losses1, fail):
+    """The tp-2 losses against the tp-1 session's: step 0 within 2e-3 ·
+    |loss|, later steps within ``TP_LOSS_RTOL`` · |loss|."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses2, losses1)]
+    moved = [abs(b - a) / abs(b) for a, b in zip(losses1, losses1[1:])]
+    log(f"[tp] ({leg}) losses tp 2 {losses2!r} vs tp 1 {losses1!r}: "
+        f"|tp2 - tp1| / |loss| by step {rel!r}; the tp-1 loss moved by "
+        f"{moved!r} x |loss| a step")
+    if len(losses2) != len(losses1) or not rel[0] <= 2e-3:
+        fail(f"({leg}) tp-2 step-0 loss {losses2[0]!r} vs tp-1 "
+             f"{losses1[0]!r}")
+    elif not all(r <= TP_LOSS_RTOL for r in rel[1:]):
+        fail(f"({leg}) tp-2 losses {losses2!r} vs tp-1 {losses1!r}: beyond "
+             f"{TP_LOSS_RTOL} x |loss|")
+
+
+def _gate_leaves(leg, outs, m0_max, fail):
+    """adamw's first moment after step 0 (each rank's slice) within
+    ``TP_LEAF_SHARE`` of the tp-1 leaf's max |m|, leaf by leaf."""
+    worst, at = 0.0, None
+    for k, m in m0_max.items():
+        d = max(o[leg][0][0]["m0"][k] for o in outs)
+        share = d / m if m else (0.0 if d == 0 else float("inf"))
+        if share > worst:
+            worst, at = share, k
+    log(f"[tp] ({leg}) adamw's first moment after step 0 against the tp-1 "
+        f"session's: worst leaf {worst:.4g} of its max |m| ({at}), the gate "
+        f"{TP_LEAF_SHARE:.4g}")
+    if not worst <= TP_LEAF_SHARE:
+        fail(f"({leg}) leaf {at}: the step-0 first moment at tp 2 off tp 1's "
+             f"by {worst:.4g} of its max, beyond {TP_LEAF_SHARE:.4g}")
+
+
 def phase_tp():
-    """Tensor parallelism at tp 2: two ranks on the one card over gloo
-    (NCCL refuses two ranks on one device), spawned after the parent
-    frees its memory.  (a) Card against card in float32: llama3-8b at
-    full width cut to 2 layers, the tp-2 ranks against a tp-1 run in
-    this process: logits within 2e-3 · max|logit|, tokens equal.  (b)
-    The serve CLI at ``--tp 2`` (llama3-8b whole, bf16, phase 4's
-    request): exact launches on each rank, rank 0's profiled request
-    with the host time inside collectives split out, the share of
-    tokens equal to phase 4's (not gated: bf16 rounding depends on the
-    shard layout).  (c) coded_q int8 at the phase-6 settings with tp 2,
-    twice: exact launches a step, finite losses, the step-0 loss within
-    2e-3 · |loss| of a tp-1 session's in this process and the losses of
-    steps 1-3 within ``TP_LOSS_RTOL`` · |loss| of it (steps that the
-    decoded, clipped and applied updates decide), the runs bit for bit.
-    → the launches of both ranks' counted runs."""
+    """Tensor and sequence parallelism at tp 2: two ranks on the one card
+    over gloo (NCCL refuses two ranks on one device), spawned after the
+    parent frees its memory.  (a) Card against card in float32:
+    llama3-8b at full width cut to 2 layers, the tp-2 ranks against a
+    tp-1 run in this process: logits within 2e-3 · max|logit|, tokens
+    equal.  (b) The serve CLI at ``--tp 2`` (llama3-8b whole, bf16,
+    phase 4's request): exact launches on each rank, rank 0's profiled
+    request with the host time inside collectives split out, the share
+    of tokens equal to phase 4's (not gated: bf16 rounding depends on
+    the shard layout).  (c) coded_q int8 at the phase-6 settings with tp
+    2, twice: exact launches a step, finite losses, the step-0 loss
+    within 2e-3 · |loss| of a tp-1 session's in this process and the
+    losses of steps 1-3 within ``TP_LOSS_RTOL`` · |loss| of it (steps
+    that the decoded, clipped and applied updates decide), adamw's
+    first moment after step 0 leaf by leaf within ``TP_LEAF_SHARE`` of
+    the tp-1 session's, the runs bit for bit.  (d) The same with
+    sequence parallelism.  (e) granite-moe, maverick (16 experts),
+    mamba2, recurrentgemma and
+    whisper at full width in float32 (the depths of the parity legs):
+    a 2 × 64 prefill and 8 decode steps fed the tp-1 run's tokens,
+    logits within 2e-3 · max|logit| of it, the greedy tokens' match
+    printed; two sgd steps of the dist train step with and without SP,
+    losses and gradient norms within ``TP_LOSS_RTOL`` of tp 1's.  (f)
+    granite-moe served whole at ``--tp 2`` as (b), and trained in
+    coded_q int8 at tp 2 with SP (4 layers, the phase-6 settings but
+    ``TP_MOE_STEPS`` steps, edge 1 dropped at step 1), twice, bit for
+    bit; maverick served in bf16 at tp 2 with all 128 experts, cut to
+    ``TP_MAVERICK``'s 2 layers, exact launches on each rank.  In (b) and
+    (f) the ranks serve the same tokens.  Every gate is read before the
+    phase fails.  → the launches of both ranks' counted runs."""
     import numpy as np
     import torch
 
+    from repro_torch.configs.registry import get_config
     from repro_torch.dist.launch import run_ranks
+    from repro_torch.dist.mesh import OneCardMesh
     from repro_torch.dist.sharding import NULL_CTX
     from repro_torch.kernels import ops
 
     gc.collect()
     torch.cuda.empty_cache()
+    failures = []  # every gate is read before the phase fails
+    fail = failures.append
     t0 = time.perf_counter()
     toks1, logits1 = _tp_parity_run(NULL_CTX)
     log(f"[tp] (a) tp-1 reference run: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     session = _session(_train_cfg(), "coded_q", "int8", "cuda",
                        total_steps=TP_TRAIN_STEPS, **_train_kw())
-    session.fit(TP_TRAIN_STEPS, force_drop_edge=1, force_drop_step=2)
+    fit = dict(force_drop_edge=1, force_drop_step=2)
+    session.fit(1, **fit)
+    m0 = {k: v.cpu().numpy() for k, v in _first_moment(session).items()}
+    ref_dir = _checkpoint_dir(2 * sum(v.nbytes for v in m0.values()))
+    for k, v in m0.items():
+        np.save(_ref_file(ref_dir, "m0", k), v)
+    m0_max = {k: float(np.abs(v).max()) for k, v in m0.items()}
+    session.fit(TP_TRAIN_STEPS, **fit)
     losses1 = list(session.losses)
-    del session
+    del session, m0
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[tp] (c) tp-1 losses {losses1!r} ({time.perf_counter() - t0:.1f}"
-        f" s); spawning {TP} ranks on cuda:0 "
+    log(f"[tp] (c) tp-1 losses {losses1!r}, its {len(m0_max)} step-0 first "
+        f"moments in {ref_dir} ({time.perf_counter() - t0:.1f} s)")
+    ref1 = {}
+    for arch in TP_ARCHS:
+        t0 = time.perf_counter()
+        cfg = _tp_arch_cfg(arch)
+        toks, logits = _tp_parity_run(NULL_CTX, cfg)
+        train = _tp_arch_train(OneCardMesh(1, 1), cfg, False)
+        ref1[arch] = (toks, logits, train)
+        log(f"[tp] (e) {arch} tp-1 reference ({cfg.n_layers} layers"
+            + (f", {cfg.n_enc_layers} encoder layers" if cfg.is_encdec
+               else "")
+            + f", {cfg.n_experts} experts" * cfg.is_moe
+            + f"): losses {train[0]!r}, grad norms {train[1]!r} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[tp] spawning {TP} ranks on cuda:0 "
         f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
         f"allocated here)")
     t0 = time.perf_counter()
-    outs = run_ranks(_tp_rank, TP, device="cuda", backend="gloo",
-                     timeout=900)
+    try:
+        outs = run_ranks(_tp_rank, TP, args=(dict(
+            ref_dir=str(ref_dir),
+            feed={a: r[0] for a, r in ref1.items()}),), device="cuda",
+            backend="gloo", timeout=900)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
     log(f"[tp] ranks done in {time.perf_counter() - t0:.1f} s (backend "
-        f"{outs[0]['backend']}; parity {outs[0]['parity'][2]:.1f} s, "
-        f"serve {outs[0]['serve_s']:.1f} s, train {outs[0]['train_s']:.1f} "
-        f"s on rank 0)")
+        f"{outs[0]['backend']}; seconds by leg on rank 0 "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in outs[0]["seconds"].items())
+        + ")")
 
     # (a) parity, card against card
-    toks2, logits2, _ = outs[0]["parity"]
+    toks2, logits2 = outs[0]["parity"]
     for o in outs[1:]:
         if not np.array_equal(o["parity"][0], toks2):
-            raise AssertionError("the ranks decoded different tokens")
+            fail("(a) the ranks decoded different tokens")
     if not np.array_equal(toks1, toks2):
-        raise AssertionError(f"tp-2 tokens {toks2.tolist()} != tp-1 "
-                             f"{toks1.tolist()}")
-    worst = 0.0
-    for step, (a, b) in enumerate(zip(logits2, logits1)):
-        scale = float(np.abs(b).max())
-        err = float(np.abs(a - b).max())
-        if not err <= 2e-3 * scale:
-            raise AssertionError(f"tp parity step {step}: max |tp2 - tp1| "
-                                 f"{err:.3g} > 2e-3 * {scale:.3g}")
-        worst = max(worst, err / scale)
+        fail(f"(a) tp-2 tokens {toks2.tolist()} != tp-1 {toks1.tolist()}")
+    worst = _close_logits(logits2, logits1, "(a) tp parity", fail)
     log(f"[tp] (a) llama3-8b full width, 2 layers, f32: tp 2 == tp 1 on "
         f"the card over the 2 x 64 prefill + {TP_PARITY_STEPS} decode "
         f"steps, max err {worst:.3g} x max|logit|, tokens equal")
 
-    # (b) serving
-    want_toks = _SERVED.get("")
-    for r, o in enumerate(outs):
-        s = o["serve"]
-        same = (float((s["tokens"] == want_toks).mean())
-                if want_toks is not None else float("nan"))
-        log(f"[tp] (b) rank {r}: launches {s['counts']}; prefill "
-            f"{s['prefill_ms']:.2f} ms, decode {s['decode_ms']:.3f} ms/token"
-            f", {s['tok_per_s']:.1f} tok/s, max memory allocated "
-            f"{s['peak_gib']:.2f} GiB; tokens equal to phase 4's (tp 1): "
-            f"{100 * same:.1f}% (bf16: not gated)")
-    prof = outs[0]["serve"]["profile"]
-    log(f"[profile] tp rank 0, a {B} x {PROMPT} + {TP_PROFILED_GEN}-token "
-        f"request ({outs[0]['serve']['profile_collectives']} collectives)")
-    for ph, p in prof.items():
-        per = 1 if ph == "prefill" else TP_PROFILED_GEN
-        unit = "ms" if ph == "prefill" else "ms/token"
-        log(f"[profile] tp {ph}: host {p['host_ms'] / per:.3f} {unit}, of "
-            f"which inside collectives {p['collective_ms'] / per:.3f} "
-            f"({100 * p['collective_ms'] / p['host_ms']:.1f}%); device "
-            f"{p['device_ms'] / per:.3f} {unit}")
-        for name, ms in p["top"]:
-            log(f"[profile]   {ms / per:9.3f} {unit}  {name[:90]}")
+    # (b) and (f) serving
+    mav, mav_layers = TP_MAVERICK
+    for leg, key, arch, label in (
+            ("b", "serve", "llama3-8b", ""), ("f", "f_serve", TP_MOE, TP_MOE),
+            ("f", "f_maverick", f"{mav} ({mav_layers} layers, "
+             f"{get_config(mav).n_experts} experts)",
+             f"{mav} ({mav_layers} layers)")):
+        want_toks = _SERVED.get(label)
+        if any(not np.array_equal(o[key]["tokens"], outs[0][key]["tokens"])
+               for o in outs):
+            fail(f"({leg}) {arch}: the ranks served different tokens")
+        for r, o in enumerate(outs):
+            s = o[key]
+            same = (float((s["tokens"] == want_toks).mean())
+                    if want_toks is not None else float("nan"))
+            log(f"[tp] ({leg}) {arch} rank {r}: launches {s['counts']}; "
+                f"prefill {s['prefill_ms']:.2f} ms, decode "
+                f"{s['decode_ms']:.3f} ms/token, {s['tok_per_s']:.1f} tok/s,"
+                f" max memory allocated {s['peak_gib']:.2f} GiB; tokens "
+                f"equal to the tp-1 request's: {100 * same:.1f}% (bf16: "
+                f"not gated)")
+        if "profile" not in outs[0][key]:
+            continue
+        prof = outs[0][key]["profile"]
+        log(f"[profile] tp {arch} rank 0, a {B} x {PROMPT} + "
+            f"{TP_PROFILED_GEN}-token request "
+            f"({outs[0][key]['profile_collectives']} collectives)")
+        for ph, p in prof.items():
+            per = 1 if ph == "prefill" else TP_PROFILED_GEN
+            unit = "ms" if ph == "prefill" else "ms/token"
+            log(f"[profile] tp {arch} {ph}: host {p['host_ms'] / per:.3f} "
+                f"{unit}, of which inside collectives "
+                f"{p['collective_ms'] / per:.3f} "
+                f"({100 * p['collective_ms'] / p['host_ms']:.1f}%); device "
+                f"{p['device_ms'] / per:.3f} {unit}")
+            for name, ms in p["top"]:
+                log(f"[profile]   {ms / per:9.3f} {unit}  {name[:90]}")
 
-    # (c) training
-    for r, o in enumerate(outs):
-        for n, run in enumerate(o["train"]):
-            log(f"[tp] (c) rank {r} run {n}: losses "
-                f"{[round(x, 5) for x in run['losses']]}, host ms per step "
-                f"{[round(x, 1) for x in run['step_ms']]}, peak "
-                f"{run['peak_gib']:.2f} GiB allocated; launches per step "
-                f"{run['want']}")
-    losses2 = outs[0]["train"][0]["losses"]
-    if any(o["train"][0]["losses"] != losses2 for o in outs):
-        raise AssertionError("the ranks' losses differ")
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses2, losses1)]
-    moved = [abs(b - a) / abs(b) for a, b in zip(losses1, losses1[1:])]
-    log(f"[tp] (c) losses tp 2 {losses2!r} vs tp 1 {losses1!r}: "
-        f"|tp2 - tp1| / |loss| by step {rel!r}; the tp-1 loss moved by "
-        f"{moved!r} x |loss| a step")
-    if len(losses2) != len(losses1) or not rel[0] <= 2e-3:
-        raise AssertionError(f"tp-2 step-0 loss {losses2[0]!r} vs tp-1 "
-                             f"{losses1[0]!r}")
-    if not all(r <= TP_LOSS_RTOL for r in rel[1:]):
-        raise AssertionError(f"tp-2 losses {losses2!r} vs tp-1 "
-                             f"{losses1!r}: beyond {TP_LOSS_RTOL} x |loss|")
-    log(f"[tp] (c) every step's loss within {TP_LOSS_RTOL} x |loss| of "
-        f"tp 1 (step 0 within 2e-3); the two tp-2 runs equal bit for bit "
-        f"on every rank")
+    # (c) and (d) training, without and with SP, against the tp-1 session
+    for leg, label in (("c", "llama3-8b"), ("d", "llama3-8b SP")):
+        _log_train(leg, outs, label)
+        losses2 = outs[0][leg][0][0]["losses"]
+        if any(o[leg][0][0]["losses"] != losses2 for o in outs):
+            fail(f"({leg}) the ranks' losses differ")
+        _gate_losses(leg, losses2, losses1, fail)
+        _gate_leaves(leg, outs, m0_max, fail)
+        log(f"[tp] ({leg}) the two tp-2 runs equal bit for bit on every "
+            f"rank")
+    peak = [max(run["peak_gib"] for run in o[leg][0]) for leg in "cd"
+            for o in outs]
+    log(f"[tp] (d) peak GiB a rank: SP {max(peak[2:]):.2f} against "
+        f"{max(peak[:2]):.2f} without")
+
+    # (e) the other archs, card against card
+    for arch, (t1, l1, (loss1, norm1)) in ref1.items():
+        t2, l2, train = outs[0]["e"][arch]
+        for o in outs[1:]:
+            if not np.array_equal(o["e"][arch][0], t2):
+                fail(f"(e) {arch}: the ranks' tokens differ")
+        worst = _close_logits(l2, l1, f"(e) {arch}", fail)
+        for sp, (loss2, norm2) in train.items():
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(loss2 + norm2, loss1 + norm1)]
+            if not (np.isfinite(loss2 + norm2).all()
+                    and max(rel) <= TP_LOSS_RTOL):
+                fail(f"(e) {arch} sp={sp}: losses {loss2} and grad norms "
+                     f"{norm2} vs tp 1's {loss1} and {norm1}")
+            log(f"[tp] (e) {arch} training, tp 2{' + SP' * sp}: losses "
+                f"{loss2!r}, grad norms {norm2!r}; worst |tp2 - tp1| "
+                f"{max(rel):.3g} of tp 1's")
+        log(f"[tp] (e) {arch} full width, f32: tp 2 == tp 1 over the "
+            f"prefill + {TP_PARITY_STEPS} decode steps fed tp 1's tokens, "
+            f"max err {worst:.3g} x max|logit|; greedy tokens equal "
+            f"{100 * float((t2 == t1).mean()):.1f}%")
+
+    # (f) granite-moe's training
+    _log_train("f", outs, f"{TP_MOE} ({MOE_TRAIN_LAYERS} layers) SP",
+               "f_train")
+    log(f"[tp] (f) {TP_MOE} coded_q int8 at tp 2 with SP: the two runs "
+        f"equal bit for bit on every rank (losses, aux losses, every leaf)")
     totals = {name: 0 for name in ops.KERNELS}
     for o in outs:
-        for k, v in o["serve"]["counts"].items():
-            totals[k] += v
-        for k, v in o["train_totals"].items():
-            totals[k] += v
+        for counts in (o["serve"]["counts"], o["f_serve"]["counts"],
+                       o["f_maverick"]["counts"],
+                       o["c"][1], o["d"][1], o["f_train"][1]):
+            for k, v in counts.items():
+                totals[k] += v
+    log(f"[tp] launches of the counted runs, both ranks: "
+        f"{_nonzero(totals)}")
+    if failures:
+        raise AssertionError("phase tp: " + "; ".join(failures))
     return totals
 
 

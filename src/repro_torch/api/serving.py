@@ -17,7 +17,8 @@ keeps tokens on the device and copies them to the host once, at the end.
 
 Under tensor parallelism every rank runs the same loop on its slices
 with a :class:`~repro_torch.dist.sharding.ShardCtx` (``ctx``): its
-decode cache holds its KV heads, and the greedy token of vocab-parallel
+decode cache holds its KV heads (its cross cache and its recurrent
+states too), and the greedy token of vocab-parallel
 logits is the global argmax (``ShardCtx.argmax``), so every rank feeds
 the same token.
 """
@@ -61,7 +62,8 @@ def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
             # a profiler span (a no-op unless one records): the serve
             # CLI's phase report splits the encoder from the handoff
             with torch.profiler.record_function("serve.encode"):
-                cache = tf.fill_cross_cache(params, cfg, enc_frames, cache)
+                cache = tf.fill_cross_cache(params, cfg, enc_frames, cache,
+                                            ctx)
         logits = None
         for t in range(S):
             logits, cache = tf.decode_step(params, cfg, tokens[:, t:t + 1],

@@ -21,9 +21,9 @@ Beside training: the checkpoint round trip in the reference's layout
 (``checkpoint_dir`` / ``resume``; bit-for-bit kill/resume, and a
 reference checkpoint resumes here), ``shrink`` past permanent failures,
 ``eval_step``, and ``generate`` (``cluster=None`` builds a serve-only
-session).  Not ported yet (they raise, naming ROADMAP.md): the SP/PP
-options (``seq_shard``, ``pp``, ``microbatches``).  The session runs on
-the card unless ``device="cpu"`` is given.
+session).  Not ported yet (they raise, naming ROADMAP.md): the PP
+options (``pp``, ``microbatches``).  The session runs on the card
+unless ``device="cpu"`` is given.
 
 Under tensor parallelism (``tp > 1``, a coded mode) the session is one
 rank of a world that the caller set up (``dist.launch.run_ranks``,
@@ -31,7 +31,10 @@ rank of a world that the caller set up (``dist.launch.run_ranks``,
 builds the same session, holds its slices of the params and the state,
 and runs the same steps; rank 0 prints and writes checkpoints, which
 hold the gathered full arrays (the tp-1 format: they restore at any
-degree).  A drop or a replan changes only λ, as at tp 1.
+degree).  A drop or a replan changes only λ, as at tp 1.  With
+``seq_shard=True`` the ranks also split the sequence between the TP
+collective pairs (sequence parallelism; ``validate_seq_shard``'s
+checks: tp > 1, ``seq_len`` divisible by tp).
 
 Quickstart::
 
@@ -75,10 +78,10 @@ from repro_torch.data.pipeline import TokenStream
 from repro_torch.dist.elastic import Plan, price_tolerance
 from repro_torch.dist.sharding import (
     NULL_CTX,
-    check_tp_supported,
     model_ctx,
     param_axes,
     state_axis,
+    validate_seq_shard,
     validate_tp,
 )
 from repro_torch.models import transformer as tf
@@ -213,17 +216,25 @@ class CodedSession:
     ):
         if mode not in MODES:
             raise ValueError(f"unknown session mode {mode!r}")
-        if seq_shard or max(int(pp), 1) > 1 or microbatches:
-            raise _not_ported("sequence and pipeline parallelism "
-                              "(seq_shard / pp / microbatches: the dist "
-                              "regimes)")
+        if max(int(pp), 1) > 1 or microbatches:
+            raise _not_ported("pipeline parallelism (pp / microbatches: "
+                              "the dist regimes)")
         self.tp = max(int(tp), 1)
+        #: sequence parallelism of the coded step (the reference's
+        #: TrainConfig default, off, unless the caller says)
+        self.seq_shard = bool(seq_shard)
+        if self.seq_shard and cluster is not None:
+            if mode == "off":
+                raise ValueError(
+                    "--seq-shard requires a dist mode (sequence sharding "
+                    "rides the 'model' mesh axis)")
+            # tp > 1 and seq_len % tp (+ the recurrent fallback warning)
+            validate_seq_shard(cfg, self.tp, seq_len)
         if self.tp > 1:
             if cluster is not None and mode == "off":
                 raise ValueError("tp > 1 needs a coded mode (the dist "
                                  "train step); mode 'off' is single-host")
             validate_tp(cfg, self.tp)
-            check_tp_supported(cfg, self.tp)
             if not dist.is_initialized():
                 raise RuntimeError(
                     f"tp={self.tp}: the session is one rank of a "
@@ -320,6 +331,7 @@ class CodedSession:
             dist_mode=mode,
             grad_compression=self.grad_compression,
             grad_compression_block=grad_block,
+            seq_shard_activations=self.seq_shard,
         )
 
         # ---- data: one resumable stream per dataset part -------------
@@ -457,7 +469,10 @@ class CodedSession:
         if self.verbose:
             print(f"[train] dist={self.mode}: {where} (pod={topo.n} "
                   f"× data={topo.m[0]}) on {self.device}, "
-                  f"grad_compression={self.tcfg.grad_compression}")
+                  f"grad_compression={self.tcfg.grad_compression}"
+                  + (f", TP degree {self.tp}" if self.tp > 1 else "")
+                  + (", seq-parallel activations"
+                     if self.seq_shard and self.tp > 1 else ""))
         if self.tcfg.grad_compression != "none":
             if carry:
                 self.residual = carry

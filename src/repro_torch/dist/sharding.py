@@ -6,45 +6,49 @@ PyTorch counterpart of the tensor-parallel part of
 
   * :class:`ShardCtx` — the execution seam the model code calls
     (``psum`` finishes a row-parallel matmul, ``all_gather`` rebuilds
-    the d-sharded embedding, ``local_block`` slices a replicated array to
-    this rank's feature block, ``pmax``/``axis_index`` for the
-    vocab-parallel cross-entropy).  The reference runs them inside
-    ``shard_map``; the port is SPMD, one process a rank, and they are
-    collectives over the "model" process group.  Their gradients are the
-    transposes JAX takes (``psum`` → ``psum``, a tiled ``all_gather`` →
-    sum then this rank's block), so a rank's backward computes what a
-    shard's does in the reference, and the train step corrects it as
-    the reference's ``tp_correct`` does.
-  * :func:`validate_tp` — the reference's divisibility check, with its
-    messages;
+    the d-sharded embedding and the expert-parallel router's logits,
+    ``local_block`` slices a replicated array to this rank's feature
+    block, ``pmax``/``axis_index`` for the vocab-parallel cross-entropy;
+    under sequence parallelism ``gather_seq``, ``scatter_seq`` and
+    ``psum_scatter`` move the residual stream between the local sequence
+    block and the whole sequence, and ``no_sp`` turns them off).  The
+    reference runs them inside ``shard_map``; the port is SPMD, one
+    process a rank, and they are collectives over the "model" process
+    group.  Their gradients are the transposes JAX takes (``psum`` →
+    ``psum``; a tiled all-gather ↔ a reduce-scatter; a static slice → a
+    zero-padded scatter into the full length, no collective), so a
+    rank's backward computes what a shard's does in the reference, and
+    the train step corrects it as the reference's ``tp_correct`` does.
+  * :func:`validate_tp` and :func:`validate_seq_shard` — the reference's
+    checks, with their messages (and the latter's warning for the
+    recurrent kinds);
   * :func:`shard_axis` — ``_param_rule`` / ``params_pspecs(head_aligned=
     True)`` projected onto the "model" axis (``model_axis_only``) and
     fitted to divisibility (``fit_spec``): the axis a leaf is split on,
     or None (replicated); :func:`param_axes` applies it to a config's
-    flat keys and :func:`model_sharded_mask` is its boolean view.
+    flat keys, :func:`model_sharded_mask` is its boolean view and
+    :func:`seq_sharded_mask` the same set for the SP step.
 
 The collectives move CUDA tensors over gloo when several ranks share a
 card (NCCL refuses two ranks on one device): gloo takes CUDA tensors in
 ``all_reduce`` and ``broadcast`` only, so there an all-gather is the
 ``all_reduce`` of a zeroed ``(tp, …)`` buffer holding this rank's block,
-summed as bytes (exact for any dtype; gloo has no fp8).  Under NCCL it
-is ``all_gather_into_tensor``.  The choice is made by the backend's name.
+summed as bytes (exact for any dtype; gloo has no fp8), and a
+reduce-scatter is an ``all_reduce`` then this rank's block.  Under NCCL
+they are ``all_gather_into_tensor`` and ``reduce_scatter_tensor``.  The
+choice is made by the backend's name.
 
 FSDP, the pjit anchors and ``serve_shardings`` are XLA's and have no
-counterpart; sequence parallelism (``seq_shard``) is not ported yet
-(its helpers raise, naming ROADMAP.md).
+counterpart; pipeline parallelism is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md")
 
 
 # ----------------------------------------------------------------------
@@ -94,6 +98,25 @@ def all_gather_cat(x: torch.Tensor, axis: int, index: int, n: int,
     return torch.cat(buf.unbind(0), dim=axis % x.ndim)
 
 
+def reduce_scatter(x: torch.Tensor, axis: int, index: int, n: int,
+                   group) -> torch.Tensor:
+    """The sum of the members' ``x`` over ``group``, member ``index``'s
+    block of ``n`` equal blocks along ``axis`` (tiled reduce-scatter).
+
+    NCCL: ``reduce_scatter_tensor`` over ``axis`` moved to the front.
+    Otherwise (gloo) the ``all_reduce`` of a copy, then the block."""
+    axis %= x.ndim
+    local = x.shape[axis] // n
+    if dist.get_backend(group) == "nccl":
+        src = x.detach().movedim(axis, 0).contiguous()
+        out = src.new_empty((local,) + tuple(src.shape[1:]))
+        with torch.profiler.record_function(SPAN):
+            dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, axis).contiguous()
+    full = all_reduce(x, group)
+    return full.narrow(axis, index * local, local).contiguous()
+
+
 class _PSum(torch.autograd.Function):
     """``psum`` over the model group; its transpose is ``psum`` too."""
 
@@ -108,18 +131,53 @@ class _PSum(torch.autograd.Function):
 
 
 class _AllGather(torch.autograd.Function):
-    """Tiled ``all_gather``; its transpose sums the cotangent over the
-    group and keeps this rank's block (``psum_scatter``)."""
+    """Tiled ``all_gather``; its transpose is the reduce-scatter of the
+    cotangent (``psum_scatter``: summed over the group, this rank's
+    block)."""
 
     @staticmethod
     def forward(ctx, x, sc, axis):
-        ctx.sc, ctx.axis, ctx.n = sc, axis % x.ndim, x.shape[axis]
+        ctx.sc, ctx.axis = sc, axis % x.ndim
         return all_gather_cat(x, axis, sc.rank, sc.tp, sc.group)
 
     @staticmethod
     def backward(ctx, g):
-        g = all_reduce(g, ctx.sc.group)
-        return g.narrow(ctx.axis, ctx.sc.rank * ctx.n, ctx.n), None, None
+        sc = ctx.sc
+        return reduce_scatter(g, ctx.axis, sc.rank, sc.tp, sc.group), \
+            None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    """Tiled reduce-scatter (``psum_scatter``); its transpose is the tiled
+    all-gather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, sc, axis):
+        ctx.sc, ctx.axis = sc, axis % x.ndim
+        return reduce_scatter(x, axis, sc.rank, sc.tp, sc.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        sc = ctx.sc
+        return all_gather_cat(g.contiguous(), ctx.axis, sc.rank, sc.tp,
+                              sc.group), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """This rank's block of a replicated value along ``axis`` (a static
+    slice, no collective); its transpose writes the cotangent into a
+    zero-padded full-length buffer, again with no collective."""
+
+    @staticmethod
+    def forward(ctx, x, start, local, axis):
+        ctx.full, ctx.start, ctx.axis = x.shape, start, axis % x.ndim
+        return x.narrow(ctx.axis, start, local).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.full)
+        out.narrow(ctx.axis, ctx.start, g.shape[ctx.axis]).copy_(g)
+        return out, None, None, None
 
 
 # ----------------------------------------------------------------------
@@ -148,6 +206,14 @@ class ShardCtx:
     @property
     def sp(self) -> bool:
         return self.active and self.seq_shard
+
+    def no_sp(self) -> "ShardCtx":
+        """The context with sequence sharding off, for a sub-stack whose
+        sequence must stay whole (whisper's encoder: ``enc_len`` need not
+        divide tp, and cross-attention reads the full K/V)."""
+        if not self.seq_shard:
+            return self
+        return dataclasses.replace(self, seq_shard=False)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Finish a row-parallel matmul (partial sums → full value)."""
@@ -207,21 +273,42 @@ class ShardCtx:
         first = (allv[:, 0] == top).to(torch.int8).argmax(0)
         return torch.gather(allv[:, 1], 0, first[None])[0].to(idx.dtype)
 
-    # ---- sequence parallelism: not ported ----------------------------
-    def gather_seq(self, x, axis: int = 1):
-        if self.sp:
-            raise _not_ported("sequence parallelism (seq_shard)")
-        return x
+    # ---- sequence parallelism ----------------------------------------
+    def _seq_check(self, x: torch.Tensor, axis: int) -> int:
+        if x.shape[axis] % self.tp:
+            raise ValueError(
+                f"sequence parallelism needs the seq dim (axis {axis}, "
+                f"size {x.shape[axis]}) divisible by tp={self.tp}")
+        return x.shape[axis] // self.tp
 
-    def scatter_seq(self, x, axis: int = 1):
-        if self.sp:
-            raise _not_ported("sequence parallelism (seq_shard)")
-        return x
+    def gather_seq(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        """Local sequence block → the full sequence (tiled all-gather);
+        the start of every column-parallel in-projection region under SP,
+        the identity otherwise."""
+        if not self.sp:
+            return x
+        return _AllGather.apply(x, self, axis)
 
-    def psum_scatter(self, x, axis: int = 1):
-        if self.sp:
-            raise _not_ported("sequence parallelism (seq_shard)")
-        return self.psum(x)
+    def scatter_seq(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        """A full-sequence value that is complete on every rank (the
+        embedding, an unsharded sublayer's output) → this rank's
+        sequence block: a static slice, no collective.  Partial sums take
+        :meth:`psum_scatter`."""
+        if not self.sp:
+            return x
+        local = self._seq_check(x, axis)
+        return _ScatterSeq.apply(x, self.rank * local, local, axis)
+
+    def psum_scatter(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        """Finish a row-parallel matmul: :meth:`psum` under plain TP; under
+        SP the reduce-scatter over the sequence axis (the same bytes on
+        the link; the result holds only the local sequence block)."""
+        if not self.active:
+            return x
+        if not self.seq_shard:
+            return self.psum(x)
+        self._seq_check(x, axis)
+        return _PSumScatter.apply(x, self, axis)
 
 
 #: inactive context: the one-rank paths and every default caller
@@ -285,36 +372,53 @@ def validate_tp(cfg, tp: int) -> None:
         )
 
 
-def check_tp_supported(cfg, tp: int) -> None:
-    """The archs whose tensor-parallel branches are not ported raise,
-    naming ROADMAP.md: MoE (expert parallelism), the SSM and RG-LRU
-    layers, and whisper's encoder and cross block.  Run after
-    :func:`validate_tp`."""
+def validate_seq_shard(cfg, tp: int, seq_len: int) -> None:
+    """Clear error (instead of a shape crash) for a bad ``--seq-shard``.
+
+    Sequence parallelism scatters the (B, S, d) activations over the
+    model axis between the TP collective pairs, so S must divide the
+    TP degree.  Recurrent kinds (Mamba-2 SSD / RG-LRU) are legal but
+    their scan is sequential in seq — those blocks gather the full
+    sequence before scanning (only the norm/residual/projection work
+    between blocks shards), which a warning makes explicit.
+    """
     if tp <= 1:
-        return
-    if cfg.is_moe:
-        raise _not_ported(f"{cfg.name}: tensor parallelism of the MoE "
-                          f"layer (expert parallelism)")
-    rec = sorted(set(cfg.block_pattern) & {"ssm", "recurrent"})
+        raise ValueError(
+            f"{cfg.name}: --seq-shard requires tensor parallelism "
+            f"(tp={tp}); sequence sharding rides the 'model' mesh axis")
+    if seq_len % tp:
+        raise ValueError(
+            f"{cfg.name}: sequence parallelism needs the sequence "
+            f"length divisible by tp: seq_len={seq_len} % tp={tp} != 0")
+    rec = set(cfg.block_pattern) & {"ssm", "recurrent"}
     if rec:
-        raise _not_ported(f"{cfg.name}: tensor parallelism of the {rec} "
-                          f"layers")
-    if cfg.is_encdec:
-        raise _not_ported(f"{cfg.name}: tensor parallelism of the "
-                          f"encoder and the cross-attention block")
+        warnings.warn(
+            f"{cfg.name}: {sorted(rec)} blocks scan sequentially over "
+            f"seq — sequence parallelism falls back to "
+            f"gather-before-scan there (norm/residual/projection work "
+            f"between blocks still shards)", stacklevel=2)
 
 
 # ----------------------------------------------------------------------
 # the per-leaf rule
 # ----------------------------------------------------------------------
-# the dense decoder's leaves (the reference's rules for the MoE, SSM,
-# RG-LRU and conv leaves come with their TP branches: ROADMAP.md)
 # column-parallel (shard the OUTPUT features over "model"): y = x @ W
-_COL_PARALLEL = {"wq", "wk", "wv", "wg", "wu", "w1"}
-# row-parallel (shard the INPUT features; the output needs a psum)
-_ROW_PARALLEL = {"wo", "wd", "w2"}
+_COL_PARALLEL = {"wq", "wk", "wv", "wg", "wu", "w1", "w_gate", "w_lin",
+                 "zproj", "xproj", "dtproj", "router", "ws_g", "ws_u"}
+# row-parallel (shard the INPUT features; the output needs a psum);
+# w_a/w_x (the RG-LRU gates) consume the sharded recurrence width and
+# one psum restores both pre-activations
+_ROW_PARALLEL = {"wo", "wd", "w2", "out_proj", "w_out", "ws_d", "w_a",
+                 "w_x"}
+# the MoE's expert-stacked weights (E, in, out): the expert axis
+_EXPERT = {"we_g", "we_u", "we_d"}
+# depthwise-conv weights (K, channels): channels follow the
+# column-parallel projection that feeds them
+_CONV_CHANNEL = {"conv_w", "conv_x_w"}
 # head-granular weights: only whole heads (or KV groups) shard
 _HEAD_OF = {"wq": "q", "wo": "q", "wk": "kv", "wv": "kv"}
+# the SSD's head-block leaves: only whole SSD heads shard
+_SSM_HEADS = {"zproj", "xproj", "dtproj", "conv_x_w"}
 
 
 def shard_axis(name: str, shape, cfg, tp: int) -> Optional[int]:
@@ -325,7 +429,10 @@ def shard_axis(name: str, shape, cfg, tp: int) -> Optional[int]:
     "model" axis only (the FSDP entries are XLA's), then dropped where
     the dim does not divide (``fit_spec``): K/V projections replicate
     when ``n_kv_heads`` does not divide tp, an untied head when the
-    vocabulary does not.  1-D vectors stay replicated.
+    vocabulary does not, the experts (and the router's columns) when
+    ``n_experts`` does not.  1-D vectors (norm scales, biases,
+    ``A_log``, ``D``, ``dt_bias``, ``lam``, ``conv_b``) stay replicated,
+    stacked or not.
     """
     if tp <= 1:
         return None
@@ -334,14 +441,23 @@ def shard_axis(name: str, shape, cfg, tp: int) -> Optional[int]:
         heads = cfg.n_heads if _HEAD_OF[name] == "q" else cfg.n_kv_heads
         if not heads or heads % tp:
             return None
+    if name in _SSM_HEADS:
+        nh = (cfg.expand * cfg.d_model) // cfg.ssm_head_dim \
+            if cfg.ssm_head_dim else 0
+        if not nh or nh % tp:
+            return None
     ax = None
-    if name in _COL_PARALLEL and nd >= 2:
+    if name in _EXPERT and nd >= 3:
+        ax = -3
+    elif name in _COL_PARALLEL and nd >= 2:
         ax = -1
     elif name in _ROW_PARALLEL and nd >= 2:
         ax = -2
     elif name in ("table", "w") and nd >= 2:
         # the embedding (V, d) is d-sharded (gathered at the use site);
         # the untied head (d, V) gives vocab-parallel logits
+        ax = -1
+    elif name in _CONV_CHANNEL and nd >= 2:
         ax = -1
     if ax is None or shape[ax] % tp:
         return None
@@ -355,7 +471,6 @@ def param_axes(cfg, tp: int) -> Dict[str, Optional[int]]:
     from repro_torch.checkpoint.params import _flatten
     from repro_torch.models import transformer as tf
 
-    check_tp_supported(cfg, tp)
     shapes = tf.init_params(cfg, device="meta", dtype=torch.float32)
     return {k: shard_axis(k.rsplit("/", 1)[-1], tuple(v.shape), cfg, tp)
             for k, v in _flatten(shapes).items()}
@@ -370,6 +485,18 @@ def model_sharded_mask(cfg, tp: int) -> Dict[str, bool]:
     leaves psum over "model" then divide by tp.
     """
     return {k: ax is not None for k, ax in param_axes(cfg, tp).items()}
+
+
+def seq_sharded_mask(cfg, tp: int) -> Dict[str, bool]:
+    """The gradient-correction mask of the sequence-parallel step: the
+    same set as :func:`model_sharded_mask`, as the reference's.  Under SP
+    a replicated leaf (a norm scale, a bias, a per-head vector) is used
+    on the local sequence block only, so its per-rank gradient is a
+    seq-block partial and the psum over "model" completes the token sum
+    (not an average of equal copies); the set of leaves that need it
+    and the 1/tp factor are unchanged.  Its own name says which regime
+    the step corrects for."""
+    return model_sharded_mask(cfg, tp)
 
 
 def state_axis(key: str, axes: Dict[str, Optional[int]]) -> Optional[int]:

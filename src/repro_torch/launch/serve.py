@@ -14,7 +14,11 @@ CLI spawns them (``dist.launch.run_ranks``; gloo on the CPU or when the
 ranks share one card, NCCL when each has a card of its own), or joins
 the world of a launcher that sets ``RANK``/``WORLD_SIZE`` (torchrun).
 Each rank draws the tp-1 weights from the seed and keeps its slices;
-rank 0 prints and writes ``--tokens-out``.
+rank 0 prints and writes ``--tokens-out``.  Every config serves at
+``--tp``: the MoE layer expert-parallel, the recurrent archs with each
+rank's states over its heads or channels, whisper encoding once a
+request at a rank's heads into a per-rank cross cache.  Serving has no
+sequence parallelism, as in the reference.
 
 ``--smoke/--no-smoke`` picks the smoke or the full config (default
 smoke); ``--no-smoke`` serves the full config, e.g. llama3-8b (≈16 GB of
@@ -51,7 +55,6 @@ from repro_torch.dist.launch import join_launcher_world, run_ranks
 from repro_torch.dist.sharding import (
     NULL_CTX,
     ShardCtx,
-    check_tp_supported,
     model_ctx,
     validate_tp,
 )
@@ -94,7 +97,6 @@ def main(argv=None):
     ctx = NULL_CTX
     if args.tp > 1:
         validate_tp(cfg, args.tp)
-        check_tp_supported(cfg, args.tp)
         if not join_launcher_world(args.device):
             resolve_device(args.device)  # no CUDA: raise here, not in a rank
             return run_ranks(main, args.tp, args=(argv,),

@@ -19,11 +19,12 @@ PyTorch counterpart of ``repro.launch.steps``:
     aux gradient decoded with uniform weights (the reference's rule).
 
 Steps update the params and the optimizer state in place and return
-them.  Sequence and pipeline parallelism (and the pipeline's
-microbatches) are not ported (ROADMAP.md).
+them.  Pipeline parallelism (and the pipeline's microbatches) is not
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -37,6 +38,7 @@ from repro_torch.dist.sharding import (
     ShardCtx,
     model_sharded_mask,
     param_axes,
+    seq_sharded_mask,
 )
 from repro_torch.models import transformer as tf
 from repro_torch.optim import (
@@ -60,11 +62,11 @@ def default_optimizer_name(cfg: ModelConfig, tcfg: TrainConfig) -> str:
 
 
 def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
-    if tcfg.pp_stages > 1 or tcfg.microbatches or tcfg.seq_shard_activations:
+    if tcfg.pp_stages > 1 or tcfg.microbatches:
         raise NotImplementedError(
-            "pipeline and sequence parallelism (and the pipeline's "
-            "microbatches) are not ported to repro_torch yet; see the "
-            "dist regimes in ROADMAP.md")
+            "pipeline parallelism (and the pipeline's microbatches) is "
+            "not ported to repro_torch yet; see the dist regimes in "
+            "ROADMAP.md")
 
 
 def _batch_rows(batch: Dict[str, torch.Tensor], B: int, rows: slice
@@ -211,7 +213,13 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     (``dist.sharding.shard_axis``), each group's gradient goes through
     :func:`tp_correct` before the coded decode, and the group's loss is
     already equal on every "model" rank (the cross-entropy summed over
-    it once), so the decode sums it over (data, pod) only.
+    it once), so the decode sums it over (data, pod) only.  With
+    ``tcfg.seq_shard_activations`` the ranks also split the sequence
+    between the TP collective pairs (the ``ShardCtx`` of the step has
+    ``seq_shard``) and the correction keys off ``seq_sharded_mask``: a
+    replicated leaf's gradient is then a seq-block partial, which the
+    psum over "model" completes.  A batch's ``enc_frames`` (whisper)
+    reach the loss with its rows.
     """
     from repro_torch.dist import grad_sync
 
@@ -230,12 +238,14 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
 
     n_groups = mesh.pods * mesh.data
     ctx = getattr(mesh, "ctx", NULL_CTX)
+    if tcfg.seq_shard_activations:
+        ctx = dataclasses.replace(ctx, seq_shard=True)
     axes_by_key = param_axes(cfg, ctx.tp)
-    mask = model_sharded_mask(cfg, ctx.tp)
+    mask = (seq_sharded_mask if ctx.sp else model_sharded_mask)(cfg,
+                                                                  ctx.tp)
 
     def train_step(params, opt_state, batch, lam, residual, step):
         B = batch["tokens"].shape[0]
-        aux_terms = []  # MoE: aux_ij / n_groups of each group
         keys = leaf_keys(params)
         axes = [axes_by_key[k] for k in keys]
         sharded = [mask[k] for k in keys]
@@ -250,9 +260,10 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
             grads, m = _grads(
                 params, cfg, local,
                 objective=lambda m: (lam_ij * m["loss"] + (
-                    tf.AUX_WEIGHT / n_groups) * m["aux_loss"]))
-            aux_terms.append(m["aux_loss"] / n_groups)
-            return grads, lam_ij * m["loss"]
+                    tf.AUX_WEIGHT / n_groups) * m["aux_loss"]), ctx=ctx)
+            # aux_ij / n_groups rides beside the loss through its sums
+            return tp_correct(grads, sharded, ctx), torch.stack(
+                [lam_ij * m["loss"], m["aux_loss"] / n_groups])
 
         # MoE: λ is inside each group's objective, so the sums run unweighted
         lam_sum = np.ones_like(np.asarray(lam, np.float32)) if cfg.is_moe \
@@ -265,9 +276,8 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         else:
             grads, loss = grad_sync.coded_weighted_psum(mesh, group_fn,
                                                         lam_sum)
-        metrics = {"loss": loss}
-        if cfg.is_moe:
-            metrics["aux_loss"] = torch.stack(aux_terms).sum()
+        metrics = {"loss": loss[0], "aux_loss": loss[1]} if cfg.is_moe \
+            else {"loss": loss}
         metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
                           step, metrics, ctx, axes)
         return params, opt_state, residual, metrics

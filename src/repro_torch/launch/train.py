@@ -24,8 +24,10 @@ rank; under a launcher that sets ``RANK``/``WORLD_SIZE`` (torchrun) it
 joins that world instead, whose size may also give the pods or the
 workers ranks of their own (``DistMesh.for_world``).  Rank 0 prints,
 writes ``--metrics-out`` and the checkpoints (the full arrays, which
-restore at any degree).  Not ported yet (the flags raise, naming
-ROADMAP.md): ``--seq-shard``, ``--pp`` and ``--microbatches``.
+restore at any degree).  ``--seq-shard`` adds sequence
+parallelism to ``--tp`` (the sequence length must divide tp).  Not
+ported yet (the flags raise, naming ROADMAP.md): ``--pp`` and
+``--microbatches``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -39,6 +41,9 @@ Usage:
       --checkpoint-every 2 --resume
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 4 --seq-len 16 --dist coded_q --tp 2
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --arch granite-moe-3b-a800m --steps 4 --seq-len 16 --dist coded_q \
+      --tp 2 --seq-shard
 """
 from __future__ import annotations
 
@@ -90,7 +95,9 @@ def main(argv=None, full_params: bool = False):
                     help="tensor-parallel degree: the ranks to spawn")
     ap.add_argument("--seq-shard", dest="seq_shard", action="store_const",
                     const=True, default=None,
-                    help="sequence parallelism (not ported)")
+                    help="sequence parallelism over the --tp ranks "
+                         "(activations seq-sharded between the TP "
+                         "collective pairs)")
     ap.add_argument("--no-seq-shard", dest="seq_shard",
                     action="store_const", const=False)
     ap.add_argument("--pp", type=int, default=1,

@@ -10,9 +10,17 @@ too), a stable sort of the (token, choice) stream by expert with the
 sentinel slot ``E · cap`` for dropped entries, every expert's swiglu FFN
 batched over the experts, and the shared expert added last.
 
-The expert, tensor and sequence parallel branches of the reference (its
-``ctx``) come with the dist regimes (ROADMAP.md); ``moe_ffn`` takes no
-``ctx``.
+Under tensor parallelism (``ctx`` active, the reference's dist branch)
+the layer is expert-parallel: the router is column-parallel and its
+logits are gathered over the experts when it is split (routing and the
+aux loss need every expert), each rank dispatches only to its contiguous
+expert block ``[e0, e0 + E_local)``, the shared expert is column/row-
+parallel, and the partial terms are finished by one ``psum_scatter``
+(the replicated ones by ``scatter_seq``).  When ``n_experts`` does not
+divide tp the experts are replicated and only the shared expert is
+split.  Under sequence parallelism the layer gathers the sequence once
+before routing (the capacity and the aux statistics count every token)
+and the combine reduce-scatters back to the local block.
 
 Repeatability: no accumulation here depends on the order threads run
 in.  The k copies of a token are unsorted back to ``(N, k, d)`` and
@@ -30,25 +38,30 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import NULL_CTX
+
 
 def init_moe(d: int, ff: int, E: int, n_shared: int,
              generator: Optional[torch.Generator], device="cpu",
-             dtype=torch.float32, lead: Tuple[int, ...] = ()) -> Dict:
+             dtype=torch.float32, lead: Tuple[int, ...] = (),
+             keep=None) -> Dict:
     """N(0, 0.02²) weights keyed like the reference's ``init_moe``:
     ``router`` (d, E), ``we_g``/``we_u`` (E, d, ff), ``we_d`` (E, ff, d)
     and, with ``n_shared``, ``ws_g``/``ws_u`` (d, ff·n_shared) and
-    ``ws_d`` (ff·n_shared, d); ``lead`` prepends the stacked layer axis."""
-    def normal(*shape):
+    ``ws_d`` (ff·n_shared, d); ``lead`` prepends the stacked layer axis.
+    ``keep(name, full)`` → the part of each leaf to keep, as it is drawn
+    (a rank's slice under TP: the peak is one full leaf); None keeps all."""
+    def normal(name, *shape):
         t = torch.randn(lead + shape, generator=generator, dtype=dtype,
                         device=device)
-        return t.mul_(0.02)
+        return (t if keep is None else keep(name, t)).mul_(0.02)
 
-    p = {"router": normal(d, E), "we_g": normal(E, d, ff),
-         "we_u": normal(E, d, ff), "we_d": normal(E, ff, d)}
+    p = {"router": normal("router", d, E), "we_g": normal("we_g", E, d, ff),
+         "we_u": normal("we_u", E, d, ff), "we_d": normal("we_d", E, ff, d)}
     if n_shared:
-        p["ws_g"] = normal(d, ff * n_shared)
-        p["ws_u"] = normal(d, ff * n_shared)
-        p["ws_d"] = normal(ff * n_shared, d)
+        p["ws_g"] = normal("ws_g", d, ff * n_shared)
+        p["ws_u"] = normal("ws_u", d, ff * n_shared)
+        p["ws_d"] = normal("ws_d", ff * n_shared, d)
     return p
 
 
@@ -58,11 +71,18 @@ def capacity(n_tokens: int, top_k: int, n_experts: int,
     return int(max(1, capacity_factor * n_tokens * top_k / n_experts))
 
 
-def route(router: torch.Tensor, xf: torch.Tensor, top_k: int
+def route(router: torch.Tensor, xf: torch.Tensor, top_k: int,
+          ctx=NULL_CTX, n_experts: Optional[int] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(probs (N, E), top_p (N, k) renormalized, top_e (N, k))`` of the
-    tokens ``xf`` (N, d); logits and probabilities in float32."""
+    tokens ``xf`` (N, d); logits and probabilities in float32.  Under TP
+    a column-parallel router's logits (``n_experts`` wider than its
+    columns) are gathered over the experts; a replicated router's are
+    already whole, and gathering them again would duplicate experts."""
     logits = xf.to(torch.float32) @ router.to(torch.float32)
+    if ctx.active and n_experts is not None \
+            and logits.shape[-1] != n_experts:
+        logits = ctx.all_gather(logits, axis=-1)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[:, :top_k], top_e[:, :top_k]
@@ -70,13 +90,15 @@ def route(router: torch.Tensor, xf: torch.Tensor, top_k: int
     return probs, top_p, top_e
 
 
-def dispatch_slots(top_e: torch.Tensor, n_experts: int, cap: int
+def dispatch_slots(top_e: torch.Tensor, n_experts: int, cap: int,
+                   e0: int = 0, n_local: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The sort-based dispatch plan of the (token, choice) stream:
     ``(order, slot, counts)`` — the stable sort by expert, each sorted
-    entry's buffer slot ``e · cap + rank`` (``E · cap``, the sentinel,
-    where its rank within its expert reaches ``cap``), and the entries
-    routed to each expert."""
+    entry's buffer slot ``(e − e0) · cap + rank`` (``n_local · cap``, the
+    sentinel, where its rank within its expert reaches ``cap`` or its
+    expert lies outside this rank's block ``[e0, e0 + n_local)``; the
+    whole range by default), and the entries routed to each expert."""
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -86,8 +108,12 @@ def dispatch_slots(top_e: torch.Tensor, n_experts: int, cap: int
     counts = torch.searchsorted(sorted_e, experts, right=True) - seg_start
     rank = torch.arange(flat_e.numel(), device=flat_e.device) \
         - seg_start[sorted_e]
-    slot = torch.where(rank < cap, sorted_e * cap + rank,
-                       torch.full_like(rank, n_experts * cap))
+    n_local = n_experts if n_local is None else n_local
+    keep = rank < cap
+    if n_local != n_experts:
+        keep = keep & (sorted_e >= e0) & (sorted_e < e0 + n_local)
+    slot = torch.where(keep, (sorted_e - e0) * cap + rank,
+                       torch.full_like(rank, n_local * cap))
     return order, slot, counts
 
 
@@ -97,32 +123,45 @@ def _shared(params: Dict, xf: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn(params: Dict, x: torch.Tensor, top_k: int,
-            capacity_factor: float = 1.25
+            capacity_factor: float = 1.25, ctx=NULL_CTX,
+            shared_width: Optional[int] = None,
+            n_experts: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` (B, S, d) → (output (B, S, d), load-balancing aux loss, a
-    float32 scalar).  One device; the dist regimes come later."""
+    float32 scalar).  ``shared_width`` (the global ``n_shared · ff``) and
+    ``n_experts`` (the global E) tell the TP branches a rank's split
+    leaves from whole ones; under SP ``x`` is the local sequence block
+    and so is the output."""
+    x = ctx.gather_seq(x)
     B, S, d = x.shape
     N = B * S
     xf = x.reshape(N, d)
-    E = params["router"].shape[-1]
-    probs, top_p, top_e = route(params["router"], xf, top_k)
+    probs, top_p, top_e = route(params["router"], xf, top_k, ctx,
+                                n_experts)
+    E = probs.shape[-1]
 
     # aux load-balancing loss (Switch): E · Σ_e f_e · P_e
     cap = capacity(N, top_k, E, capacity_factor)
-    order, slot, counts = dispatch_slots(top_e, E, cap)
+    # TP: this rank's contiguous expert block [e0, e0 + E_local); routing
+    # stays global, the dispatch keeps only local experts
+    E_local = params["we_g"].shape[-3]
+    experts_sharded = ctx.active and E_local != E
+    e0 = ctx.axis_index() * E_local if experts_sharded else 0
+    order, slot, counts = dispatch_slots(top_e, E, cap, e0, E_local)
     fe = counts.to(torch.float32) / (N * top_k)
     aux = E * torch.sum(fe * probs.mean(dim=0))
 
-    # dispatch: the sorted stream into (E·cap + 1) slots, the sentinel last
+    # dispatch: the sorted stream into (E_local·cap + 1) slots, the
+    # sentinel last
     x_sorted = xf[:, None, :].expand(N, top_k, d).reshape(N * top_k, d)
     x_sorted = x_sorted.index_select(0, order)
-    buf = xf.new_zeros((E * cap + 1, d)).index_put((slot,), x_sorted)
-    buf = buf[:E * cap].reshape(E, cap, d)
+    buf = xf.new_zeros((E_local * cap + 1, d)).index_put((slot,), x_sorted)
+    buf = buf[:E_local * cap].reshape(E_local, cap, d)
 
     # every expert's swiglu FFN, batched over the experts
     h = F.silu(torch.bmm(buf, params["we_g"])) * torch.bmm(buf,
                                                            params["we_u"])
-    out_buf = torch.bmm(h, params["we_d"]).reshape(E * cap, d)
+    out_buf = torch.bmm(h, params["we_d"]).reshape(E_local * cap, d)
     out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
 
     # combine: gather back, weight, unsort and sum the k copies in order
@@ -133,9 +172,28 @@ def moe_ffn(params: Dict, x: torch.Tensor, top_k: int,
     unsort[order] = torch.arange(order.numel(), device=order.device)
     y = contrib.index_select(0, unsort).reshape(N, top_k, d).sum(dim=1)
 
+    sh, sh_sharded = None, False
     if "ws_g" in params:  # shared expert (llama4)
-        y = y + _shared(params, xf)
-    return y.reshape(B, S, d).to(x.dtype), aux
+        sh = _shared(params, xf)
+        sh_sharded = (ctx.active and shared_width is not None
+                      and params["ws_g"].shape[-1] != shared_width)
+    if not ctx.active:
+        out = y if sh is None else y + sh
+        return out.reshape(B, S, d).to(x.dtype), aux
+    # one collective over "model": the partial terms (this rank's experts,
+    # the column/row-parallel shared expert) summed inside it, a
+    # replicated term sliced to the local sequence block and added after
+    y = y.reshape(B, S, d)
+    sh = None if sh is None else sh.reshape(B, S, d)
+    partial = y if experts_sharded else None
+    if sh is not None and sh_sharded:
+        partial = sh if partial is None else partial + sh
+    out = None if partial is None else ctx.psum_scatter(partial)
+    for t, split in ((y, experts_sharded), (sh, sh_sharded)):
+        if t is not None and not split:
+            t = ctx.scatter_seq(t)
+            out = t if out is None else out + t
+    return out.to(x.dtype), aux
 
 
 def moe_ffn_reference(params: Dict, x: torch.Tensor,

@@ -30,17 +30,26 @@ embeddings in the first positions):
     does with ``jax.checkpoint``.
 
 Tensor parallelism threads a :class:`~repro_torch.dist.sharding.ShardCtx`
-(``ctx``) through the dense path, as the reference's
+(``ctx``) through every layer kind, as the reference's
 ``models.transformer`` threads it: column-parallel q/k/v and MLP
 in-projections, row-parallel ``wo``/``wd``/``w2`` finished by
-``ctx.psum``, K/V replicated when ``n_kv_heads`` does not divide the
-degree (each rank then attends with the one KV head of its Q block), a
-d-sharded embedding gathered at the use site, an untied head giving
-vocab-parallel logits (decoded by the cross-entropy's one fused psum),
-a tied one row-parallel through ``ctx.local_block``.  Every decision is
-a comparison of a local shape with the config's; inactive (tp 1) every
-``ctx`` call is the identity.  The MoE, SSM, RG-LRU and encoder–decoder
-branches under TP are not ported (``dist.sharding.check_tp_supported``).
+``ctx.psum_scatter`` (a psum without SP), K/V replicated when
+``n_kv_heads`` does not divide the degree (each rank then attends with
+the one KV head of its Q block), a d-sharded embedding gathered at the
+use site, an untied head giving vocab-parallel logits (decoded by the
+cross-entropy's one fused psum), a tied one row-parallel through
+``ctx.local_block``; the MoE layer expert-parallel, the SSM and RG-LRU
+blocks over a rank's heads or channels (``models.moe``, ``models.ssm``,
+``models.rglru``), whisper's encoder and cross block at a rank's heads
+with a per-rank cross cache.  Under sequence parallelism
+(``ctx.seq_shard``) the residual stream between blocks is this rank's
+sequence block: the embedding is scattered (``scatter_seq``), every
+block gathers the sequence before its column-parallel in-projections
+(``gather_seq``) and reduce-scatters its row-parallel output, norms and
+residuals run on the local block, the head gathers the sequence back,
+and the encoder runs without SP (``ctx.no_sp()``).  Every decision is a
+comparison of a local shape with the config's; inactive (tp 1) every
+``ctx`` call is the identity.
 """
 from __future__ import annotations
 
@@ -55,7 +64,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (
     NULL_CTX,
     ShardCtx,
-    check_tp_supported,
     shard_axis,
     validate_tp,
 )
@@ -78,11 +86,10 @@ def _torch_dtype(name) -> torch.dtype:
 ATTENTION_KINDS = ("global", "local")
 
 
-def _check_supported(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX) -> None:
+def _check_supported(cfg: ModelConfig) -> None:
     unknown = set(cfg.block_pattern) - {*ATTENTION_KINDS, "ssm", "recurrent"}
     if unknown:
         raise ValueError(f"unknown layer kinds {sorted(unknown)}")
-    check_tp_supported(cfg, ctx.tp)
 
 
 def local_kv_heads(cfg: ModelConfig, tp: int) -> int:
@@ -167,7 +174,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """
     if tp > 1:
         validate_tp(cfg, tp)
-    _check_supported(cfg, ShardCtx(tp=tp))
+    _check_supported(cfg)
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
     if generator is None and device.type != "meta":
@@ -177,13 +184,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                        cfg.head_dim)
     ff = cfg.d_ff_dense or cfg.d_ff
 
+    def keep(name, t):
+        """This rank's slice of a full leaf as it is drawn."""
+        ax = shard_axis(name, tuple(t.shape), cfg, tp)
+        if ax is None:
+            return t
+        n = t.shape[ax] // tp
+        return t.narrow(ax, rank * n, n).clone()
+
     def normal(name, *shape):
         t = torch.randn(shape, generator=generator, dtype=dt, device=device)
-        ax = shard_axis(name, shape, cfg, tp)
-        if ax is not None:
-            n = shape[ax] // tp
-            t = t.narrow(ax, rank * n, n).clone()
-        return t.mul_(0.02)
+        return keep(name, t).mul_(0.02)
 
     def attn(lead):
         return {"wq": normal("wq", *lead, d, H * Dh),
@@ -200,11 +211,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         elif kind == "ssm":
             p["ssm"] = ssm_lib.init_ssm(
                 d, cfg.expand, cfg.d_state, cfg.d_conv, cfg.ssm_head_dim,
-                generator, device, dt, lead)
+                generator, device, dt, lead, keep)
         else:
             p["rglru"] = rglru_lib.init_rglru_block(
                 d, cfg.lru_width or d, cfg.d_conv, generator, device, dt,
-                lead)
+                lead, keep)
         if cfg.is_encdec:
             p["norm_x"] = _init_norm(cfg, lead + (d,), device, ndt)
             p["xattn"] = attn(lead)
@@ -213,7 +224,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             if moe:
                 p["moe"] = moe_lib.init_moe(
                     d, cfg.d_ff, cfg.n_experts, cfg.n_shared_experts,
-                    generator, device, dt, lead)
+                    generator, device, dt, lead, keep)
             elif cfg.mlp == "swiglu":
                 p["mlp"] = {"wg": normal("wg", *lead, d, ff),
                             "wu": normal("wu", *lead, d, ff),
@@ -295,8 +306,11 @@ def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
     Under TP (``ctx`` active) the heads are this rank's block
     (``local_head_counts``) and the row-parallel out-projection is
-    finished by one psum over "model".
+    finished by one psum over "model"; under SP ``x`` is the local
+    sequence block, gathered first, and the finish reduce-scatters back
+    to it (the cached k/v are the whole sequence's).
     """
+    x = ctx.gather_seq(x)
     B, S, _ = x.shape
     Dh = cfg.head_dim
     H, Kv = attn_lib.local_head_counts(p, Dh)
@@ -318,7 +332,9 @@ def _attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                   softcap=cfg.logit_softcap)
     out = out.reshape(B, S, H * Dh) @ p["wo"]
     if ctx.active and H != cfg.n_heads:
-        out = ctx.psum(out)  # row-parallel out-projection
+        out = ctx.psum_scatter(out)  # row-parallel out-projection
+    else:
+        out = ctx.scatter_seq(out)  # whole heads: back to the local block
     return out, (k, v)
 
 
@@ -328,7 +344,9 @@ def _mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     layer, whose float32 biases promote the residual stream as in the
     reference, a bf16 model's later layers run in float32.  Under TP the
     in-projections are column-parallel and the down-projection
-    row-parallel, finished by one psum."""
+    row-parallel, finished by one psum (under SP the sequence is gathered
+    first and the finish reduce-scatters)."""
+    x = ctx.gather_seq(x)
     if cfg.mlp == "swiglu" and "wg" in p:
         out = _mm(F.silu(_mm(x, p["wg"])) * _mm(x, p["wu"]), p["wd"])
         down = p["wd"]
@@ -337,8 +355,8 @@ def _mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         out = _mm(F.gelu(_mm(x, p["w1"]), approximate="tanh"), p["w2"])
         down = p["w2"]
     if ctx.active and down.shape[-2] != (cfg.d_ff_dense or cfg.d_ff):
-        out = ctx.psum(out)  # row-parallel down-projection
-    return out
+        return ctx.psum_scatter(out)  # row-parallel down-projection
+    return ctx.scatter_seq(out)
 
 
 def _ffn_apply(p: Dict, h: torch.Tensor, cfg: ModelConfig,
@@ -346,7 +364,10 @@ def _ffn_apply(p: Dict, h: torch.Tensor, cfg: ModelConfig,
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's feed-forward half → (output, MoE aux loss or None)."""
     if "moe" in p:
-        return moe_lib.moe_ffn(p["moe"], h, cfg.top_k, cfg.capacity_factor)
+        return moe_lib.moe_ffn(
+            p["moe"], h, cfg.top_k, cfg.capacity_factor, ctx=ctx,
+            shared_width=cfg.n_shared_experts * cfg.d_ff,
+            n_experts=cfg.n_experts)
     return _mlp_apply(p["mlp"], h, cfg, ctx), None
 
 
@@ -379,13 +400,13 @@ def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
         cache_entry = {"k": k.reshape(*k.shape[:2], -1),
                        "v": v.reshape(*v.shape[:2], -1)}
     elif kind == "ssm":
-        out = ssm_lib.ssm_forward(p["ssm"], h, cfg)
+        out = ssm_lib.ssm_forward(p["ssm"], h, cfg, ctx)
     else:
-        out = rglru_lib.rglru_block_forward(p["rglru"], h, cfg)
+        out = rglru_lib.rglru_block_forward(p["rglru"], h, cfg, ctx)
     x = x + out
     if "xattn" in p and enc_out is not None:
         out, _ = _attn_apply(p["xattn"], _norm(p["norm_x"], x), cfg,
-                             "cross", None, kv_source=enc_out)
+                             "cross", None, kv_source=enc_out, ctx=ctx)
         x = x + out
     aux = None
     if "norm2" in p:
@@ -465,8 +486,10 @@ def _unembed(params, cfg, x, ctx: ShardCtx = NULL_CTX):
     head is the transposed d-sharded table, row-parallel: this rank's
     d-block of x times its rows, psum'd (full-vocab logits); an untied
     head (d, V) is column-parallel: vocab-parallel local logits, which
-    the cross-entropy and the greedy argmax decode."""
-    x = _norm(params["final_norm"], x)
+    the cross-entropy and the greedy argmax decode.  Under SP the norm
+    runs on the local sequence block and the head on the gathered
+    sequence."""
+    x = ctx.gather_seq(_norm(params["final_norm"], x))
     if cfg.tie_embeddings:
         w = params["embed"]["table"].T
         if ctx.active and w.shape[0] != cfg.d_model:
@@ -493,14 +516,18 @@ def _remat(cfg: ModelConfig) -> bool:
 
 
 def encode_frames(params: PyTree, cfg: ModelConfig,
-                  enc_frames: torch.Tensor) -> torch.Tensor:
+                  enc_frames: torch.Tensor,
+                  ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """The whisper encoder over precomputed frontend frames (B, T_enc,
     d) → its output (B, T_enc, d); ``params`` must already be cast.
 
     Frames in ``cfg.dtype``, positions ``arange(T_enc)`` (RoPE unless
     ``rope_theta`` is 0), bidirectional "enc" layers, each
-    rematerialized under autograd, then ``enc_norm``.
+    rematerialized under autograd, then ``enc_norm``.  Under TP a rank's
+    heads and MLP block; never sequence-sharded (``ctx.no_sp()``):
+    ``enc_len`` need not divide tp, and cross-attention reads all of it.
     """
+    ctx = ctx.no_sp()
     B, T = enc_frames.shape[:2]
     x = enc_frames.to(_torch_dtype(cfg.dtype))
     rope = None
@@ -511,10 +538,10 @@ def encode_frames(params: PyTree, cfg: ModelConfig,
     for l in range(cfg.n_enc_layers):
         lp = _index(stack, l)
         if _remat(cfg):
-            x, _ = checkpoint(_layer_out, lp, x, "enc", cfg, rope,
-                              use_reentrant=False)
+            x, _ = checkpoint(_layer_out, lp, x, "enc", cfg, rope, None,
+                              ctx, use_reentrant=False)
         else:
-            x = _layer_apply(lp, x, "enc", cfg, rope)[0]
+            x = _layer_apply(lp, x, "enc", cfg, rope, ctx=ctx)[0]
     return _norm(params["encoder"]["enc_norm"], x)
 
 
@@ -527,7 +554,8 @@ def embed_tokens(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     positions)``; ``params`` must already be cast.  ``visual_embeds``
     (B, n_vis, d) replace the first ``n_vis`` embedded positions; the
     default positions are ``arange(S)`` per row, broadcast to (3, B, S)
-    for an M-RoPE config."""
+    for an M-RoPE config.  Under SP ``x`` is this rank's sequence block
+    (the positions stay whole: blocks gather before attending)."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, ctx)
     if visual_embeds is not None:
@@ -537,7 +565,7 @@ def embed_tokens(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         if cfg.mrope_sections:
             positions = positions.expand(3, B, S)
-    return x, positions
+    return ctx.scatter_seq(x), positions
 
 
 def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -553,7 +581,7 @@ def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.is_encdec:
         if enc_frames is None:
             raise ValueError("encoder-decoder model needs enc_frames")
-        enc_out = encode_frames(params, cfg, enc_frames)
+        enc_out = encode_frames(params, cfg, enc_frames, ctx)
     x, positions = embed_tokens(params, cfg, tokens, positions,
                                 visual_embeds, ctx)
     B, S = tokens.shape
@@ -611,12 +639,14 @@ def forward(
     rank's KV heads; its logits vocab-parallel for an untied head).
     """
     ctx = ctx or NULL_CTX
-    _check_supported(cfg, ctx)
+    _check_supported(cfg)
     params = cast_params(params, cfg)
     x, cache, aux = _hidden(params, cfg, tokens, positions, return_cache,
                             enc_frames, visual_embeds, ctx)
     if last_only:
-        x = x[:, -1:]
+        # the final position lives on the last rank's block under SP
+        x = ctx.gather_seq(x)[:, -1:]
+        ctx = ctx.no_sp()
     logits = _unembed(params, cfg, x, ctx)
     return (logits, cache, aux) if return_cache else (logits, aux)
 
@@ -677,7 +707,7 @@ def loss_and_metrics(params: PyTree, cfg: ModelConfig,
     Under TP (``ctx``) the loss comes out equal on every "model" rank.
     """
     ctx = ctx or NULL_CTX
-    _check_supported(cfg, ctx)
+    _check_supported(cfg)
     params = cast_params(params, cfg)
     x, _, aux = _hidden(params, cfg, batch["tokens"],
                         batch.get("positions"), False,
@@ -714,8 +744,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``cross_pos``: the int32 device scalar ``enc_len − 1`` that every
     cross decode passes to the decode kernel as its query position (no
     step allocates it or syncs the host).  Under TP (``tp``) the K/V
-    width is this rank's heads' (:func:`local_kv_heads`)."""
-    _check_supported(cfg, ShardCtx(tp=tp))
+    width (self and cross) is this rank's heads' (:func:`local_kv_heads`)
+    and the recurrent states hold its heads or channels."""
+    _check_supported(cfg)
     device = resolve_device(device)
     dt = _torch_dtype(cfg.dtype)
     KvDh = local_kv_heads(cfg, tp) * cfg.head_dim
@@ -724,9 +755,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     def entry(kind, lead=()):
         if kind == "ssm":
-            return ssm_lib.ssm_init_cache(cfg, batch, lead, device)
+            return ssm_lib.ssm_init_cache(cfg, batch, lead, device, tp)
         if kind == "recurrent":
-            return rglru_lib.rglru_init_cache(cfg, batch, lead, device)
+            return rglru_lib.rglru_init_cache(cfg, batch, lead, device, tp)
         shp = lead + (batch, _cache_len(cfg, kind, max_len), KvDh)
         e = {"k": torch.zeros(shp, dtype=dt, device=device),
              "v": torch.zeros(shp, dtype=dt, device=device)}
@@ -750,16 +781,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def fill_cross_cache(params: PyTree, cfg: ModelConfig,
-                     enc_frames: torch.Tensor, cache: PyTree) -> PyTree:
+                     enc_frames: torch.Tensor, cache: PyTree,
+                     ctx: ShardCtx = NULL_CTX) -> PyTree:
     """Run the encoder over ``enc_frames`` (B, enc_len, d) and write every
     decoder layer's cross-attention K/V (``enc_out @ xattn.wk / wv``)
     into the cache, in place; once per request, before the decode
-    (whisper).  → the cache."""
+    (whisper).  Under TP (``ctx``) the encoder runs at this rank's heads
+    and the cache holds this rank's KV heads (the one head of its Q block
+    when K/V are replicated).  → the cache."""
     if enc_frames.shape[1] != cfg.enc_len:
         raise ValueError(f"{enc_frames.shape[1]} encoder frames; the cross "
                          f"cache holds enc_len={cfg.enc_len}")
     params = cast_params(params, cfg)
-    enc_out = encode_frames(params, cfg, enc_frames)
+    enc_out = encode_frames(params, cfg, enc_frames, ctx)
+    Dh = cfg.head_dim
     P = len(cfg.block_pattern)
     layers = ([(cache["groups"][f"p{k}"], params["groups"][f"p{k}"])
                for k in range(P)]
@@ -770,8 +805,12 @@ def fill_cross_cache(params: PyTree, cfg: ModelConfig,
                         ("xv", layer["xattn"]["wv"])):
             # a stacked (L, d, Kv·Dh) weight projects every layer of the
             # group in one batched matmul: (L, B, T, Kv·Dh)
-            entry[name].copy_(enc_out @ w if w.ndim == 2
-                              else enc_out @ w[:, None])
+            kv = enc_out @ w if w.ndim == 2 else enc_out @ w[:, None]
+            width = entry[name].shape[-1]
+            if kv.shape[-1] != width:  # replicated K/V: this rank's head
+                head = ctx.axis_index() * cfg.n_kv_heads // ctx.tp
+                kv = kv.narrow(-1, head * Dh, width)
+            entry[name].copy_(kv)
     return cache
 
 
@@ -809,21 +848,26 @@ def _decode_attn(a: Dict, h: torch.Tensor, kind: str, cfg: ModelConfig,
 
 
 def _decode_cross(a: Dict, h: torch.Tensor, cfg: ModelConfig,
-                  cache_entry: Dict, cross_pos: torch.Tensor
-                  ) -> torch.Tensor:
+                  cache_entry: Dict, cross_pos: torch.Tensor,
+                  ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """One token's cross-attention over the static cross cache, through
     the decode kernel at ``cross_pos = Ce − 1``: the ring formula then
     gives every slot s position s ≤ Ce − 1, so every encoder frame is
     attended — the reference's mask (``q_pos = Ce`` over ``arange(Ce)``).
-    No RoPE, no window, no softcap, as the reference's cross decode."""
+    No RoPE, no window, no softcap, as the reference's cross decode.
+    Under TP this rank's heads against its cross cache, ``wo`` psum'd."""
     B = h.shape[0]
-    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _split_heads(h @ a["wq"], H, Dh)
+    Dh = cfg.head_dim
+    H = a["wq"].shape[-1] // Dh
     xk, xv = cache_entry["xk"], cache_entry["xv"]
-    Ce = xk.shape[1]
+    Ce, Kv = xk.shape[1], xk.shape[-1] // Dh
+    q = _split_heads(h @ a["wq"], H, Dh)
     out = ops.decode_attention(q, xk.view(B, Ce, Kv, Dh),
                                xv.view(B, Ce, Kv, Dh), cross_pos)
-    return out.reshape(B, 1, H * Dh) @ a["wo"]
+    out = out.reshape(B, 1, H * Dh) @ a["wo"]
+    if ctx.active and H != cfg.n_heads:
+        out = ctx.psum(out)
+    return out
 
 
 def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
@@ -837,16 +881,17 @@ def _decode_layer(p: Dict, x1: torch.Tensor, kind: str, cfg: ModelConfig,
                            ctx)
     else:
         if kind == "ssm":
-            out, new = ssm_lib.ssm_decode_step(p["ssm"], h, cache_entry, cfg)
+            out, new = ssm_lib.ssm_decode_step(p["ssm"], h, cache_entry, cfg,
+                                               ctx)
         else:
             out, new = rglru_lib.rglru_block_step(p["rglru"], h,
-                                                  cache_entry, cfg)
+                                                  cache_entry, cfg, ctx)
         for name, t in new.items():  # in place, as the ring writes
             cache_entry[name].copy_(t)
     x1 = x1 + out
     if "xattn" in p and "xk" in cache_entry:
         x1 = x1 + _decode_cross(p["xattn"], _norm(p["norm_x"], x1), cfg,
-                                cache_entry, cross_pos)
+                                cache_entry, cross_pos, ctx)
     if "norm2" in p:
         # MoE: N = B tokens, so the capacity drops what the reference's
         # decode step drops
@@ -867,7 +912,7 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
     untied head are vocab-parallel (``ShardCtx.argmax`` decodes them).
     """
     ctx = ctx or NULL_CTX
-    _check_supported(cfg, ctx)
+    _check_supported(cfg)
     pos = cache["length"]
     params = cast_params(params, cfg)
     x = _embed(params, cfg, token, ctx)

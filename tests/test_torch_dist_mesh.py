@@ -9,9 +9,12 @@ every group in turn beside a "model" axis.  Each must equal the
 one-card mesh: 0 difference for the f32 sums, the same bits for the
 decoded hop and the EF residual rows.  The (1, 1, 2) world also holds
 ``ShardCtx``'s collectives (and their gradients) against numpy, the
-greedy tie rule, and ``shard_params`` → ``gather_params`` for every
-dense config, and the optimizer's reductions on slices.  One world per
-layout serves every case.
+sequence-parallel helpers (``gather_seq``, ``scatter_seq``,
+``psum_scatter``: values, a round trip, and each gradient against the
+transpose JAX takes of the same SPMD map), the greedy tie rule, and
+``shard_params`` → ``gather_params`` for all ten configs (the expert,
+conv and SSM-head leaves too), and the optimizer's reductions on slices.
+One world per layout serves every case.
 """
 import numpy as np
 import pytest
@@ -77,6 +80,72 @@ def test_shard_ctx_collectives_against_numpy(worlds):
                                       tp * w[:, 3 * r:3 * (r + 1)])
 
 
+SP_SHAPE = (2, 8, 3)  # (B, S, d) of ranks.sp_helpers
+
+
+def test_sp_helpers_against_numpy(worlds):
+    per_rank, _ = worlds["pod1-data1-model2"]
+    tp = len(per_rank)
+    B, S, d = SP_SHAPE
+    Sl = S // tp
+    local = [np.arange(B * Sl * d, dtype=np.float32).reshape(B, Sl, d)
+             * (r + 1) for r in range(tp)]
+    full = [np.arange(B * S * d, dtype=np.float32).reshape(B, S, d)
+            * (r + 1) for r in range(tp)]
+    for r, o in enumerate(per_rank):
+        sp = o["sp"]
+        block = slice(r * Sl, (r + 1) * Sl)
+        np.testing.assert_array_equal(sp["gather"], np.concatenate(local, 1))
+        np.testing.assert_array_equal(sp["scatter"], full[r][:, block])
+        np.testing.assert_array_equal(sp["psum_scatter"],
+                                      sum(full)[:, block])
+        np.testing.assert_array_equal(sp["round_trip"], local[r])
+        # without seq_shard: identities, and psum_scatter is psum
+        assert sp["off"] == [True, True, True]
+        assert "divisible by tp=2" in sp["bad_len"]
+
+
+def _sp_transpose(kind, tp):
+    """The transpose JAX takes of a helper, as the linear map from every
+    rank's operand to every rank's output (stacked on a leading rank
+    axis), applied to the ranks' cotangents → each rank's gradient."""
+    import jax
+    import jax.numpy as jnp
+
+    B, S, d = SP_SHAPE
+    Sl = S // tp
+    if kind == "gather":  # tiled all-gather on the sequence axis
+        def f(X):
+            return jnp.stack([jnp.concatenate(list(X), axis=1)] * tp)
+        shape = (tp, B, Sl, d)
+    elif kind == "scatter":  # each rank's static slice of its own copy
+        def f(X):
+            return jnp.stack([X[r][:, r * Sl:(r + 1) * Sl]
+                              for r in range(tp)])
+        shape = (tp, B, S, d)
+    else:  # psum, then each rank's block
+        def f(X):
+            tot = X.sum(0)
+            return jnp.stack([tot[:, r * Sl:(r + 1) * Sl]
+                              for r in range(tp)])
+        shape = (tp, B, S, d)
+    arg = jax.ShapeDtypeStruct(shape, jnp.float32)
+    out = jax.eval_shape(f, arg).shape
+    cot = np.stack([ranks.sp_cotangent(out[1:], r) for r in range(tp)])
+    (g,) = jax.linear_transpose(f, arg)(jnp.asarray(cot))
+    return np.asarray(g)
+
+
+@pytest.mark.parametrize("kind", ["gather", "scatter", "psum_scatter"])
+def test_sp_helper_gradients_are_the_jax_transposes(worlds, kind):
+    """gather_seq ↔ reduce-scatter, psum_scatter ↔ all-gather, and
+    scatter_seq's slice → a zero-padded scatter with no collective."""
+    per_rank, _ = worlds["pod1-data1-model2"]
+    want = _sp_transpose(kind, len(per_rank))
+    for r, o in enumerate(per_rank):
+        np.testing.assert_array_equal(o["sp"][kind + "_grad"], want[r])
+
+
 def test_greedy_ties_take_the_lowest_index(worlds):
     per_rank, _ = worlds["pod1-data1-model2"]
     tp, V = len(per_rank), 4
@@ -96,14 +165,17 @@ def test_shard_and_gather_params_round_trip(worlds):
 def test_optimizer_reductions_span_the_ranks(worlds):
     """The global norm, the clip, adafactor's factored statistics and its
     update RMS on a rank's slices equal the same on the whole leaves
-    (float32 rounding): left local, the norm is a rank's and adafactor's
-    row/column means a slice's."""
+    (float32 rounding), for the dense, expert, SSD and RG-LRU leaves:
+    left local, the norm is a rank's and adafactor's row/column means a
+    slice's."""
     per_rank, _ = worlds["pod1-data1-model2"]
     for o in per_rank:
-        opt = o["optimizer"]
-        assert opt["norm"] < 1e-6, opt
-        assert opt["clip"] < 1e-7, opt
-        assert opt["adafactor"] < 1e-6 and opt["adamw"] < 1e-6, opt
+        assert set(o["optimizer"]) == set(ranks.OPT_ARCHS)
+        for arch, opt in o["optimizer"].items():
+            assert opt["norm"] < 1e-6, (arch, opt)
+            assert opt["clip"] < 1e-7, (arch, opt)
+            assert opt["adafactor"] < 1e-6 and opt["adamw"] < 1e-6, \
+                (arch, opt)
 
 
 def test_inactive_ctx_is_the_identity():
@@ -112,8 +184,11 @@ def test_inactive_ctx_is_the_identity():
     ctx = ShardCtx()
     x = torch.randn(3, 4)
     for y in (ctx.psum(x), ctx.pmax(x), ctx.all_gather(x),
-              ctx.local_block(x, 2), ctx.reduce_sum(x)):
+              ctx.local_block(x, 2), ctx.reduce_sum(x), ctx.gather_seq(x),
+              ctx.scatter_seq(x), ctx.psum_scatter(x)):
         assert y is x
+    assert ShardCtx(seq_shard=True).gather_seq(x) is x  # tp 1: no SP
+    assert ShardCtx(tp=2, seq_shard=True).no_sp() == ShardCtx(tp=2)
     assert ctx.axis_index() == 0
     assert ctx.argmax(x, 4).tolist() == x.argmax(-1).tolist()
 

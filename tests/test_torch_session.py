@@ -88,8 +88,7 @@ def test_coded_equals_off_and_coded_q_tracks_it(port):
 def test_session_options_not_ported_raise():
     cfg = get_smoke_config("llama3-8b")
     cl = CodedCluster.homogeneous(2, 4)
-    for kw in (dict(tp=2, seq_shard=True), dict(pp=2),
-               dict(tp=2, microbatches=2)):
+    for kw in (dict(pp=2), dict(tp=2, microbatches=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             CodedSession(cl, cfg, mode="coded", device="cpu", verbose=False,
                          **kw)

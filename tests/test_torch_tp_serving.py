@@ -11,9 +11,13 @@ sessions, checkpoints, the CLIs, the checks.
     tp-1 session; a tp-2 checkpoint against the tp-1 one (the full
     arrays), restored at tp 1 bit for bit, and killed and resumed at tp
     2 bit for bit; the train CLI at ``--tp 2``;
-  * ``validate_tp``'s messages against the reference's, and the archs
-    and regimes this slice does not run under TP raising
-    ``NotImplementedError`` naming ROADMAP.md.
+  * ``validate_tp``'s messages against the reference's, and the regimes
+    not ported (PP and its microbatches) raising ``NotImplementedError``
+    naming ROADMAP.md.
+
+The MoE, SSM, RG-LRU and encoder–decoder configs at tp 2 are served in
+``tests/test_torch_tp_serving_archs.py``, sequence parallelism's
+sessions in ``tests/test_torch_tp_sp_session.py``.
 """
 import dataclasses
 import json
@@ -21,7 +25,6 @@ import json
 import jax
 import numpy as np
 import pytest
-import torch
 
 import torch_tp_ranks as ranks
 from repro.api import serving as jserving
@@ -34,7 +37,7 @@ from repro_torch.checkpoint.store import read_npz
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.dist import sharding
 from repro_torch.dist.launch import run_ranks
-from repro_torch.launch import serve, train
+from repro_torch.launch import train
 from repro_torch.models import transformer as tf
 
 TOL = dict(rtol=1e-4, atol=1e-4)  # test_torch_transformer.py's, on logits
@@ -253,42 +256,17 @@ def test_validate_tp_messages_match_reference(arch, tp, change):
         sharding.validate_tp(get_smoke_config("llama3-8b"), good)
 
 
-DEFERRED = ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
-            "mamba2-370m", "recurrentgemma-2b", "whisper-medium"]
-
-
-@pytest.mark.parametrize("arch", DEFERRED)
-def test_deferred_archs_raise_under_tp(arch):
-    cfg = get_smoke_config(arch)
-    for call in (
-            lambda: tf.init_params(cfg, device="cpu", tp=2),
-            lambda: tf.init_cache(cfg, 1, 8, device="cpu", tp=2),
-            lambda: CodedSession(CodedCluster.homogeneous(2, 4), cfg,
-                                 mode="coded", tp=2, device="cpu",
-                                 verbose=False),
-            lambda: serve.main(["--arch", arch, "--device", "cpu",
-                                "--tp", "2"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
-
-
 def test_deferred_regimes_raise():
     cfg = get_smoke_config("llama3-8b")
     cl = CodedCluster.homogeneous(2, 4)
-    for kw in (dict(seq_shard=True), dict(pp=2), dict(microbatches=2)):
+    for kw in (dict(pp=2), dict(microbatches=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             CodedSession(cl, cfg, mode="coded", tp=2, device="cpu",
                          verbose=False, **kw)
-    ctx = sharding.ShardCtx(tp=2, seq_shard=True)
-    x = torch.zeros(2, 4, 8)
-    for fn in (ctx.gather_seq, ctx.scatter_seq, ctx.psum_scatter):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(x)
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import steps
 
-    for tcfg in (TrainConfig(pp_stages=2), TrainConfig(microbatches=2),
-                 TrainConfig(seq_shard_activations=True)):
+    for tcfg in (TrainConfig(pp_stages=2), TrainConfig(microbatches=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             steps.make_train_step(cfg, tcfg)
     with pytest.raises(ValueError, match="coded mode"):

@@ -115,16 +115,61 @@ def mesh_rank(pods, data, tp):
             lg[2, 0] = 9.0                 # the max on the last rank only
         out["argmax"] = ctx.argmax(lg, V * ctx.tp).numpy()
         out["argmax_full"] = ctx.argmax(lg, V).numpy()
+        out["sp"] = sp_helpers(ctx)
     return out
 
 
+def sp_cotangent(shape, r):
+    """Rank ``r``'s cotangent of an SP helper's output (the test rebuilds
+    every rank's)."""
+    return (np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+            - 7.0) * (r + 2)
+
+
+def sp_helpers(ctx, B=2, S=8, d=3):
+    """The three sequence-parallel helpers on known inputs, a round trip,
+    and each one's gradient under rank ``r``'s cotangent
+    (:func:`sp_cotangent`)."""
+    sp = dataclasses.replace(ctx, seq_shard=True)
+    r, Sl = ctx.axis_index(), S // ctx.tp
+    local = torch.arange(B * Sl * d, dtype=torch.float32).reshape(
+        B, Sl, d) * (r + 1)
+    full = torch.arange(B * S * d, dtype=torch.float32).reshape(B, S, d) \
+        * (r + 1)
+    out = {"gather": sp.gather_seq(local).numpy(),
+           "scatter": sp.scatter_seq(full).numpy(),
+           "psum_scatter": sp.psum_scatter(full).numpy(),
+           "round_trip": sp.scatter_seq(sp.gather_seq(local)).numpy(),
+           "off": [np.array_equal(f(full).numpy(), g.numpy()) for f, g in (
+               (ctx.gather_seq, full), (ctx.scatter_seq, full),
+               (ctx.psum_scatter, ctx.psum(full)))]}
+    for name, fn, x in (("gather", sp.gather_seq, local),
+                        ("scatter", sp.scatter_seq, full),
+                        ("psum_scatter", sp.psum_scatter, full)):
+        x = x.clone().requires_grad_(True)
+        y = fn(x)
+        cot = torch.from_numpy(sp_cotangent(tuple(y.shape), r))
+        (y * cot).sum().backward()
+        out[name + "_grad"] = x.grad.numpy()
+    try:
+        sp.scatter_seq(torch.zeros(B, S + 1, d))
+    except ValueError as e:
+        out["bad_len"] = str(e)
+    return out
+
+
+ARCHS = DENSE + ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
+                 "mamba2-370m", "recurrentgemma-2b", "whisper-medium")
+
+
 def shard_round_trip(tp):
-    """shard_params → gather_params for every dense config, and
+    """shard_params → gather_params for every config (the 3-D expert
+    leaves split on axis −3, the conv and SSM-head leaves on −1), and
     ``init_params(tp=tp, rank=r)`` against the slice of tp 1."""
     ctx = model_ctx(tp)
     r = dist.get_rank()
     bad = []
-    for arch in DENSE:
+    for arch in ARCHS:
         cfg = f32_cfg(arch)
         full = tf.init_params(cfg, torch.Generator().manual_seed(5),
                               device="cpu", dtype=torch.float32)
@@ -166,16 +211,23 @@ def shard_round_trip(tp):
     return bad
 
 
-def optimizer_reductions(tp):
+#: the optimizer's reductions on slices: the dense leaves, the 3-D
+#: expert leaves (split on axis −3), the SSD's conv and head leaves, the
+#: RG-LRU's row-parallel gates and conv
+OPT_ARCHS = ("llama3-8b", "granite-moe-3b-a800m", "mamba2-370m",
+             "recurrentgemma-2b")
+
+
+def optimizer_reductions(tp, arch="llama3-8b"):
     """The optimizer on a rank's slices against the same on the full
     leaves: the global norm, a clip and one adafactor and one adamw
-    update of llama3-8b's smoke params under random gradients → the
+    update of ``arch``'s smoke params under random gradients → the
     largest differences (gathered)."""
     from repro_torch.optim import clip_by_global_norm_, global_norm
 
     ctx = model_ctx(tp)
     r = dist.get_rank()
-    cfg = f32_cfg("llama3-8b")
+    cfg = f32_cfg(arch)
     axes = param_axes(cfg, tp)
     g = torch.Generator().manual_seed(3)
     full = tf.init_params(cfg, g, device="cpu", dtype=torch.float32)
@@ -220,7 +272,8 @@ def mesh_world(pods, data, tp):
     out = mesh_rank(pods, data, tp)
     if tp > 1 and dist.get_world_size() == tp:
         out["round_trip"] = shard_round_trip(tp)
-        out["optimizer"] = optimizer_reductions(tp)
+        out["optimizer"] = {a: optimizer_reductions(tp, a)
+                            for a in OPT_ARCHS}
     return out
 
 
@@ -232,7 +285,7 @@ def train_cases(cases):
     → rank 0's (loss, grad_norm, full params by flat key)."""
     out = []
     for c in cases:
-        cfg = f32_cfg(c["arch"])
+        cfg = dataclasses.replace(f32_cfg(c["arch"]), **c.get("changes", {}))
         tp = c["tp"]
         mesh = DistMesh.for_world(c["pods"], c["data"], tp)
         tcfg = TrainConfig(**c["tcfg"])
@@ -274,17 +327,51 @@ def serve_cases(cases, tp):
         cfg = f32_cfg(c["arch"])
         params = params_from_numpy(
             shard_params(c["params"], cfg, tp, ctx.rank), "cpu")
+        frames = c.get("enc_frames")
         toks = serving.generate(params, cfg, c["prompt"], c["gen"],
-                                max_len=c["max_len"],
+                                max_len=c["max_len"], enc_frames=frames,
                                 exact_handoff=c["exact"], device="cpu",
                                 ctx=ctx)
         with torch.no_grad():
-            logits, _ = tf.forward(params, cfg,
-                                   torch.from_numpy(c["prompt"]).long(),
-                                   ctx=ctx)
+            logits, _ = tf.forward(
+                params, cfg, torch.from_numpy(c["prompt"]).long(),
+                enc_frames=None if frames is None
+                else torch.from_numpy(frames), ctx=ctx)
         if logits.shape[-1] != cfg.vocab:
             logits = ctx.all_gather(logits, -1)
         out.append({"tokens": toks, "logits": logits.numpy()})
+    return out
+
+
+def archs_at_tp(archs, tp):
+    """Each smoke config at ``tp`` in this world → this rank's checks:
+    ``init_params`` gives the slices of the tp-1 shapes, ``init_cache``
+    builds, a coded session builds (and, but for whisper, whose coded
+    batches carry no frames, takes a step), and the serve CLI at ``--tp``
+    serves (joining this world) → its tokens."""
+    from repro_torch.api import CodedCluster, CodedSession
+    from repro_torch.launch import serve
+
+    r = dist.get_rank()
+    out = {}
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        axes = param_axes(cfg, tp)
+        full = _flatten(tf.init_params(cfg, device="meta"))
+        mine = _flatten(tf.init_params(cfg, device="cpu", tp=tp, rank=r))
+        bad = [k for k, v in full.items() if tuple(mine[k].shape) !=
+               tuple(shard_array(torch.empty(v.shape, device="meta"),
+                                 axes[k], tp, r).shape)]
+        tf.init_cache(cfg, 1, 8, device="cpu", tp=tp)
+        s = CodedSession(CodedCluster.homogeneous(2, 4), cfg, mode="coded",
+                         tp=tp, seq_len=16, total_steps=1, device="cpu",
+                         verbose=False)
+        losses = [] if cfg.is_encdec else list(s.fit(1)["losses"])
+        res = serve.main(["--arch", arch, "--device", "cpu", "--tp",
+                          str(tp), "--gen", "4"])
+        out[arch] = dict(bad_shapes=bad, split=sum(
+            ax is not None for ax in axes.values()), losses=losses,
+            tokens=np.asarray(res["tokens"]))
     return out
 
 
@@ -308,4 +395,35 @@ def session_run(kw, fit_kw, ckpt_step=0):
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
     return {"losses": list(s.losses), "params": full}
+
+
+def shrink_run(kw):
+    """A coded_int8 session on hetero(3, 2) in this world (or in this
+    process): 3 steps, edge 1 shrunk away, 3 more → rank 0's losses,
+    full params before the first step and at the end, and the first EF
+    residual's gathered rows before and after the shrink."""
+    from repro_torch.api import CodedCluster, CodedSession
+
+    s = CodedSession(CodedCluster.hetero(3, 2), f32_cfg("llama3-8b"),
+                     planner="fixed", mode="coded_int8", device="cpu",
+                     verbose=False, **kw)
+    start = {k: np.array(v) for k, v in s.full_params().items()}
+    key = leaf_keys(s.params)[0]
+    ctx = s._ctx
+
+    def rows():
+        # a copy: at tp 1 the host array would share the live residual
+        return np.array(gather_params({key: s.residual[0]}, s.cfg, ctx,
+                                      {key: s._axes[key]})[key])
+
+    s.fit(3)
+    before = rows()
+    s.shrink(dead_edges=[1])
+    after = rows()
+    s.fit(6)
+    full = s.full_params()
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    return {"losses": list(s.losses), "start": start, "params": full,
+            "before": before, "after": after, "pods": s.cluster.topo.n}
 
