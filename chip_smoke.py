@@ -78,8 +78,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      a row whose kept experts differ is left out of the check, at most
      1%).  Each served at full width in bf16 through the serve CLI as
      phase 4 (batch 4, 32 tokens, 1024-token prompts, gemma3's 2048 so
-     its window bites; maverick through ``launch.serve.serve`` cut to 2
-     layers, all 48 being ~800 GB): exact launches, host times, peak
+     its window bites; ``--layers`` cuts gemma3 to 32 layers, granite-moe
+     to 8 and maverick to 2, all 48 being ~800 GB): exact launches, host
+     times, peak
      memory, profiled device time (the profiled request has 8 new
      tokens: reading its trace back costs seconds a decode step).
      gemma3 cut to 6 layers with a
@@ -96,13 +97,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      rest RG-LRU layers).  Card against CPU at full width in float32, cut
      to 2 and 5 layers: the full forward of 2 × 64 tokens, then the
      exact handoff of that prompt and 8 decode steps, within 2e-3 ·
-     max|logit| (phase 3's gate).  Each served at full width and depth in
-     bf16 through the serve CLI as phase 4 but for 256-token prompts (the
+     max|logit| (phase 3's gate).  Each served at full width in bf16
+     through the serve CLI (``--layers``: mamba2 24 layers,
+     recurrentgemma 14) as phase 4 but for 256-token prompts (the
      exact handoff is one decode step a prompt token; a short request
-     warms up): exact launches (recurrentgemma 8 × (256 + 32) decode, no
+     warms up): exact launches (recurrentgemma 4 × (256 + 32) decode, no
      flash; none for mamba2), host times, peak memory, profiled device
-     time.  Each trained in coded_q int8 as granite-moe (mamba2 at all 48
-     layers, recurrentgemma cut to 5), twice, bit for bit.
+     time.  Each trained in coded_q int8 as granite-moe (mamba2 cut to 8
+     of its 48 layers, recurrentgemma to 5), twice, bit for bit.
   4d. encdec_vlm: whisper-medium (24 encoder + 24 decoder layers, MHA
      Dh 64, 1500 frames) and qwen2-vl-2b (28 layers, G 6, M-RoPE).  Card
      against CPU at full width in float32 (phase 3's gate): whisper cut
@@ -120,8 +122,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      prompt handed off token by token (a self and a cross decode launch
      per layer and token: 48 × (16 + 32)); the profiled whisper request
      16 + 8 tokens, its encoder's device time split out by the launches
-     under its span.  qwen2-vl trained whole in coded_q int8 as
-     granite-moe, twice, bit for bit; whisper cut to 2 + 2 layers through
+     under its span.  qwen2-vl trained (14 of its 28 layers; phase "pp"
+     trains it whole) in coded_q int8 as granite-moe, twice, bit for
+     bit; whisper cut to 2 + 2 layers through
      ``make_train_step`` (adamw, 4 × 64 tokens over 1500 frames): the
      step-0 gradients card against CPU by phase 5's rule (the encoder's
      unused cross-attention leaves zero on both), then 4 steps with
@@ -173,14 +176,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      bulk prefill of 2 × 64 tokens and 8 greedy decode steps at tp 2
      against the same at tp 1 in the parent, from one seed: gathered
      logits within 2e-3 · max|logit| (phase 3's gate), tokens equal.
-     (b) ``launch.serve.main([..., "--tp", "2"])`` inside the ranks
-     serves phase 4's request (llama3-8b whole, bf16, 4 × 1024-token
-     prompts, 32 tokens): a warm-up, the counted request (exactly 32
-     flash and 1024 decode launches on each rank), rank 0's profiled
-     request of 4 new tokens with the host time inside collectives
-     split out (the ``tp.collective`` profiler spans), each rank's
-     host times and peak memory, and the share of tokens equal to
-     phase 4's (not gated: bf16 rounding depends on the shard layout).
+     (b) ``launch.serve.main([..., "--tp", "2", "--layers", "8"])``
+     inside the ranks serves phase 4's request (llama3-8b cut to
+     ``TP_SERVE_LAYERS`` 8 layers, bf16, 4 × 1024-token prompts, 32
+     tokens): a warm-up, the counted request (exactly one flash and 32
+     decode launches a layer on each rank), rank 0's profiled request
+     of 8 new tokens with the host time inside collectives split out
+     (the ``tp.collective`` profiler spans), each rank's host times and
+     peak memory.
      (c) ``CodedSession`` in coded_q int8 with tp 2 at the phase-6
      settings (2 layers, adamw, seq 512, homogeneous(2, 4), hgc (1, 1),
      K 8, block 64; every (pod, data) group in turn on each rank), 4
@@ -208,14 +211,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      greedy tokens' match printed; two sgd steps (lr 1e-3, no warm-up)
      of the dist train step at tp 2 with and without SP, both losses
      and gradient norms within ``TP_LOSS_RTOL`` of tp 1's.  (f) the
-     serve CLI at ``--tp 2`` serves granite-moe-3b-a800m whole as (b)
-     (exact launches, rank 0 profiled, the tokens' match with phase
-     "archs"' not gated), and a ``CodedSession`` trains it (4 layers)
+     serve CLI at ``--tp 2`` serves granite-moe-3b-a800m as (b) (8
+     layers; exact launches, rank 0 profiled, the tokens' match with
+     phase "archs"' not gated), and a ``CodedSession`` trains it (1 layer)
      in coded_q int8 at tp 2 with SP at the phase-6 settings but for 2
      steps (edge 1 dropped at step 1, so adamw's moments and the EF
      residual carry across a step; an MoE step at tp 2 takes ~10–15 s
      over gloo), twice, bit for bit (losses, aux losses, every trained
-     leaf), exact launches a step; then ``serve.serve`` serves
+     leaf), exact launches a step; then the serve CLI serves
      llama4-maverick in bf16 at tp 2 with all 128 experts (64 a rank),
      cut to 2 layers as phase "archs" serves it, phase 4's request:
      exact launches on each rank, finite tokens.  In (b) and (f) both
@@ -229,6 +232,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      at H = Kv = 8, non-causal, and the cross cache's decode; granite-moe
      at tp 2: H 12, Kv 4, flash and decode) and ``coded_combine_q`` at
      K 2 × F 262,668,288 (half the embedding leaf).
+  pp. pipeline parallelism at pp 2 (after "tp", before 9): the parent
+     frees its memory and spawns two ranks over gloo on the one card
+     (``dist.launch.run_ranks``), which run (a)'s smaller configs while
+     the parent runs the pp-1 references, then the rest of (a) and (b);
+     then four ranks run (c).  (a)
+     llama3-8b, granite-moe-3b-a800m (one microbatch), qwen2-vl-2b (the
+     vision layout), mamba2-370m (2 layers each), recurrentgemma-2b (8:
+     two groups, two rest layers) and whisper-medium (2 + 2) at full
+     width in float32: two sgd steps (lr 1e-3, no warm-up) of the
+     pipelined dist step on two ranks, the quarter batch tiled over two
+     groups with λ = 1/2, against the single-device step on the quarter
+     in the parent: losses and gradient norms within ``TP_LOSS_RTOL``.
+     (b) qwen2-vl-2b whole (28 layers, 14 a stage) in coded_q int8 at
+     the phase-6 settings with pp 2 and 2 microbatches, 4 steps (edge 1
+     dropped at step 2), twice: exact launches a step on each rank
+     (flash 8 groups × 2 microbatches × 14 layers × 2 for the remat; the
+     int8 combine once per leaf held), finite losses, the step-0 loss
+     within 2e-3 · |loss| and steps 1–3 within ``TP_LOSS_RTOL`` of a
+     pp-1 session in the parent whose gradient is summed over the same 2
+     row blocks, adamw's step-0 first moment per leaf and stage block
+     within ``TP_LEAF_SHARE`` of that session's, the runs bit for bit;
+     rank 0's last step profiled (host ms inside ``pp.collective``, the
+     device's busy share).  (c) the same model at pp 2 × tp 2 with SP on
+     four ranks, one step, once: exact launches, the step-0 loss against
+     the same pp-1 session, each leaf's step-0 first moment within
+     ``PP_TP_LEAF_L2`` (relative L2).
+     Peak memory and host ms a step per rank.  Phase 2 adds flash at the
+     pipeline's microbatch (q 2 × 512 × 12 × 128, Kv 2, with the
+     log-sum-exp) and ``coded_combine_q`` at K 2 × F 233,373,696 (the
+     tied table every stage holds).
   9. the paper's evaluation path (``simulate_training``): the CNN under
      hgc and the logreg under greedy, 3 iterations at batch 32 per part,
      on the card and on the CPU from the same weights (times equal,
@@ -251,6 +284,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -259,6 +293,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -596,13 +631,14 @@ def _time_decode(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0, C=None,
 
 
 def _time_flash(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0,
-                with_lse=False, T=None, causal=True):
+                with_lse=False, T=None, causal=True, batch=B):
     """Flash forward at a main path's shapes (bf16, batch 4, causal, over
     a ``window`` for a local layer): a prefill's (llama3's S = 1024:
     q/k/v/o are 84 MB, more than the L2 holds) or, with the log-sum-exp
     the training forward saves, one training group's (S = 512); or
     non-causal over ``T`` keys (whisper's encoder, S = T = 1500, and its
-    cross-attention, S queries over T = 1500 frames)."""
+    cross-attention, S queries over T = 1500 frames); ``batch`` rows
+    (a pipeline microbatch's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -612,9 +648,9 @@ def _time_flash(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0,
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(8)
     T = T or S
-    q = torch.randn(B, S, H, DH, generator=gen, device="cuda").to(dt)
-    k = torch.randn(B, T, KV, DH, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, T, KV, DH, generator=gen, device="cuda").to(dt)
+    q = torch.randn(batch, S, H, DH, generator=gen, device="cuda").to(dt)
+    k = torch.randn(batch, T, KV, DH, generator=gen, device="cuda").to(dt)
+    v = torch.randn(batch, T, KV, DH, generator=gen, device="cuda").to(dt)
     kw = dict(causal=causal, window=window, return_lse=with_lse)
     got = flash_attention_fwd(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
@@ -641,9 +677,9 @@ def _time_flash(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0,
     kernel_ms = graph_ms(lambda: flash_attention_fwd(q, k, v, **kw), 20)
     plain_ms = timed_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 5)
     lib_ms = graph_ms(lib, 20)
-    nbytes = (2 * B * S * H * DH + 2 * B * T * KV * DH) * 2 \
-        + (B * S * H * 4 if with_lse else 0)
-    flops = 4 * B * H * DH * int(allowed.sum())  # the (q, k) pairs attended
+    nbytes = (2 * batch * S * H * DH + 2 * batch * T * KV * DH) * 2 \
+        + (batch * S * H * 4 if with_lse else 0)
+    flops = 4 * batch * H * DH * int(allowed.sum())  # the pairs attended
     bms, by = bound_ms(nbytes, flops, "bfloat16")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), row_err
@@ -959,6 +995,14 @@ def phase_kernels():
             f"{r['library_ms']:.4f} ms")
         torch.cuda.empty_cache()
     _time_encdec_vlm(torch)
+    r, row_err = _time_flash(torch, **PP_FLASH)
+    log(f"[kernels] flash_attention at qwen2-vl's pipeline microbatch "
+        f"(B={PP_MICRO} S={TRAIN_SEQ} H=12 Kv=2 Dh=128, with log-sum-exp): "
+        f"max abs err {r['max_abs_err']:.3g}, worst row {row_err:.3g} of "
+        f"its max; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"bound {1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), sdpa "
+        f"{r['library_ms']:.4f} ms")
+    torch.cuda.empty_cache()
     for label, (kind, kw) in TP_ARCH_SHAPES.items():
         timer = _time_decode if kind == "decode" else _time_flash
         r, row_err = timer(torch, **kw)
@@ -984,12 +1028,14 @@ def phase_kernels():
                 f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f} us "
                 f"({r['bound_by']}), sdpa {r['library_ms']:.4f} ms")
         torch.cuda.empty_cache()
-    # the hop's largest leaf at tp 2 is half the embedding (d-sharded)
+    # the hop's largest leaf at tp 2 is half the embedding (d-sharded);
+    # at pp 2 (qwen2-vl) every stage's is the whole tied table
     shapes = [("f32", 8, 8, WD_F, 1), ("f32", 1, 8, WD_F, 1),
               ("int8", 1, 2, EMBED_F, HOP_BLOCK),
               ("int4", 1, 2, EMBED_F, HOP_BLOCK),
               ("fp8", 1, 2, EMBED_F, HOP_BLOCK),
-              ("int8", 1, 2, EMBED_F // TP, HOP_BLOCK)]
+              ("int8", 1, 2, EMBED_F // TP, HOP_BLOCK),
+              ("int8", 1, 2, QWEN_TABLE_F, HOP_BLOCK)]
     for kind, R, K, F, block in shapes:
         r, share, turns = _time_combine(torch, kind, R, K, F, block)
         name = COMBINE[kind][0]
@@ -1192,13 +1238,16 @@ def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
 
 # phase "archs": the configs served beside llama3-8b.  Layers kept for
 # the card-vs-CPU parity (the fewest that hold every kind of layer the
-# config has) and for serving (None: the whole config, through the CLI);
-# the prompt length (gemma3's passes its 1024-token window)
+# config has) and for serving through the CLI (None: the whole config;
+# gemma3 at 32 of its 62 layers, five (5 local, 1 global) groups and the
+# 2 rest layers, and granite-moe at 8 of its 32 identical MoE layers:
+# the script's time limit makes room for phase "pp"); the prompt length
+# (gemma3's passes its 1024-token window)
 ARCHS = {  # arch → (parity layers, served layers, prompt)
     "granite-8b": (2, None, PROMPT),
     "starcoder2-3b": (2, None, PROMPT),
-    "gemma3-27b": (6, None, 2048),
-    "granite-moe-3b-a800m": (2, None, PROMPT),
+    "gemma3-27b": (6, 32, 2048),
+    "granite-moe-3b-a800m": (2, 8, PROMPT),
     "llama4-maverick-400b-a17b": (2, 2, PROMPT),  # 48 layers: ≈ 800 GB
 }
 HANDOFF_PROMPT = 1088   # gemma3's bulk vs exact handoff, 6 layers
@@ -1476,8 +1525,9 @@ def _coded_twice(torch, arch, n_layers, totals, tag="[archs]"):
 
 def phase_archs():
     """The five configs beside llama3-8b: card against CPU at full width
-    (float32, cut in depth), each served at full width in bf16 with
-    exact launch counts (maverick cut to 2 layers), gemma3's windowed
+    (float32, cut in depth), each served at full width in bf16 through
+    the serve CLI with exact launch counts (``ARCHS``' depths), gemma3's
+    windowed
     bulk handoff against the exact one, and granite-moe's coded MoE
     training repeated bit for bit.  → the launches of the served
     requests and the training steps."""
@@ -1493,20 +1543,16 @@ def phase_archs():
     for arch, (_, served, prompt) in ARCHS.items():
         t0 = time.perf_counter()
         cfg = get_config(arch)
-        if served is None:
-            argv = ["--arch", arch, "--no-smoke", "--batch", str(B),
-                    "--prompt-len", str(prompt)]
-
-            def request(gen):
-                return lambda: serve.main(argv + ["--gen", str(gen)])
-            label = arch
-        else:
+        argv = ["--arch", arch, "--no-smoke", "--batch", str(B),
+                "--prompt-len", str(prompt)]
+        label = arch
+        if served is not None:
             cfg = dataclasses.replace(cfg, n_layers=served)
-
-            def request(gen):
-                return lambda: serve.serve(cfg, batch=B, prompt_len=prompt,
-                                           gen_len=gen)
+            argv += ["--layers", str(served)]
             label = f"{arch} ({served} layers)"
+
+        def request(gen):
+            return lambda: serve.main(argv + ["--gen", str(gen)])
         counts = _serve_runs(request(GEN), cfg, label, prompt=prompt,
                              profiled=(request(ARCHS_PROFILED_GEN), prompt,
                                        ARCHS_PROFILED_GEN))
@@ -1523,18 +1569,22 @@ def phase_archs():
 # phase "recurrent": the SSD and RG-LRU archs.  Layers kept for the
 # card-vs-CPU parity (mamba2 2; recurrentgemma 5: one (rec, rec, local)
 # group and 2 rest layers, as its 26 = 8 x 3 + 2) and for the coded
-# training (None: all 48 of mamba2's); both served whole
-RECURRENT = {  # arch → (parity layers, trained layers)
-    "mamba2-370m": (2, None),
-    "recurrentgemma-2b": (5, 5),
+# training and serving (mamba2 trained at 8 and served at 24 of its 48
+# identical SSD layers; recurrentgemma served at 14 of its 26: four (rec,
+# rec, local) groups and the 2 rest layers; the script's time limit
+# makes room for phase "pp")
+RECURRENT = {  # arch → (parity layers, trained layers, served layers)
+    "mamba2-370m": (2, 8, 24),
+    "recurrentgemma-2b": (5, 5, 14),
 }
 
 
 def phase_recurrent():
     """mamba2-370m and recurrentgemma-2b: card against CPU at full width
     (float32, cut in depth; the full forward, then the exact handoff of
-    the prompt and 8 decode steps), each served at full width and depth
-    in bf16 through the serve CLI as phase 4 but for 256-token prompts
+    the prompt and 8 decode steps), each served at full width in bf16
+    (``RECURRENT``'s depth) through the serve CLI as phase 4 but for
+    256-token prompts
     (the exact handoff runs one decode step a prompt token; a short
     request warms up), and each trained in coded_q int8 twice, bit for
     bit.  → the launches of the served requests and the training
@@ -1546,12 +1596,13 @@ def phase_recurrent():
     from repro_torch.launch import serve
 
     totals = {name: 0 for name in ops.KERNELS}
-    for arch, (layers, _) in RECURRENT.items():
+    for arch, (layers, _, _) in RECURRENT.items():
         _parity(torch, arch, layers)
-    for arch in RECURRENT:
+    for arch, (_, _, served) in RECURRENT.items():
         t0 = time.perf_counter()
-        cfg = get_config(arch)
-        argv = ["--arch", arch, "--no-smoke", "--batch", str(B)]
+        cfg = dataclasses.replace(get_config(arch), n_layers=served)
+        argv = ["--arch", arch, "--no-smoke", "--batch", str(B),
+                "--layers", str(served)]
 
         def request(prompt, gen):
             return lambda: serve.main(argv + ["--prompt-len", str(prompt),
@@ -1566,7 +1617,7 @@ def phase_recurrent():
         log(f"[recurrent] served {arch}: {cfg.n_layers} layers, "
             f"{cfg.param_counts()[0]:,} params, {REC_PROMPT}-token prompts "
             f"({time.perf_counter() - t0:.1f} s)")
-    for arch, (_, trained) in RECURRENT.items():
+    for arch, (_, trained, _) in RECURRENT.items():
         _coded_twice(torch, arch, trained, totals, tag="[recurrent]")
     return totals
 
@@ -1576,6 +1627,9 @@ def phase_recurrent():
 # layout's patch grid (qwen2-vl: 8 × 8 patches, then as many text tokens)
 ENCDEC_PARITY_LAYERS = (2, 2)
 VLM_PARITY_LAYERS, VLM_GRID = 2, 8
+#: qwen2-vl's coded training here: 14 of its 28 identical layers (phase
+#: "pp" trains it whole, at pp 1 and at pp 2; the script's time limit)
+VLM_TRAIN_LAYERS = 14
 
 
 def vision_positions(torch, B, grid, n_text):
@@ -1765,8 +1819,9 @@ def phase_encdec_vlm():
     launches (qwen2-vl as phase 4: bulk prefill of 1024-token prompts;
     whisper: 1500 seeded frames encoded once a request, a 16-token
     prompt handed off token by token; the profiled whisper request 16 +
-    8 tokens); qwen2-vl trained whole in coded_q int8 twice, bit for
-    bit, and whisper through ``make_train_step`` (:func:`_encdec_train`).
+    8 tokens); qwen2-vl trained (``VLM_TRAIN_LAYERS``) in coded_q int8
+    twice, bit for bit, and whisper through ``make_train_step``
+    (:func:`_encdec_train`).
     → the launches of the served requests and the training steps."""
     import torch
 
@@ -1801,7 +1856,8 @@ def phase_encdec_vlm():
                f"frames" if cfg.is_encdec else "")
             + f", {cfg.param_counts()[0]:,} params, {prompt}-token prompts "
             f"({time.perf_counter() - t0:.1f} s)")
-    _coded_twice(torch, "qwen2-vl-2b", None, totals, tag="[encdec_vlm]")
+    _coded_twice(torch, "qwen2-vl-2b", VLM_TRAIN_LAYERS, totals,
+                 tag="[encdec_vlm]")
     _encdec_train(torch, totals)
     return totals
 
@@ -2442,7 +2498,15 @@ TP_ARCHS = {
 }
 TP_ARCH_SEQ = 64          # (e): the prompt and the training sequence
 TP_ARCH_LR = 1e-3         # (e): sgd, no warm-up, two steps
-TP_MOE = "granite-moe-3b-a800m"  # (f): served whole and trained at tp 2
+TP_MOE = "granite-moe-3b-a800m"  # (f): served and trained at tp 2
+#: (b), (f): llama3-8b and granite-moe served at tp 2 through the serve
+#: CLI cut to 8 of their 32 identical layers (the gloo collectives of a
+#: served layer take ~0.1-0.2 s a request; the script's time limit makes
+#: room for phase "pp")
+TP_SERVE_LAYERS = 8
+#: (f): granite-moe's trained depth at tp 2 + SP (every layer is MoE:
+#: depth adds no branch; cut from 4 to make room for phase "pp")
+TP_MOE_TRAIN_LAYERS = 1
 TP_MOE_STEPS = 2          # (f): each of the two runs, edge 1 dropped at
 #                           step 1, so adamw's moments and the EF residual
 #                           carry across a step and a drop mid-run
@@ -2605,11 +2669,10 @@ def _collective_ms(prof, span):
     return out, n
 
 
-def _tp_serve(rank, arch, layers=None, warm_gen=GEN, profiled=True):
+def _tp_serve(rank, arch, layers, warm_gen=GEN, profiled=True):
     """Rank ``rank``'s part of the served request at tp 2: ``arch`` at
-    full width, bf16, phase 4's request, through the serve CLI (``--tp
-    2`` joins this world), or with ``layers`` through ``serve.serve``
-    at this world's ctx with the config cut to that depth; a warm-up
+    full width cut to ``layers``, bf16, phase 4's request, through the
+    serve CLI (``--tp 2`` joins this world); a warm-up
     request of ``warm_gen`` new tokens, the counted one (exactly phase
     4's launches on each rank), and, if ``profiled``, on rank 0 one
     profiled request of ``TP_PROFILED_GEN`` new tokens (every rank runs
@@ -2620,25 +2683,18 @@ def _tp_serve(rank, arch, layers=None, warm_gen=GEN, profiled=True):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.dist.sharding import model_ctx
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(arch)
-    if layers is None:
-        argv = ["--arch", arch, "--no-smoke", "--batch", str(B),
-                "--prompt-len", str(PROMPT), "--tp", str(TP)]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    argv = ["--arch", arch, "--no-smoke", "--batch", str(B),
+            "--prompt-len", str(PROMPT), "--tp", str(TP), "--layers",
+            str(layers)]
 
-        def request(gen):
-            return serve.main(argv + ["--gen", str(gen)])
-    else:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
-
-        def request(gen):
-            return serve.serve(cfg, batch=B, prompt_len=PROMPT, gen_len=gen,
-                               ctx=model_ctx(TP))
+    def request(gen):
+        return serve.main(argv + ["--gen", str(gen)])
     request(warm_gen)
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
@@ -2820,7 +2876,7 @@ def _tp_rank(ref):
     out["parity"] = (toks, logits if rank == 0 else None)
     secs["a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["serve"] = _tp_serve(rank, "llama3-8b")
+    out["serve"] = _tp_serve(rank, "llama3-8b", TP_SERVE_LAYERS)
     secs["b"] = time.perf_counter() - t0
     ref_dir = Path(ref["ref_dir"])
     for leg, sp in (("c", False), ("d", True)):
@@ -2837,8 +2893,10 @@ def _tp_rank(ref):
         out["e"][arch] = (toks, logits if rank == 0 else None, train)
     secs["e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["f_serve"] = _tp_serve(rank, TP_MOE, warm_gen=TP_WARM_GEN)
-    cfg = dataclasses.replace(get_config(TP_MOE), n_layers=MOE_TRAIN_LAYERS)
+    out["f_serve"] = _tp_serve(rank, TP_MOE, TP_SERVE_LAYERS,
+                               warm_gen=TP_WARM_GEN)
+    cfg = dataclasses.replace(get_config(TP_MOE),
+                              n_layers=TP_MOE_TRAIN_LAYERS)
     out["f_train"] = _tp_train(rank, cfg, seq_shard=True,
                                steps=TP_MOE_STEPS)
     arch, layers = TP_MAVERICK
@@ -2915,11 +2973,10 @@ def phase_tp():
     parent frees its memory.  (a) Card against card in float32:
     llama3-8b at full width cut to 2 layers, the tp-2 ranks against a
     tp-1 run in this process: logits within 2e-3 · max|logit|, tokens
-    equal.  (b) The serve CLI at ``--tp 2`` (llama3-8b whole, bf16,
-    phase 4's request): exact launches on each rank, rank 0's profiled
-    request with the host time inside collectives split out, the share
-    of tokens equal to phase 4's (not gated: bf16 rounding depends on
-    the shard layout).  (c) coded_q int8 at the phase-6 settings with tp
+    equal.  (b) The serve CLI at ``--tp 2`` (llama3-8b cut to
+    ``TP_SERVE_LAYERS``, bf16, phase 4's request): exact launches on
+    each rank, rank 0's profiled request with the host time inside
+    collectives split out.  (c) coded_q int8 at the phase-6 settings with tp
     2, twice: exact launches a step, finite losses, the step-0 loss
     within 2e-3 · |loss| of a tp-1 session's in this process and the
     losses of steps 1-3 within ``TP_LOSS_RTOL`` · |loss| of it (steps
@@ -2933,8 +2990,10 @@ def phase_tp():
     logits within 2e-3 · max|logit| of it, the greedy tokens' match
     printed; two sgd steps of the dist train step with and without SP,
     losses and gradient norms within ``TP_LOSS_RTOL`` of tp 1's.  (f)
-    granite-moe served whole at ``--tp 2`` as (b), and trained in
-    coded_q int8 at tp 2 with SP (4 layers, the phase-6 settings but
+    granite-moe served at ``--tp 2`` as (b) (its tokens' share equal to
+    phase "archs"' request at the same depth printed, not gated), and
+    trained in coded_q int8 at tp 2 with SP (1 layer, the phase-6
+    settings but
     ``TP_MOE_STEPS`` steps, edge 1 dropped at step 1), twice, bit for
     bit; maverick served in bf16 at tp 2 with all 128 experts, cut to
     ``TP_MAVERICK``'s 2 layers, exact launches on each rank.  In (b) and
@@ -3017,7 +3076,10 @@ def phase_tp():
     # (b) and (f) serving
     mav, mav_layers = TP_MAVERICK
     for leg, key, arch, label in (
-            ("b", "serve", "llama3-8b", ""), ("f", "f_serve", TP_MOE, TP_MOE),
+            ("b", "serve", f"llama3-8b ({TP_SERVE_LAYERS} layers)",
+             f"llama3-8b ({TP_SERVE_LAYERS} layers)"),
+            ("f", "f_serve", f"{TP_MOE} ({TP_SERVE_LAYERS} layers)",
+             f"{TP_MOE} ({TP_SERVE_LAYERS} layers)"),
             ("f", "f_maverick", f"{mav} ({mav_layers} layers, "
              f"{get_config(mav).n_experts} experts)",
              f"{mav} ({mav_layers} layers)")):
@@ -3090,7 +3152,7 @@ def phase_tp():
             f"{100 * float((t2 == t1).mean()):.1f}%")
 
     # (f) granite-moe's training
-    _log_train("f", outs, f"{TP_MOE} ({MOE_TRAIN_LAYERS} layers) SP",
+    _log_train("f", outs, f"{TP_MOE} ({TP_MOE_TRAIN_LAYERS} layers) SP",
                "f_train")
     log(f"[tp] (f) {TP_MOE} coded_q int8 at tp 2 with SP: the two runs "
         f"equal bit for bit on every rank (losses, aux losses, every leaf)")
@@ -3105,6 +3167,602 @@ def phase_tp():
         f"{_nonzero(totals)}")
     if failures:
         raise AssertionError("phase tp: " + "; ".join(failures))
+    return totals
+
+
+# ----------------------------------------------------------------------
+# phase "pp": pipeline parallelism, ranks sharing the card over gloo
+# ----------------------------------------------------------------------
+PP = 2
+PP_VLM = "qwen2-vl-2b"    # (b), (c): trained whole (28 layers, 14 a stage)
+PP_MICRO = 2              # (b), (c): 4 rows a group, 2 a microbatch
+PP_STEPS = 4              # (b): edge 1 dropped at step 2, twice
+#: (c): one step, once (with M 2 and SP, ~2700 gloo collectives a step
+#: take ~55 s on four ranks of one card: a second would bring the script
+#: near its time limit); (b)'s 4 steps carry adamw's moments and the EF
+#: residual across a drop at pp 2, and at pp 2 x tp 2 + SP the CPU test
+#: ``tests/test_torch_pp_tp.py`` carries momentum and the EF
+#: residuals across 4 steps and a drop
+PP_TP_STEPS = 1
+PP_REF_WAIT = 300         # the ranks' wait for the pp-1 references
+PP_ARCH_SEQ = 64          # (a): the quarter's sequence (qwen2-vl: 128)
+PP_ARCH_LR = 1e-3         # (a): sgd, no warm-up, two steps
+#: (a): arch → (layers, microbatches, further changes); the MoE config
+#: runs one microbatch (its capacity and aux depend on the token count)
+PP_ARCHS = {
+    "llama3-8b": (2, 2, {}),
+    "granite-moe-3b-a800m": (2, 1, {}),
+    "qwen2-vl-2b": (2, 2, {}),
+    "mamba2-370m": (2, 2, {}),
+    "recurrentgemma-2b": (8, 2, {}),
+    "whisper-medium": (2, 2, dict(n_enc_layers=2)),
+}
+#: (a): the configs the ranks run once the parent has freed its memory
+#: (their f32 tables, 2 x 2.1 GB and 2.6 GB a stage, would not fit beside
+#: the parent's pp-1 session); the others run beside it
+PP_ARCHS_LATE = ("llama3-8b", "recurrentgemma-2b")
+#: phase 2: the pipeline's new kernel shapes
+PP_FLASH = dict(S=TRAIN_SEQ, batch=PP_MICRO, with_lse=True, **QWEN_SHAPE)
+QWEN_TABLE_F = 151936 * 1536      # qwen2-vl's tied table, the hop's largest
+
+
+def _pp_arch_cfg(arch):
+    """A phase-"pp" (a) config: full width, float32, the leg's depth."""
+    from repro_torch.configs.registry import get_config
+
+    layers, _, changes = PP_ARCHS[arch]
+    return dataclasses.replace(get_config(arch), n_layers=layers,
+                               dtype="float32", **changes)
+
+
+def _pp_quarter(torch, cfg):
+    """(a)'s quarter batch, 2 rows from seed 2 on the card: qwen2-vl's at
+    the vision layout (an 8 × 8 grid of visual embeddings, then 64 text
+    positions), whisper's with its frames."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    S = 2 * VLM_GRID * VLM_GRID if cfg.mrope_sections else PP_ARCH_SEQ
+    shape = (2, S)
+    batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                     device="cuda"),
+             "targets": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                      device="cuda"),
+             "weights": torch.ones(shape, device="cuda"),
+             "denom": torch.tensor(float(shape[0] * shape[1]),
+                                   device="cuda")}
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn((2, cfg.enc_len, cfg.d_model),
+                                          generator=gen, device="cuda")
+    if cfg.mrope_sections:
+        n_vis = VLM_GRID * VLM_GRID
+        batch["visual_embeds"] = torch.randn((2, n_vis, cfg.d_model),
+                                             generator=gen, device="cuda")
+        batch["positions"] = vision_positions(
+            torch, 2, VLM_GRID, S - n_vis).contiguous().cuda()
+    return batch
+
+
+def _pp_arch_train(arch, mesh=None):
+    """(a): two sgd steps (lr ``PP_ARCH_LR``, no warm-up, no clip) of
+    ``arch``'s leg config, weights from seed 1 → (the two losses, the two
+    gradient norms).  Without ``mesh`` the single-device step on the
+    quarter; with the world's ``DistMesh`` the pipelined dist step on the
+    quarter tiled over its groups, λ = 1 / groups (the CPU tests'
+    construction)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    cfg = _pp_arch_cfg(arch)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pp, stage = (mesh.pp, mesh.stage) if mesh is not None else (1, 0)
+    params = tf.init_params(cfg, gen, device="cuda", dtype=torch.float32,
+                            pp=pp, stage=stage)
+    for p in _tree.leaves(params):
+        p.requires_grad_(True)
+    batch = _pp_quarter(torch, cfg)
+    tcfg = TrainConfig(optimizer="sgd", lr=PP_ARCH_LR, total_steps=10,
+                       warmup_steps=0, grad_clip=0.0, pp_stages=pp,
+                       microbatches=PP_ARCHS[arch][1] if pp > 1 else 0)
+    if mesh is None:
+        step = steps.make_train_step(cfg, tcfg)
+    else:
+        n = mesh.pods * mesh.data
+        batch = {k: v if v.ndim == 0 else
+                 (v.repeat(1, n, 1) if k == "positions"
+                  else v.repeat(n, *([1] * (v.ndim - 1))))
+                 for k, v in batch.items()}
+        lam = np.full((mesh.pods, mesh.data), 1.0 / n, np.float32)
+        dist_step = steps._make_dist_train_step(cfg, tcfg, mesh)
+
+        def step(params, state, batch, s):
+            params, state, _, m = dist_step(params, state, batch, lam, [], s)
+            return params, state, m
+
+        step.optimizer = dist_step.optimizer
+    state = step.optimizer.init(params)
+    losses, norms = [], []
+    for s in range(2):
+        params, state, m = step(params, state, batch, s)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, norms
+
+
+@contextlib.contextmanager
+def _microbatched(M):
+    """While open, the dist step's gradient of a (pod, data) group is the
+    sum of its ``M`` row blocks' (``launch.steps._grads`` wrapped): the
+    pp-1 reference of (b) and (c) then rounds its bf16 weight gradients
+    per microbatch, as the pipeline does, so the comparison isolates what
+    the stages change (one session at pp 1 refuses microbatches, as the
+    reference's does).  The blocks' sum is the pipeline's (two terms: the
+    order of its accumulation does not matter); a dense config's."""
+    from repro_torch.launch import steps
+
+    plain = steps._grads
+
+    def grads(params, cfg, batch, *args, **kw):
+        if cfg.is_moe:
+            raise ValueError("the blocks' sum of an MoE objective differs")
+        B = batch["tokens"].shape[0]
+        mb = B // M
+        total = loss = None
+        for i in range(M):
+            part = steps._batch_rows(batch, B, slice(i * mb, (i + 1) * mb))
+            g, m = plain(params, cfg, part, *args, **kw)
+            total = g if total is None else [a + b for a, b in zip(total, g)]
+            loss = m["loss"] if loss is None else loss + m["loss"]
+        return total, {"loss": loss}
+
+    steps._grads = grads
+    try:
+        yield
+    finally:
+        steps._grads = plain
+
+
+def _pp_leaf_diffs(session, ref_dir: Path):
+    """Of every leaf: (max |d|, Σ d², Σ ref²) where d is this rank's
+    slice of the step-0 first moment less the same slice of the pp-1
+    session's (its "model" slice, then its stage's block); the pp-1
+    leaves are ``.npy`` files in ``ref_dir``, read a slice at a time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.params import shard_array
+
+    out = {}
+    mesh = session._mesh
+    for k, m in _first_moment(session).items():
+        ref = np.load(_ref_file(ref_dir, "m0", k), mmap_mode="r")
+        part = shard_array(ref, session._axes.get(k), mesh.tp,
+                           mesh.model_rank)
+        part = np.array(shard_array(part, session._st_axes.get(k), mesh.pp,
+                                    mesh.stage))
+        ref = torch.from_numpy(part).to(m.device)
+        d = m.detach() - ref
+        out[k] = (float(d.abs().max()), float(torch.sum(d * d)),
+                  float(torch.sum(ref * ref)))
+    return out
+
+
+def _union_ms(records):
+    """The union of device intervals (ns) in ms."""
+    total, end = 0, None
+    for _, s, e in sorted(records, key=lambda r: r[1]):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e6
+
+
+def _pp_profile(session, step):
+    """Step ``step`` under ``torch.profiler`` (every rank runs it: one
+    program) → host ms of the step, host ms inside the ``pp.collective``
+    and ``tp.collective`` spans, the device's busy ms (the union of its
+    intervals) and launches with their device record."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist.sharding import PP_SPAN, SPAN
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        session.fit(step + 1, force_drop_edge=1, force_drop_step=2)
+        torch.cuda.synchronize()
+    host = 1e3 * (time.perf_counter() - t0)
+    spans = {PP_SPAN: [0.0, 0], SPAN: [0.0, 0]}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in spans:
+            spans[e.name][0] += e.time_range.elapsed_us() / 1e3
+            spans[e.name][1] += 1
+    records, launches, missing = _device_records(prof, DeviceType)
+    del prof
+    return dict(host_ms=host, pp_ms=spans[PP_SPAN][0],
+                pp_n=spans[PP_SPAN][1], tp_ms=spans[SPAN][0],
+                tp_n=spans[SPAN][1], busy_ms=_union_ms(records),
+                launches=launches, missing=missing)
+
+
+def _pp_train(rank, ref_dir, tp=1, seq_shard=False, steps=PP_STEPS,
+              runs=2, profiled=True):
+    """Rank ``rank``'s coded_q int8 training of qwen2-vl-2b whole at the
+    phase-6 settings with pp 2 (``tp``, ``seq_shard``: composed with TP
+    and SP), ``PP_MICRO`` microbatches, ``steps`` steps with edge 1
+    dropped at step 2 (when there is one), ``runs`` times: exact launches
+    a step (flash 8 groups × the microbatches × the stage's attention
+    layers × 2 for the remat; the int8 combine once per leaf the rank
+    holds), finite losses, the runs bit for bit; the first run's adamw
+    first moment after step 0 against the pp-1 session's
+    (:func:`_pp_leaf_diffs`); with ``profiled`` the last run's last step
+    under the profiler (:func:`_pp_profile`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(PP_VLM)
+    totals = {name: 0 for name in ops.KERNELS}
+    out = []
+    drop = 2
+    for run in range(runs):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        session = _session(cfg, "coded_q", "int8", "cuda", tp=tp,
+                           seq_shard=seq_shard, pp=PP,
+                           microbatches=PP_MICRO, total_steps=steps,
+                           **_train_kw())
+        want = {"coded_combine_q": len(_tree.leaves(session.params)),
+                "flash_attention": GROUPS * PP_MICRO
+                * (_attn_layers(cfg) // PP) * 2}
+        step_ms, prof = [], None
+        for step in range(steps):
+            ops.reset_launch_counts()
+            if profiled and run == runs - 1 and step == steps - 1:
+                prof = _pp_profile(session, step)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                session.fit(step + 1, force_drop_edge=1,
+                            force_drop_step=drop)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            counts = ops.launch_counts()
+            if _nonzero(counts) != want:
+                raise AssertionError(f"rank {rank} run {run} step {step}: "
+                                     f"launches {_nonzero(counts)}, "
+                                     f"expected {want}")
+            for k, v in counts.items():
+                totals[k] += v
+            if run == 0 and step == 0:
+                m0 = _pp_leaf_diffs(session, ref_dir)
+        if not np.isfinite(session.losses).all():
+            raise AssertionError(f"rank {rank}: losses {session.losses}")
+        out.append(dict(losses=list(session.losses), step_ms=step_ms,
+                        bits=_param_bits(session.params), prof=prof,
+                        peak_gib=torch.cuda.max_memory_allocated()
+                        / 2 ** 30, want=want, m0=m0 if run == 0 else None,
+                        params=sum(p.numel() for p in
+                                   _tree.leaves(session.params))))
+        del session
+    for o in out[1:]:
+        if o["losses"] != out[0]["losses"] or o["bits"] != out[0]["bits"]:
+            raise AssertionError(
+                f"rank {rank}: the pp-2 runs differ: losses "
+                f"{out[0]['losses']} and {o['losses']}")
+    return out, totals
+
+
+def _rank_threads(torch, world):
+    """The host's cores shared among the ranks of one card (gloo reduces
+    on the host: oversubscribed cores slow every collective)."""
+    import os
+
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+
+
+def _pp_wait(ref_dir: Path):
+    """Block until the parent has written the pp-1 references and freed
+    its memory (``READY`` in ``ref_dir``) → seconds waited."""
+    t0 = time.perf_counter()
+    while not (ref_dir / "READY").exists():
+        if (ref_dir / "FAILED").exists():
+            raise RuntimeError("the parent's pp-1 reference failed")
+        if time.perf_counter() - t0 > PP_REF_WAIT:
+            raise TimeoutError(f"no pp-1 reference in {ref_dir} after "
+                               f"{PP_REF_WAIT} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def _pp_rank(ref):
+    """One rank of phase "pp" at pp 2 (two ranks): (a) the six configs'
+    pipelined dist steps (``PP_ARCHS_LATE`` once the parent's pp-1
+    references are in ``ref_dir``), then (b) qwen2-vl-2b trained whole,
+    twice."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.mesh import DistMesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _rank_threads(torch, dist.get_world_size())
+    out = {"backend": dist.get_backend()}
+    secs = out["seconds"] = {}
+    ref_dir = Path(ref["ref_dir"])
+    t0 = time.perf_counter()
+    mesh = DistMesh.for_world(1, 2, 1, pp=PP)
+    out["a"] = {arch: _pp_arch_train(arch, mesh) for arch in PP_ARCHS
+                if arch not in PP_ARCHS_LATE}
+    secs["a, early"] = time.perf_counter() - t0
+    secs["wait"] = _pp_wait(ref_dir)
+    t0 = time.perf_counter()
+    out["a"].update({arch: _pp_arch_train(arch, mesh)
+                     for arch in PP_ARCHS_LATE})
+    secs["a, late"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = _pp_train(dist.get_rank(), ref_dir)
+    secs["b"] = time.perf_counter() - t0
+    return out
+
+
+def _pp_tp_rank(ref):
+    """One rank of phase "pp" (c): qwen2-vl-2b whole at pp 2 × tp 2 with
+    SP (four ranks), once."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _rank_threads(torch, dist.get_world_size())
+    t0 = time.perf_counter()
+    out = {"c": _pp_train(dist.get_rank(), Path(ref["ref_dir"]), tp=TP,
+                          seq_shard=True, steps=PP_TP_STEPS, runs=1,
+                          profiled=False)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+#: (c): the relative L2 error of a leaf's step-0 first moment at pp 2 ×
+#: tp 2 + SP against the pp-1 session's.  Under TP the bf16 activations
+#: round otherwise (each rank's partial of a row-parallel matmul is
+#: rounded to bf16 and gloo sums them in bf16), which spreads ~1% of
+#: noise over every gradient element at 4 layers and 4.7% at
+#: qwen2-vl's 28 (the same step in float32: 3e-4; at pp 2 without TP in
+#: bf16: 1.6e-6, the tied table one int8 quantum), so single elements
+#: pass ``TP_LEAF_SHARE`` (read 0.0594).  A copy whose replicated
+#: leaves' gradients skip the stage sum reads 0.71 on the table and the
+#: final norm (PERF.md §6)
+PP_TP_LEAF_L2 = 0.1
+
+
+def _pp_gate_leaves(leg, outs, m0_max, fail):
+    """(b): adamw's step-0 first moment, each rank's slice, within
+    ``TP_LEAF_SHARE`` of the pp-1 leaf's max |m|, leaf by leaf; (c):
+    each leaf's relative L2 error (every rank's slices: a leaf's slices
+    are replicated uniformly, so the ratio is the whole leaf's) within
+    ``PP_TP_LEAF_L2``, the worst element reported."""
+    share, l2 = {}, {}
+    for k, m in m0_max.items():
+        parts = [o[leg][0][0]["m0"][k] for o in outs]
+        d = max(p[0] for p in parts)
+        share[k] = d / m if m else (0.0 if d == 0 else float("inf"))
+        ref = sum(p[2] for p in parts)
+        l2[k] = (sum(p[1] for p in parts) / ref) ** 0.5 if ref else 0.0
+    worst = max(share, key=share.get)
+    worst_l2 = max(l2, key=l2.get)
+    log(f"[pp] ({leg}) adamw's first moment after step 0 against the pp-1 "
+        f"session's: worst element {share[worst]:.4g} of its leaf's max |m| "
+        f"({worst}); worst relative L2 {l2[worst_l2]:.4g} ({worst_l2})")
+    if leg == "b" and not share[worst] <= TP_LEAF_SHARE:
+        fail(f"(b) leaf {worst}: the step-0 first moment at pp 2 off pp 1's "
+             f"by {share[worst]:.4g} of its max, beyond "
+             f"{TP_LEAF_SHARE:.4g}")
+    if leg == "c" and not l2[worst_l2] <= PP_TP_LEAF_L2:
+        fail(f"(c) leaf {worst_l2}: the step-0 first moment's relative L2 "
+             f"error {l2[worst_l2]:.4g}, beyond {PP_TP_LEAF_L2}")
+
+
+def _pp_log_train(leg, outs, label):
+    for r, o in enumerate(outs):
+        for n, run in enumerate(o[leg][0]):
+            log(f"[pp] ({leg}) {label} rank {r} run {n}: losses "
+                f"{[round(x, 5) for x in run['losses']]}, host ms per "
+                f"counted step {[round(x, 1) for x in run['step_ms']]}, "
+                f"peak {run['peak_gib']:.2f} GiB allocated, "
+                f"{run['params']:,} params held; launches per step "
+                f"{run['want']}")
+
+
+def phase_pp():
+    """Pipeline parallelism at pp 2: the ranks share the one card over
+    gloo (NCCL refuses two ranks on one device).  This process frees its
+    memory and spawns two ranks, which run (a)'s smaller configs while it
+    runs the pp-1 references, and the rest of (a) and (b) once it has
+    written them and freed its memory again; then four ranks run (c).  (a) Card against card in float32: six
+    configs at full width, cut in depth (``PP_ARCHS``), two sgd steps of
+    the pipelined dist step on two ranks against the single-device step
+    in this process (the CPU tests' construction: the quarter tiled over
+    2 groups, λ = 1/2): losses and gradient norms within
+    ``TP_LOSS_RTOL``.  (b) qwen2-vl-2b whole in coded_q int8 at the
+    phase-6 settings with pp 2 and 2 microbatches, 4 steps with edge 1
+    dropped at step 2, twice: exact launches a step on each rank, finite
+    losses, the step-0 loss within 2e-3 · |loss| of a pp-1 session's in
+    this process (its gradient summed over the same row blocks as the
+    microbatches: :func:`_microbatched`) and steps 1-3 within
+    ``TP_LOSS_RTOL`` · |loss|, adamw's
+    step-0 first moment leaf by leaf and stage block by stage block
+    within ``TP_LEAF_SHARE`` of the pp-1 session's, the runs bit for
+    bit; rank 0's last step profiled (host ms inside the
+    ``pp.collective`` spans, the device's busy share).  (c) The same
+    model at pp 2 × tp 2 with SP on four ranks, ``PP_TP_STEPS`` step,
+    once: exact launches, the step-0 loss against the same pp-1
+    session's, each leaf's step-0 first moment within ``PP_TP_LEAF_L2``
+    (relative L2), the worst element reported.  Every
+    gate is read before the phase fails.  → the launches of the ranks'
+    counted runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.launch import run_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures = []
+    fail = failures.append
+    torch.cuda.reset_peak_memory_stats()
+    vlm = get_config(PP_VLM)
+    ref_dir = _checkpoint_dir(2 * 4 * sum(
+        p.numel() for p in _tree.leaves(tf.init_params(vlm, device="meta"))))
+    spawned = {}
+
+    def two_ranks():
+        try:
+            spawned["outs"] = run_ranks(
+                _pp_rank, PP, args=(dict(ref_dir=str(ref_dir)),),
+                device="cuda", backend="gloo", timeout=900)
+        except BaseException as e:  # raised again below
+            spawned["error"] = e
+
+    # the two ranks start (a) while this process runs the pp-1
+    # references (~47 GiB here); they run ``PP_ARCHS_LATE`` and (b) once
+    # READY is written, after this process has freed its memory
+    thread = threading.Thread(target=two_ranks, daemon=True)
+    try:
+        log(f"[pp] spawning {PP} ranks on cuda:0 "
+            f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+            f"allocated here); the pp-1 references run meanwhile")
+        t_ranks = time.perf_counter()
+        thread.start()
+        ref1 = {}
+        for arch in PP_ARCHS:
+            t0 = time.perf_counter()
+            ref1[arch] = _pp_arch_train(arch)
+            log(f"[pp] (a) {arch} pp-1 reference ({PP_ARCHS[arch][0]} "
+                f"layers): losses {ref1[arch][0]!r}, grad norms "
+                f"{ref1[arch][1]!r} ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        fit = dict(force_drop_edge=1, force_drop_step=2)
+        with _microbatched(PP_MICRO):
+            session = _session(vlm, "coded_q", "int8", "cuda",
+                               total_steps=PP_STEPS, **_train_kw())
+            session.fit(1, **fit)
+            m0 = {k: v.cpu().numpy()
+                  for k, v in _first_moment(session).items()}
+            session.fit(PP_STEPS, **fit)
+        for k, v in m0.items():
+            np.save(_ref_file(ref_dir, "m0", k), v)
+        m0_max = {k: float(np.abs(v).max()) for k, v in m0.items()}
+        losses1 = list(session.losses)
+        peak = torch.cuda.max_memory_reserved() / 2 ** 30
+        del session, m0
+        gc.collect()
+        torch.cuda.empty_cache()
+        (ref_dir / "READY").touch()
+        log(f"[pp] (b), (c) {PP_VLM} pp-1 session (its step's gradient "
+            f"summed over {PP_MICRO} row blocks, as the pipeline's "
+            f"microbatches): losses {losses1!r} (edge 1 dropped at step "
+            f"2); the {len(m0_max)} step-0 first moments in {ref_dir}; "
+            f"peak {peak:.2f} GiB reserved ({time.perf_counter() - t0:.1f} "
+            f"s)")
+        thread.join()
+        if "error" in spawned:
+            raise spawned["error"]
+        outs = spawned["outs"]
+        log(f"[pp] ranks done in {time.perf_counter() - t_ranks:.1f} s "
+            f"(backend {outs[0]['backend']}; seconds by leg on rank 0 "
+            + ", ".join(f"({k}) {v:.1f}"
+                        for k, v in outs[0]["seconds"].items()) + ")")
+        t0 = time.perf_counter()
+        outs_c = run_ranks(_pp_tp_rank, PP * TP,
+                           args=(dict(ref_dir=str(ref_dir)),),
+                           device="cuda", backend="gloo", timeout=900)
+        log(f"[pp] (c) {PP * TP} ranks done in "
+            f"{time.perf_counter() - t0:.1f} s (rank 0's leg "
+            f"{outs_c[0]['seconds']:.1f} s)")
+    except BaseException:
+        (ref_dir / "FAILED").touch()
+        if thread.is_alive():
+            thread.join()
+        raise
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+
+    # (a) the six configs, card against card
+    for arch, (loss1, norm1) in ref1.items():
+        for r, o in enumerate(outs):
+            loss2, norm2 = o["a"][arch]
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(loss2 + norm2, loss1 + norm1)]
+            if not (np.isfinite(loss2 + norm2).all()
+                    and max(rel) <= TP_LOSS_RTOL):
+                fail(f"(a) {arch} rank {r}: losses {loss2} and grad norms "
+                     f"{norm2} vs pp 1's {loss1} and {norm1}")
+        loss2, norm2 = outs[0]["a"][arch]
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(loss2 + norm2, loss1 + norm1)]
+        log(f"[pp] (a) {arch} f32, pp 2 ({PP_ARCHS[arch][1]} "
+            f"microbatches): losses {loss2!r}, grad norms {norm2!r}; worst "
+            f"|pp2 - pp1| {max(rel):.3g} of pp 1's")
+
+    # (b) and (c): qwen2-vl whole against the pp-1 session
+    for leg, group, label in (("b", outs, f"{PP_VLM} pp 2"),
+                              ("c", outs_c, f"{PP_VLM} pp 2 x tp 2 + SP")):
+        _pp_log_train(leg, group, label)
+        losses2 = group[0][leg][0][0]["losses"]
+        if any(o[leg][0][0]["losses"] != losses2 for o in group):
+            fail(f"({leg}) the ranks' losses differ")
+        want = losses1[:PP_STEPS if leg == "b" else PP_TP_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses2, want)]
+        log(f"[pp] ({leg}) losses {losses2!r} vs pp 1 {want!r}: "
+            f"|pp2 - pp1| / |loss| by step {rel!r}")
+        if len(losses2) != len(want) or not rel[0] <= 2e-3:
+            fail(f"({leg}) step-0 loss {losses2[:1]!r} vs pp-1 "
+                 f"{want[0]!r}")
+        elif not all(r <= TP_LOSS_RTOL for r in rel[1:]):
+            fail(f"({leg}) losses {losses2!r} vs pp-1 {want!r}: beyond "
+                 f"{TP_LOSS_RTOL} x |loss|")
+        _pp_gate_leaves(leg, group, m0_max, fail)
+    log(f"[pp] (b) the two pp-2 runs equal bit for bit on every rank")
+    prof = outs[0]["b"][0][-1]["prof"]
+    log(f"[profile] pp (b) rank 0, step {PP_STEPS - 1} of run 2: host "
+        f"{prof['host_ms']:.1f} ms, of which inside pp.collective "
+        f"{prof['pp_ms']:.1f} ms ({prof['pp_n']} spans, "
+        f"{100 * prof['pp_ms'] / prof['host_ms']:.1f}%); device busy "
+        f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_ms'] / prof['host_ms']:.1f}%"
+        f"); {prof['launches'] - prof['missing']} of {prof['launches']} "
+        f"launches have their device record")
+    totals = {name: 0 for name in ops.KERNELS}
+    for o in outs:
+        for k, v in o["b"][1].items():
+            totals[k] += v
+    for o in outs_c:
+        for k, v in o["c"][1].items():
+            totals[k] += v
+    log(f"[pp] launches of the counted runs, every rank: {_nonzero(totals)}")
+    if failures:
+        raise AssertionError("phase pp: " + "; ".join(failures))
     return totals
 
 
@@ -3462,11 +4120,12 @@ def main() -> int:
     ckpt_counts = phase(phase_checkpoint)
     orch_counts = phase(phase_orchestrate)
     tp_counts = phase(phase_tp)
+    pp_counts = phase(phase_pp)
     eval_counts = phase(phase_eval)
     paths = {"archs": archs_counts, "recurrent": rec_counts,
              "encdec_vlm": encdec_counts, "train": train_counts,
              "checkpoint": ckpt_counts,
-             "orchestrate": orch_counts, "tp": tp_counts,
+             "orchestrate": orch_counts, "tp": tp_counts, "pp": pp_counts,
              "eval": eval_counts}
     log(f"[done] launches on the main paths: serve {counts}, " + ", ".join(
         f"{name} { {k: v for k, v in c.items() if v} }"

@@ -21,9 +21,8 @@ Beside training: the checkpoint round trip in the reference's layout
 (``checkpoint_dir`` / ``resume``; bit-for-bit kill/resume, and a
 reference checkpoint resumes here), ``shrink`` past permanent failures,
 ``eval_step``, and ``generate`` (``cluster=None`` builds a serve-only
-session).  Not ported yet (they raise, naming ROADMAP.md): the PP
-options (``pp``, ``microbatches``).  The session runs on the card
-unless ``device="cpu"`` is given.
+session).  The session runs on the card unless ``device="cpu"`` is
+given.
 
 Under tensor parallelism (``tp > 1``, a coded mode) the session is one
 rank of a world that the caller set up (``dist.launch.run_ranks``,
@@ -34,7 +33,13 @@ hold the gathered full arrays (the tp-1 format: they restore at any
 degree).  A drop or a replan changes only λ, as at tp 1.  With
 ``seq_shard=True`` the ranks also split the sequence between the TP
 collective pairs (sequence parallelism; ``validate_seq_shard``'s
-checks: tp > 1, ``seq_len`` divisible by tp).
+checks: tp > 1, ``seq_len`` divisible by tp).  With ``pp > 1`` (a coded
+mode) the ranks also form a leading "stage" axis of pipeline
+parallelism (``launch.steps._pipeline_grads``): each holds its stage's
+block of the layer-group stacks, each group's rows run as
+``microbatches`` (default ``pp``) microbatches, and ``validate_pp``'s
+checks run at construction, on every replan and on shrink.  ``eval_step``
+and ``generate`` of a pp > 1 session gather the whole model first.
 
 Quickstart::
 
@@ -66,7 +71,6 @@ from repro_torch.checkpoint.params import (
     gather_params,
     leaf_keys,
     params_from_numpy,
-    shard_array,
     shard_params,
     tensor_from_numpy,
 )
@@ -80,7 +84,9 @@ from repro_torch.dist.sharding import (
     NULL_CTX,
     model_ctx,
     param_axes,
+    stage_axes,
     state_axis,
+    validate_pp,
     validate_seq_shard,
     validate_tp,
 )
@@ -100,8 +106,9 @@ def _not_ported(what: str):
 class ReplanError(RuntimeError):
     """A replan or shrink produced a plan the deployed session cannot
     run; the session keeps its previous code.  ``constraint`` names what
-    broke (``"uniform_load"``, ``"topology"`` or, from :meth:`CodedSession.
-    shrink`, ``"plan"``), ``topo`` the surviving topology."""
+    broke (``"uniform_load"``, ``"topology"``, ``"pp"`` (the pipeline's
+    divisibility for the new load) or, from :meth:`CodedSession.shrink`,
+    ``"plan"``), ``topo`` the surviving topology."""
 
     def __init__(self, message: str, *, constraint: str, topo):
         super().__init__(message)
@@ -216,9 +223,26 @@ class CodedSession:
     ):
         if mode not in MODES:
             raise ValueError(f"unknown session mode {mode!r}")
-        if max(int(pp), 1) > 1 or microbatches:
-            raise _not_ported("pipeline parallelism (pp / microbatches: "
-                              "the dist regimes)")
+        self.pp = max(int(pp), 1)
+        self.microbatches = max(int(microbatches), 0)
+        if self.microbatches and self.pp <= 1:
+            raise ValueError(
+                "microbatches requires pp > 1 (the pipeline microbatch "
+                "count only applies to the stage pipeline; the "
+                "single-host accumulation knob is TrainConfig.microbatch)"
+            )
+        if self.pp > 1 and cluster is not None:
+            if mode == "off":
+                raise ValueError(
+                    "pp > 1 requires a dist mode (the pipeline runs over "
+                    "the 'stage' mesh axis of the coded step)")
+            validate_pp(cfg, self.pp)
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    f"pp={self.pp}: the session is one rank of a "
+                    f"torch.distributed world; run it in the ranks of "
+                    f"repro_torch.dist.launch.run_ranks, under torchrun, "
+                    f"or through launch.train --pp (which spawns them)")
         self.tp = max(int(tp), 1)
         #: sequence parallelism of the coded step (the reference's
         #: TrainConfig default, off, unless the caller says)
@@ -272,7 +296,14 @@ class CodedSession:
         self.rank = dist.get_rank() if dist.is_initialized() else 0
         #: this rank's index on the "model" axis (rank-major layout)
         self.model_rank = self.rank % self.tp
+        #: this rank's stage (the leading axis of the rank layout)
+        self.stage = 0
+        if self.pp > 1 and cluster is not None:
+            self.stage = self.rank // (dist.get_world_size() // self.pp)
+        else:
+            self.pp = 1  # a serve-only session holds the whole model
         self._axes = param_axes(cfg, self.tp)  # flat key → split axis
+        self._st_axes = stage_axes(cfg, self.pp)  # flat key → stage axis
         self.verbose = verbose and self.rank == 0
         self.losses: List[float] = []
         #: the coded MoE steps' aux losses, of this process's steps
@@ -281,14 +312,13 @@ class CodedSession:
 
         if params is not None:
             self.params = params_from_numpy(
-                shard_params(params, cfg, self.tp, self.model_rank,
-                             self._axes),
-                self.device, dtype=torch.float32)
+                self._my_slices(params), self.device, dtype=torch.float32)
         else:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.params = tf.init_params(cfg, gen, device=self.device,
                                          dtype=torch.float32, tp=self.tp,
-                                         rank=self.model_rank)
+                                         rank=self.model_rank, pp=self.pp,
+                                         stage=self.stage)
         self._ctx = NULL_CTX
         if cluster is None:  # serve-only: no optimizer, no plan
             self.plan = self.code = self.tcfg = None
@@ -332,6 +362,7 @@ class CodedSession:
             grad_compression=self.grad_compression,
             grad_compression_block=grad_block,
             seq_shard_activations=self.seq_shard,
+            pp_stages=self.pp, microbatches=self.microbatches,
         )
 
         # ---- data: one resumable stream per dataset part -------------
@@ -357,23 +388,38 @@ class CodedSession:
     # ------------------------------------------------------------------
     # restore
     # ------------------------------------------------------------------
+    def _split_axes(self, flat, state: bool):
+        """(the "model" axes, the stage axes) of ``flat``'s keys: the
+        params', or with ``state`` an optimizer state's (``state_axis``
+        of the params')."""
+        if not state:
+            return self._axes, self._st_axes
+        return ({k: state_axis(k, self._axes) for k in flat},
+                {k: state_axis(k, self._st_axes) for k in flat})
+
+    def _my_slices(self, flat, state: bool = False):
+        """This rank's slices of full flat-key arrays: the "model" axis
+        (tp), then the stage's block (pp)."""
+        axes, st = self._split_axes(flat, state)
+        return shard_params(flat, self.cfg, self.tp, self.model_rank, axes,
+                            pp=self.pp, stage=self.stage, stage_axes=st)
+
     def _resume(self):
         start, state, extra = self.store.restore()
         self._restored_extra = extra
-        # the file holds full arrays: under TP each rank keeps its slices
+        # the file holds full arrays: under TP and PP each rank keeps its
+        # slices
         self.params = params_from_numpy(
-            shard_params(_flatten(state["params"]), self.cfg, self.tp,
-                         self.model_rank, self._axes),
-            self.device, dtype=torch.float32)
+            self._my_slices(_flatten(state["params"])), self.device,
+            dtype=torch.float32)
         for p in _tree.leaves(self.params):
             p.requires_grad_(True)
         if "opt_state" in state:
             # stateless optimizers (sgd) flatten to an empty subtree: the
             # freshly initialized state is already right then
-            flat = {k: tensor_from_numpy(
-                        shard_array(a, state_axis(k, self._axes), self.tp,
-                                    self.model_rank), self.device)
-                    for k, a in _flatten(state["opt_state"]).items()}
+            flat = {k: tensor_from_numpy(a, self.device) for k, a in
+                    self._my_slices(_flatten(state["opt_state"]),
+                                    state=True).items()}
             self.opt_state = _unflatten(flat)
         del state
         cl = extra.get("cluster")
@@ -458,10 +504,14 @@ class CodedSession:
         from repro_torch.dist import compression
         from repro_torch.dist.mesh import DistMesh, OneCardMesh
 
+        self._validate_pp(self.code)
         if dist.is_initialized() and dist.get_world_size() > 1:
-            self._mesh = DistMesh.for_world(topo.n, topo.m[0], self.tp)
+            self._mesh = DistMesh.for_world(topo.n, topo.m[0], self.tp,
+                                            pp=self.pp)
             self._ctx = self._mesh.ctx
-            where = (f"ranks (pod {self._mesh.pod_ranks} × data "
+            where = ("ranks ("
+                     + (f"stage {self.pp} × " if self.pp > 1 else "")
+                     + f"pod {self._mesh.pod_ranks} × data "
                      f"{self._mesh.data_ranks} × model {self.tp})")
         else:
             self._mesh = OneCardMesh(topo.n, topo.m[0])
@@ -472,7 +522,10 @@ class CodedSession:
                   f"grad_compression={self.tcfg.grad_compression}"
                   + (f", TP degree {self.tp}" if self.tp > 1 else "")
                   + (", seq-parallel activations"
-                     if self.seq_shard and self.tp > 1 else ""))
+                     if self.seq_shard and self.tp > 1 else "")
+                  + (f", pipeline stages {self.pp} × "
+                     f"{self.microbatches or self.pp} microbatches"
+                     if self.pp > 1 else ""))
         if self.tcfg.grad_compression != "none":
             if carry:
                 self.residual = carry
@@ -482,17 +535,28 @@ class CodedSession:
                 # not roll back to this one
                 saved = self._restored_extra.pop("ef_residual")
                 keys = leaf_keys(self.params)
-                self.residual = [
-                    tensor_from_numpy(shard_array(
-                        r, self._axes.get(k), self.tp, self.model_rank),
-                        self.device).float()
-                    for k, r in zip(keys,
-                                    _tree.leaves_like(saved, self.params))]
+                mine = self._my_slices(dict(zip(
+                    keys, _tree.leaves_like(saved, self.params))))
+                self.residual = [tensor_from_numpy(mine[k], self.device)
+                                 .float() for k in keys]
             else:
                 self.residual = _tree.leaves(
                     compression.init_pod_residuals(self.params, topo.n))
         self.train_step = steps_lib._make_dist_train_step(
             self.cfg, self.tcfg, self._mesh, optimizer=self._optimizer)
+
+    def _validate_pp(self, code):
+        """The pipeline's divisibility up front: the group count by the
+        stages and the per-group coded batch rows (load × part batch) by
+        the microbatches; again on every replan and shrink (a new code's
+        load changes the row count)."""
+        if self.pp <= 1:
+            return
+        loads = getattr(code, "loads", None)
+        load = int(loads[0]) if loads else int(code.load)
+        validate_pp(self.cfg, self.pp,
+                    microbatches=self.microbatches or self.pp,
+                    batch_rows=load * self.part_batch)
 
     def _require_dist_uniform_load(self, code):
         """The coded modes split the batch evenly over (pod, data): every
@@ -690,6 +754,11 @@ class CodedSession:
         except ValueError as err:
             raise ReplanError(str(err), constraint="uniform_load",
                               topo=self.cluster.topo) from err
+        try:
+            self._validate_pp(code)
+        except ValueError as err:
+            raise ReplanError(str(err), constraint="pp",
+                              topo=self.cluster.topo) from err
 
     def shrink(self, dead_edges=(), dead_workers=()):
         """Drop PERMANENTLY failed nodes, replan on the survivors, and go
@@ -697,7 +766,7 @@ class CodedSession:
         pod count and the surviving pods keep their own EF residual rows;
         the shrink record rides checkpoints.  Over ranks only the layout
         whose pods and workers all run on every rank (``pod_ranks =
-        data_ranks = 1``) shrinks."""
+        data_ranks = 1``) shrinks; a pipeline keeps its stage axis."""
         mesh = self._mesh
         if getattr(mesh, "pod_ranks", 1) > 1 or \
                 getattr(mesh, "data_ranks", 1) > 1:
@@ -769,23 +838,26 @@ class CodedSession:
             "cluster": cluster_state,
         }
 
+    def _gather(self, flat, state: bool = False) -> Dict[str, np.ndarray]:
+        """The full arrays of every rank's flat-key slices, over "model"
+        and "stage" (collective)."""
+        axes, st = self._split_axes(flat, state)
+        return gather_params(flat, self.cfg, self._ctx, axes,
+                             getattr(self._mesh, "stage_ctx", None), st)
+
     def _save_gathered(self, step: int) -> str:
         """The checkpoint of a session over ranks: every rank gathers the
         full arrays (params, optimizer state, EF residual rows, one leaf
-        at a time), rank 0 writes them in the tp-1 format, and every rank
-        returns once the file is in place."""
-        params = gather_params(_flatten(self.params), self.cfg, self._ctx,
-                               self._axes)
-        flat_opt = _flatten(self.opt_state)
-        opt = gather_params(flat_opt, self.cfg, self._ctx,
-                            {k: state_axis(k, self._axes) for k in flat_opt})
+        at a time), rank 0 writes them in the pp-1/tp-1 format, and every
+        rank returns once the file is in place."""
+        params = self._gather(_flatten(self.params))
+        opt = self._gather(_flatten(self.opt_state), state=True)
         extra = self._extra_state()
         if self.tcfg.grad_compression != "none":
             keys = leaf_keys(self.params)
             rows = {k: self._mesh.gather_pod_rows(r)
                     for k, r in zip(keys, self.residual)}
-            extra["ef_residual"] = gather_params(rows, self.cfg, self._ctx,
-                                                 self._axes)
+            extra["ef_residual"] = self._gather(rows)
         path = ""
         if self.rank == 0:
             path = self.store.save(step, {"params": params,
@@ -794,10 +866,19 @@ class CodedSession:
         return path
 
     def full_params(self) -> Dict[str, np.ndarray]:
-        """The params as full host arrays by flat key (under TP gathered
-        from every rank: collective)."""
-        return gather_params(_flatten(self.params), self.cfg, self._ctx,
-                             self._axes)
+        """The params as full host arrays by flat key (under TP and PP
+        gathered from every rank: collective)."""
+        return self._gather(_flatten(self.params))
+
+    def _whole_params(self):
+        """The params the forward needs: this rank's, or under PP the
+        whole layer stacks (gathered over "stage": collective) at this
+        rank's "model" slices."""
+        if self.pp == 1:
+            return self.params
+        return params_from_numpy(
+            shard_params(self.full_params(), self.cfg, self.tp,
+                         self.model_rank, self._axes), self.device)
 
     def jit_cache_entries(self) -> int:
         """-1: the port's step is eager, so there is no executable cache
@@ -820,8 +901,9 @@ class CodedSession:
         """Loss/metrics of one batch under the current params (no update,
         no coding — plain evaluation)."""
         batch = self._to_device(batch)
+        params = self._whole_params()
         with torch.no_grad():
-            _, metrics = tf.loss_and_metrics(self.params, self.cfg, batch,
+            _, metrics = tf.loss_and_metrics(params, self.cfg, batch,
                                              ctx=self._ctx)
         return {k: float(v) for k, v in metrics.items()}
 
@@ -853,7 +935,7 @@ class CodedSession:
                                   device=self.device)
         max_len = max_len or int(prompts.shape[1]) + gen_len + 1
         prefill_fn, decode_fn = self._serve_fns(max_len, exact_handoff)
-        params = tf.cast_params(self.params, self.cfg)
+        params = tf.cast_params(self._whole_params(), self.cfg)
         return serving.generate_tokens(
             params, self.cfg, prompts, gen_len, prefill_fn=prefill_fn,
             decode_fn=decode_fn,

@@ -12,7 +12,10 @@ Under tensor parallelism a rank holds a slice of each model-sharded
 leaf (``dist.sharding.shard_axis``): :func:`shard_params` cuts a rank's
 slices out of full arrays and :func:`gather_params` rebuilds the full
 arrays from every rank's, both by flat key, so a checkpoint holds the
-full arrays whatever the degree that wrote it.
+full arrays whatever the degree that wrote it.  Under pipeline
+parallelism a rank's ``groups`` leaves are also its stage's block of
+their leading axis (``dist.sharding.stage_axes``): both cut and gather
+that axis too (``pp``/``stage``, ``stage``/``stage_axes``).
 """
 from __future__ import annotations
 
@@ -130,35 +133,49 @@ def shard_array(arr, axis: Optional[int], tp: int, rank: int):
 
 
 def shard_params(flat_np: Dict[str, np.ndarray], cfg, tp: int, rank: int,
-                 axes: Optional[Dict[str, Optional[int]]] = None
+                 axes: Optional[Dict[str, Optional[int]]] = None, *,
+                 pp: int = 1, stage: int = 0,
+                 stage_axes: Optional[Dict[str, Optional[int]]] = None
                  ) -> Dict[str, np.ndarray]:
     """Rank ``rank``'s slices of full flat-key arrays (params, or any
     tree whose keys ``axes`` maps; default the params' axes of ``cfg`` at
-    ``tp``) → flat ``{key: array}``."""
-    from repro_torch.dist.sharding import param_axes
+    ``tp``), and with ``pp > 1`` stage ``stage``'s block of them
+    (``stage_axes``, default the params' of ``cfg``) → flat ``{key:
+    array}``."""
+    from repro_torch.dist import sharding
 
-    axes = param_axes(cfg, tp) if axes is None else axes
-    return {k: shard_array(v, axes.get(k), tp, rank)
+    axes = sharding.param_axes(cfg, tp) if axes is None else axes
+    if pp > 1 and stage_axes is None:
+        stage_axes = sharding.stage_axes(cfg, pp)
+    return {k: shard_array(shard_array(v, axes.get(k), tp, rank),
+                           (stage_axes or {}).get(k), pp, stage)
             for k, v in flat_np.items()}
 
 
 def gather_params(flat: Dict[str, torch.Tensor], cfg, ctx,
-                  axes: Optional[Dict[str, Optional[int]]] = None
+                  axes: Optional[Dict[str, Optional[int]]] = None,
+                  stage=None,
+                  stage_axes: Optional[Dict[str, Optional[int]]] = None
                   ) -> Dict[str, np.ndarray]:
     """The full arrays of every rank's flat-key slices (collective over
-    ``ctx``'s group: every rank calls it with the same keys) → flat
-    ``{key: full}`` host numpy arrays (bfloat16 as float32), gathered
-    one leaf at a time."""
-    from repro_torch.dist.sharding import all_gather_cat, param_axes
+    ``ctx``'s group, and ``stage``'s, the "stage" context, when it is
+    active: every rank calls it with the same keys) → flat ``{key:
+    full}`` host numpy arrays (bfloat16 as float32), gathered one leaf
+    at a time."""
+    from repro_torch.dist import sharding
 
-    axes = param_axes(cfg, ctx.tp) if axes is None else axes
+    axes = sharding.param_axes(cfg, ctx.tp) if axes is None else axes
+    staged = stage is not None and stage.active
+    if staged and stage_axes is None:
+        stage_axes = sharding.stage_axes(cfg, stage.tp)
     out = {}
     for k, v in flat.items():
         ax = axes.get(k)
         full = v.detach()
         if ax is not None and ctx.active:
-            full = all_gather_cat(full.contiguous(), ax, ctx.rank, ctx.tp,
-                                  ctx.group)
+            full = ctx.gather(full, ax)
+        if staged and stage_axes.get(k) is not None:
+            full = stage.gather(full, stage_axes[k])
         full = full.cpu()
         out[k] = (full.float() if full.dtype == torch.bfloat16
                   else full).numpy()

@@ -18,12 +18,15 @@ The collectives are those of :class:`repro_torch.dist.mesh.OneCardMesh`
 or, across ranks, :class:`repro_torch.dist.mesh.DistMesh`: each process
 decodes its own pods, then the pod collective finishes the sum.  Under
 tensor parallelism the gradient leaves, and the EF residuals that
-telescope against them, are this rank's shards.  Gradients are lists of
-leaves in :func:`repro_torch._tree.leaves` order.
+telescope against them, are this rank's shards; under pipeline
+parallelism they are a stage's leaves (its block of the layer-group
+stacks, and the replicated leaves, which ``pod_correct`` sums over
+"stage" once per pod partial, before the hop quantizes it).  Gradients
+are lists of leaves in :func:`repro_torch._tree.leaves` order.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,18 +48,27 @@ def lam_array_from_code(code, fast_edges: Sequence[int],
     return np.asarray(lam, dtype).reshape(pods, data)
 
 
-def coded_weighted_psum(mesh, group_fn: GroupFn, lam
+#: a linear map of a pod's partial (leaf list → leaf list), applied
+#: after the data sum: the pipeline's stage sum of replicated leaves
+PodCorrect = Optional[Callable[[List[torch.Tensor]], List[torch.Tensor]]]
+
+
+def coded_weighted_psum(mesh, group_fn: GroupFn, lam,
+                        pod_correct: PodCorrect = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """λ-weighted hierarchical sum of every group's gradient.
 
     Stage 1 sums λ-weighted messages over each pod's workers (edge
-    decode, eq. 25); stage 2 sums the per-edge partials over pods
-    (master decode, eq. 27).  Stragglers take part with λ = 0.  Returns
+    decode, eq. 25), then ``pod_correct`` (if given) maps the pod's
+    partial; stage 2 sums the per-edge partials over pods (master
+    decode, eq. 27).  Stragglers take part with λ = 0.  Returns
     ``(decoded leaves, Σ_ij λ_ij · loss_ij)``.
     """
     total, loss = None, None
     for pod in mesh.pod_indices():
         part, loss_i = mesh.psum_data(pod, group_fn, lam)  # eq. 25
+        if pod_correct is not None:
+            part = pod_correct(part)
         total = mesh.psum_pod(total, part)                   # eq. 27
         loss = loss_i if loss is None else loss + loss_i
     *total, loss = mesh.reduce_pods(total + [loss])
@@ -77,12 +89,13 @@ def _encode_hop(partial: torch.Tensor, residual: torch.Tensor, block: int,
 
 def compressed_coded_psum(mesh, group_fn: GroupFn, lam,
                           residual: List[torch.Tensor], *, block: int = 64,
-                          mode: str = "int8"
+                          mode: str = "int8", pod_correct: PodCorrect = None
                           ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """λ-weighted decode with a quantized + error-feedback cross-pod hop.
 
-    Stage 1 (eq. 25) stays exact.  Each pod's partial plus its EF
-    residual is then blockwise quantized (``mode`` ∈ int8 | int4 | fp8),
+    Stage 1 (eq. 25) stays exact; ``pod_correct``, if given, maps each
+    pod's partial before it is quantized.  Each pod's partial plus its
+    EF residual is then blockwise quantized (``mode`` ∈ int8 | int4 | fp8),
     each pod's payload is gathered into its row of ``(n_pods, payload)``
     and combined through the matching fused dequant kernel with unit
     coefficients (eq. 27 over quantized payloads).  ``residual`` leaves
@@ -98,6 +111,8 @@ def compressed_coded_psum(mesh, group_fn: GroupFn, lam,
     loss = None
     for pod in mesh.pod_indices():
         part, loss_i = mesh.psum_data(pod, group_fn, lam)  # exact eq. 25
+        if pod_correct is not None:
+            part = pod_correct(part)
         loss = loss_i if loss is None else loss + loss_i
         if len(part) != len(residual):
             raise ValueError(f"residual has {len(residual)} leaves, "

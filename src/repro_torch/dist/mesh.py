@@ -29,7 +29,11 @@ data group; ``all_gather_pod`` an all-gather over the pod group;
 ``psum_pod`` an ``all_reduce`` over it.  With ``pod_ranks = pods`` and
 ``data_ranks = data`` each group has ranks of its own (the reference's
 layout); with both 1 only "model" spans ranks (the layout of one card
-shared by the ranks).
+shared by the ranks).  A leading "stage" axis of ``pp`` ranks runs
+pipeline parallelism: ``world = stages × pod_ranks × data_ranks × tp``,
+stage first, as the reference's mesh orders its axes; each stage holds
+its block of the layer-group stacks, hands activations to the next
+stage over a two-rank group, and sums over its stage group.
 """
 from __future__ import annotations
 
@@ -39,7 +43,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.sharding import ShardCtx, all_reduce, gather_rows
+from repro_torch.dist.sharding import (
+    NULL_CTX,
+    PP_SPAN,
+    ShardCtx,
+    all_reduce,
+    gather_rows,
+    recv_from,
+    send_to,
+)
 
 #: one group's local step: ``(pod, data) → (gradient leaves, loss)``
 GroupFn = Callable[[int, int], Tuple[List[torch.Tensor], torch.Tensor]]
@@ -47,7 +59,10 @@ GroupFn = Callable[[int, int], Tuple[List[torch.Tensor], torch.Tensor]]
 
 class OneCardMesh:
     """``pods × data`` coded groups on one device, run in turn (on the
-    device of the batch the step is given)."""
+    device of the batch the step is given).  One stage: ``pp`` 1."""
+
+    pp, stage = 1, 0
+    stage_ctx = NULL_CTX
 
     def __init__(self, pods: int, data: int):
         if pods < 1 or data < 1:
@@ -146,67 +161,116 @@ def _axis_groups(rank_lists: List[List[int]]) -> Dict[int, object]:
 
 
 class DistMesh(OneCardMesh):
-    """The (pod, data) mesh and a "model" axis over the ranks of the
-    current ``torch.distributed`` world.
+    """The (pod, data) mesh, a "model" axis and a leading "stage" axis
+    over the ranks of the current ``torch.distributed`` world.
 
-    Rank ``(p · data_ranks + d) · tp + m`` holds pod coordinate ``p``,
-    data coordinate ``d`` and model index ``m``; it runs the groups
-    :meth:`pod_indices` × :meth:`data_indices`.  ``ctx`` is the
-    :class:`~repro_torch.dist.sharding.ShardCtx` of its model group.
+    Rank ``((s · pod_ranks + p) · data_ranks + d) · tp + m`` holds stage
+    ``s``, pod coordinate ``p``, data coordinate ``d`` and model index
+    ``m``; it runs the groups :meth:`pod_indices` × :meth:`data_indices`.
+    ``ctx`` is the :class:`~repro_torch.dist.sharding.ShardCtx` of its
+    model group, ``stage_ctx`` the same over its stage group (span
+    ``pp.collective``); :meth:`send_next` / :meth:`recv_prev` (and their
+    backward twins) hand a tensor to the adjacent stage of the same
+    (pod, data, model) coordinates.  At ``stages`` 1 every rank number
+    and group is the pipeline-free mesh's.
     """
 
     def __init__(self, pods: int, data: int, tp: int = 1, *,
-                 pod_ranks: int = 1, data_ranks: int = 1):
+                 pod_ranks: int = 1, data_ranks: int = 1, stages: int = 1):
         super().__init__(pods, data)
         if (pod_ranks, data_ranks) not in ((1, 1), (self.pods, self.data)) \
-                or tp < 1:
+                or tp < 1 or stages < 1:
             raise ValueError(
                 f"mesh ranks (pod {pod_ranks}, data {data_ranks}, model "
                 f"{tp}) for ({self.pods} x {self.data}) groups: (pod, "
                 f"data) ranks must be (1, 1) or ({self.pods}, {self.data})")
-        world = pod_ranks * data_ranks * tp
+        world = stages * pod_ranks * data_ranks * tp
         if not dist.is_initialized() or dist.get_world_size() != world:
             have = dist.get_world_size() if dist.is_initialized() else 1
             raise ValueError(
-                f"mesh of {pod_ranks} x {data_ranks} x {tp} ranks needs a "
-                f"world of {world}, this one has {have}")
+                f"mesh of " + (f"{stages} x " if stages > 1 else "")
+                + f"{pod_ranks} x {data_ranks} x {tp} ranks needs a world "
+                f"of {world}, this one has {have}")
         self.tp, self.pod_ranks, self.data_ranks = tp, pod_ranks, data_ranks
-        rank = dist.get_rank()
+        self.pp = stages
+        rank = self.global_rank = dist.get_rank()
         self.model_rank = rank % tp
         self.data_rank = (rank // tp) % data_ranks
-        self.pod_rank = rank // (tp * data_ranks)
-        P, D = range(pod_ranks), range(data_ranks)
+        self.pod_rank = (rank // (tp * data_ranks)) % pod_ranks
+        self.stage = rank // (tp * data_ranks * pod_ranks)
+        S, P, D, M = (range(stages), range(pod_ranks), range(data_ranks),
+                      range(tp))
 
-        def at(p, d, m):
-            return (p * data_ranks + d) * tp + m
+        def at(s, p, d, m):
+            return ((s * pod_ranks + p) * data_ranks + d) * tp + m
 
-        model = _axis_groups([[at(p, d, m) for m in range(tp)]
+        model = _axis_groups([[at(s, p, d, m) for m in M] for s in S
                               for p in P for d in D]) if tp > 1 else {}
         self._data_group = _axis_groups(
-            [[at(p, d, m) for d in D] for p in P for m in range(tp)]
+            [[at(s, p, d, m) for d in D] for s in S for p in P for m in M]
         ).get(rank) if data_ranks > 1 else None
         self._pod_group = _axis_groups(
-            [[at(p, d, m) for p in P] for d in D for m in range(tp)]
+            [[at(s, p, d, m) for p in P] for s in S for d in D for m in M]
         ).get(rank) if pod_ranks > 1 else None
         self.ctx = ShardCtx(tp=tp, rank=self.model_rank,
                             group=model.get(rank))
+        self.stage_ctx = NULL_CTX
+        self._prev = self._next = None  # (peer rank, pair group)
+        if stages > 1:
+            coords = [(p, d, m) for p in P for d in D for m in M]
+            stage = _axis_groups([[at(s, *c) for s in S] for c in coords])
+            self.stage_ctx = ShardCtx(tp=stages, rank=self.stage,
+                                      group=stage[rank], span=PP_SPAN)
+            # every rank makes the pair groups in one order: stage pair
+            # (s, s + 1) at each (pod, data, model) coordinate
+            for s in range(stages - 1):
+                pairs = _axis_groups([[at(s, *c), at(s + 1, *c)]
+                                      for c in coords])
+                if self.stage == s:
+                    self._next = (rank + tp * data_ranks * pod_ranks,
+                                  pairs[rank])
+                elif self.stage == s + 1:
+                    self._prev = (rank - tp * data_ranks * pod_ranks,
+                                  pairs[rank])
 
     @classmethod
-    def for_world(cls, pods: int, data: int, tp: int) -> "DistMesh":
-        """The layout the world's size implies: ``world / tp`` ranks over
-        (pod, data) are 1 (every group in turn on each rank) or ``pods ×
-        data`` (a group each)."""
+    def for_world(cls, pods: int, data: int, tp: int,
+                  pp: int = 1) -> "DistMesh":
+        """The layout the world's size implies: ``world / (pp · tp)``
+        ranks over (pod, data) are 1 (every group in turn on each rank)
+        or ``pods × data`` (a group each)."""
         world = dist.get_world_size() if dist.is_initialized() else 1
-        if world % tp:
+        if world % (tp * pp):
             raise ValueError(f"a world of {world} ranks does not split "
-                             f"into tp={tp}")
-        n = world // tp
+                             f"into tp={tp}" + (f" x pp={pp}" if pp > 1
+                                                 else ""))
+        n = world // (tp * pp)
         for pr, dr in ((1, 1), (pods, data)):
             if pr * dr == n:
-                return cls(pods, data, tp, pod_ranks=pr, data_ranks=dr)
+                return cls(pods, data, tp, pod_ranks=pr, data_ranks=dr,
+                           stages=pp)
         raise ValueError(
-            f"a world of {world} ranks at tp={tp} leaves {n} ranks for "
-            f"({pods} x {data}) groups: 1 or {pods * data} fit")
+            f"a world of {world} ranks at tp={tp}"
+            + (f", pp={pp}" if pp > 1 else "")
+            + f" leaves {n} ranks for ({pods} x {data}) groups: 1 or "
+            f"{pods * data} fit")
+
+    # ---- the stage handoff (pipeline parallelism) --------------------
+    def send_next(self, x: torch.Tensor) -> None:
+        """``x`` to the next stage (this rank's forward output)."""
+        send_to(x, self.global_rank, *self._next)
+
+    def recv_prev(self, buf: torch.Tensor) -> torch.Tensor:
+        """The previous stage's forward output into ``buf``."""
+        return recv_from(buf, *self._prev)
+
+    def send_prev(self, g: torch.Tensor) -> None:
+        """A cotangent back to the previous stage."""
+        send_to(g, self.global_rank, *self._prev)
+
+    def recv_next(self, buf: torch.Tensor) -> torch.Tensor:
+        """The next stage's cotangent of this rank's output into ``buf``."""
+        return recv_from(buf, *self._next)
 
     def pod_indices(self) -> Sequence[int]:
         return range(self.pods) if self.pod_ranks == 1 else [self.pod_rank]

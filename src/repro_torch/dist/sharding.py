@@ -38,14 +38,24 @@ reduce-scatter is an ``all_reduce`` then this rank's block.  Under NCCL
 they are ``all_gather_into_tensor`` and ``reduce_scatter_tensor``.  The
 choice is made by the backend's name.
 
+Pipeline parallelism adds a "stage" axis (the reference's stage helpers):
+:func:`stage_layer_ranges`, :func:`validate_pp` (its messages),
+:func:`stage_axes` / :func:`stage_sharded_mask` (only the ``groups``
+stacks split, on their leading axis), and the stage handoff
+:func:`send_to` / :func:`recv_from` under the ``pp.collective`` span
+(:data:`PP_SPAN`; their NCCL branch has not run yet: one card admits
+no NCCL world of two ranks).  A :class:`ShardCtx` over the stage group (``span``
+:data:`PP_SPAN`) carries the stage sums: the gradient correction, the
+optimizer's reductions and the gathers of stage-split leaves.
+
 FSDP, the pjit anchors and ``serve_shardings`` are XLA's and have no
-counterpart; pipeline parallelism is not ported (ROADMAP.md).
+counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -57,18 +67,52 @@ import torch.distributed as dist
 #: the profiler span around every collective (a no-op unless a
 #: ``torch.profiler`` records): a profile splits out the time inside them
 SPAN = "tp.collective"
+#: the span around the pipeline's collectives: the stage handoffs and the
+#: sums over the "stage" axis
+PP_SPAN = "pp.collective"
 
 
-def all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group, op=None,
+               span: str = SPAN) -> torch.Tensor:
     """A reduced copy of ``x`` over ``group`` (``x`` is left alone)."""
     buf = x.detach().clone(memory_format=torch.contiguous_format)
-    with torch.profiler.record_function(SPAN):
+    with torch.profiler.record_function(span):
         dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
     return buf
 
 
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """The bytes of a contiguous tensor as a flat uint8 view (gloo moves
+    any dtype that way, fp8 and bf16 included)."""
+    return x.reshape(-1).view(torch.uint8)
+
+
+def send_to(x: torch.Tensor, me: int, peer: int, group) -> None:
+    """The stage handoff, sending side: ``x`` to global rank ``peer`` of
+    the two-rank ``group`` {me, peer}.  NCCL: ``send``; gloo (whose CUDA
+    collectives are ``all_reduce`` and ``broadcast``): a ``broadcast``
+    from ``me`` inside the pair, as bytes."""
+    x = x.detach().contiguous()
+    with torch.profiler.record_function(PP_SPAN):
+        if dist.get_backend(group) == "nccl":
+            dist.send(x, dst=peer, group=group)
+        else:
+            dist.broadcast(_bytes(x), src=me, group=group)
+
+
+def recv_from(buf: torch.Tensor, peer: int, group) -> torch.Tensor:
+    """The stage handoff, receiving side: global rank ``peer``'s tensor
+    into the contiguous ``buf`` (its shape and dtype) → ``buf``."""
+    with torch.profiler.record_function(PP_SPAN):
+        if dist.get_backend(group) == "nccl":
+            dist.recv(buf, src=peer, group=group)
+        else:
+            dist.broadcast(_bytes(buf), src=peer, group=group)
+    return buf
+
+
 def gather_rows(out: torch.Tensor, index: int, local: torch.Tensor,
-                group) -> None:
+                group, span: str = SPAN) -> None:
     """Every member's ``local`` into its row of ``out`` ``(n, *local.
     shape)``, member ``index`` writing row ``index``: an all-gather.
 
@@ -79,22 +123,22 @@ def gather_rows(out: torch.Tensor, index: int, local: torch.Tensor,
     dtype (and fp8, which gloo lacks, travels as bytes).
     """
     if dist.get_backend(group) == "nccl":
-        with torch.profiler.record_function(SPAN):
+        with torch.profiler.record_function(span):
             dist.all_gather_into_tensor(
                 out.view(torch.uint8), local.contiguous().view(torch.uint8),
                 group=group)
         return
     out.zero_()
     out[index].copy_(local)
-    with torch.profiler.record_function(SPAN):
+    with torch.profiler.record_function(span):
         dist.all_reduce(out.view(torch.uint8), group=group)
 
 
 def all_gather_cat(x: torch.Tensor, axis: int, index: int, n: int,
-                   group) -> torch.Tensor:
+                   group, span: str = SPAN) -> torch.Tensor:
     """The members' blocks of ``x`` concatenated along ``axis`` (tiled)."""
     buf = x.new_empty((n,) + tuple(x.shape))
-    gather_rows(buf, index, x.detach(), group)
+    gather_rows(buf, index, x.detach(), group, span)
     return torch.cat(buf.unbind(0), dim=axis % x.ndim)
 
 
@@ -198,6 +242,9 @@ class ShardCtx:
     rank: int = 0
     group: Any = None
     seq_shard: bool = False
+    #: the profiler span of its collectives (:data:`PP_SPAN` for a
+    #: context over the "stage" axis)
+    span: str = SPAN
 
     @property
     def active(self) -> bool:
@@ -226,7 +273,7 @@ class ShardCtx:
         of a ``stop_gradient``)."""
         if not self.active:
             return x
-        return all_reduce(x, self.group, dist.ReduceOp.MAX)
+        return all_reduce(x, self.group, dist.ReduceOp.MAX, self.span)
 
     def axis_index(self) -> int:
         return self.rank if self.active else 0
@@ -250,7 +297,15 @@ class ShardCtx:
         the step's reductions)."""
         if not self.active:
             return x
-        return all_reduce(x, self.group)
+        return all_reduce(x, self.group, span=self.span)
+
+    def gather(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """The members' blocks of ``x`` concatenated along ``axis``,
+        outside autograd (checkpoints' and tests' gathers)."""
+        if not self.active:
+            return x
+        return all_gather_cat(x.contiguous(), axis, self.rank, self.tp,
+                              self.group, self.span)
 
     def argmax(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
         """Greedy token of vocab-parallel logits (…, vocab / tp): the
@@ -518,3 +573,88 @@ def state_axis(key: str, axes: Dict[str, Optional[int]]) -> Optional[int]:
         if trail == "vc":
             return None if ax == -2 else (-1 if ax == -1 else ax + 1)
     return None
+
+
+# ----------------------------------------------------------------------
+# pipeline parallelism: the "stage" axis
+# ----------------------------------------------------------------------
+def stage_layer_ranges(cfg, pp: int) -> Tuple[Tuple[int, int], ...]:
+    """Per-stage ``(first_layer, one_past_last)`` under pp stages.
+
+    Stages split the stacked layer groups contiguously — stage s owns
+    groups ``[s·G/pp, (s+1)·G/pp)`` with ``G = n_layers // P`` for a
+    block pattern of period P, i.e. ``P·G/pp`` consecutive layers.  The
+    remainder layers (``n_layers % P``), the final norm and the unembed
+    head ride the LAST stage; the embedding sits on the first (every
+    stage holds a replicated copy).
+    """
+    period = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // period
+    gps = n_groups // max(pp, 1)
+    ranges = [(s * gps * period, (s + 1) * gps * period) for s in range(pp)]
+    lo, hi = ranges[-1]
+    ranges[-1] = (lo, hi + cfg.n_layers % period)
+    return tuple(ranges)
+
+
+def validate_pp(cfg, pp: int, *, microbatches: int = 0,
+                batch_rows: int = 0) -> None:
+    """Clear error (instead of a shape crash) for a bad ``--pp`` degree.
+
+    Pipeline stages split the stacked layer-group dim, so the group count
+    ``n_layers // len(block_pattern)`` must divide evenly.
+    ``microbatches``/``batch_rows`` (when given) check that the per-group
+    coded batch splits into whole microbatches.  The reference's checks,
+    with its messages.
+    """
+    if pp <= 1:
+        return
+    period = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // period
+    errs = []
+    if n_groups % pp:
+        errs.append(
+            f"n_layers={cfg.n_layers} with block pattern period "
+            f"{period} gives {n_groups} scanned layer groups, not "
+            f"divisible by pp={pp} — each stage must own an equal "
+            f"contiguous group block"
+        )
+    if microbatches > 0 and batch_rows > 0 and batch_rows % microbatches:
+        errs.append(
+            f"per-group batch of {batch_rows} rows not divisible by "
+            f"microbatches={microbatches}"
+        )
+    if errs:
+        raise ValueError(
+            f"{cfg.name}: pipeline parallelism pp={pp} violates "
+            f"divisibility constraints: " + "; ".join(errs)
+        )
+
+
+def stage_axes(cfg, pp: int) -> Dict[str, Optional[int]]:
+    """The axis (negative) each param leaf of ``cfg`` is split on over
+    ``pp`` stages, by flat key: a ``groups`` stack on its leading
+    (stacked-group) axis, ``-ndim``; every other leaf (the embedding, the
+    head, the final norm, the ``rest`` layers, whisper's ``encoder``)
+    None, replicated.  Negative, so an EF residual's leading pods axis
+    and an optimizer state's reduced trailing dims leave it right
+    (:func:`state_axis` maps it as it maps a "model" axis)."""
+    from repro_torch.checkpoint.params import _flatten
+    from repro_torch.models import transformer as tf
+
+    shapes = tf.init_params(cfg, device="meta", dtype=torch.float32)
+    return {k: (-v.ndim if pp > 1 and k.startswith("groups/") else None)
+            for k, v in _flatten(shapes).items()}
+
+
+def stage_sharded_mask(cfg, pp: int) -> Dict[str, bool]:
+    """True per flat key iff the leaf is split over the "stage" axis.
+
+    The pipelined step's gradient correction keys off this: a stage's
+    gradient of a split leaf (its block of the group stacks) is exact,
+    and a replicated leaf's holds only that stage's paths (stage 0's
+    embedding, the last stage's head and rest layers, each stage's
+    cross-attention uses of whisper's encoder), so it is summed over
+    "stage".
+    """
+    return {k: ax is not None for k, ax in stage_axes(cfg, pp).items()}

@@ -23,15 +23,17 @@ sequence parallelism, as in the reference.
 ``--smoke/--no-smoke`` picks the smoke or the full config (default
 smoke); ``--no-smoke`` serves the full config, e.g. llama3-8b (≈16 GB of
 bf16 weights), granite-8b, starcoder2-3b, gemma3-27b (≈54 GB),
-granite-moe-3b-a800m, qwen2-vl-2b or whisper-medium.  :func:`serve` is
-the same request for a config built by the caller (e.g. a depth-cut
-one).
+granite-moe-3b-a800m, qwen2-vl-2b or whisper-medium; ``--layers N``
+keeps its first N layers (llama4-maverick-400b-a17b's 48 are ≈ 800 GB).
+:func:`serve` is the same request for a config built by the caller.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --no-smoke --batch 4 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
       --no-smoke --batch 4 --prompt-len 16 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4-maverick-400b-a17b --no-smoke --layers 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --f32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --f32 \
       --tp 2
@@ -73,6 +75,9 @@ def main(argv=None):
                     default=True,
                     help="smoke config (default); --no-smoke serves the "
                          "full config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the config cut to its first N layers "
+                         "(default: all of them)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
@@ -92,6 +97,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.layers:
+        if not 0 < args.layers <= cfg.n_layers:
+            ap.error(f"--layers {args.layers}: {args.arch} has "
+                     f"{cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.f32:
         cfg = dataclasses.replace(cfg, dtype="float32")
     ctx = NULL_CTX

@@ -17,10 +17,11 @@ PyTorch counterpart of ``repro.launch.steps``:
     error-feedback hop when ``tcfg.grad_compression`` is set.  For MoE
     archs λ is folded into each group's objective and the load-balancing
     aux gradient decoded with uniform weights (the reference's rule).
+    On a ``DistMesh`` with a "stage" axis the coded step runs pipeline
+    parallelism (:func:`_pipeline_grads`).
 
 Steps update the params and the optimizer state in place and return
-them.  Pipeline parallelism (and the pipeline's microbatches) is not
-ported (ROADMAP.md).
+them.
 """
 from __future__ import annotations
 
@@ -39,6 +40,9 @@ from repro_torch.dist.sharding import (
     model_sharded_mask,
     param_axes,
     seq_sharded_mask,
+    stage_axes,
+    stage_sharded_mask,
+    validate_pp,
 )
 from repro_torch.models import transformer as tf
 from repro_torch.optim import (
@@ -59,14 +63,6 @@ ARCH_OPTIMIZER = {
 
 def default_optimizer_name(cfg: ModelConfig, tcfg: TrainConfig) -> str:
     return ARCH_OPTIMIZER.get(cfg.name, tcfg.optimizer)
-
-
-def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
-    if tcfg.pp_stages > 1 or tcfg.microbatches:
-        raise NotImplementedError(
-            "pipeline parallelism (and the pipeline's microbatches) is "
-            "not ported to repro_torch yet; see the dist regimes in "
-            "ROADMAP.md")
 
 
 def _batch_rows(batch: Dict[str, torch.Tensor], B: int, rows: slice
@@ -104,19 +100,21 @@ def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def _finish(params, opt_state, grads, optimizer, tcfg, lr_at, step,
-            metrics, ctx: ShardCtx = NULL_CTX, axes=None):
+            metrics, ctx: ShardCtx = NULL_CTX, axes=None,
+            stage: ShardCtx = NULL_CTX, st_axes=None):
     """Clip, schedule and apply the update in place; the shared tail of
     both steps (under TP each rank's slices, the norm and adafactor's
-    statistics reduced over "model": ``ctx``, ``axes``).  Returns the
-    metrics."""
+    statistics reduced over "model": ``ctx``, ``axes``; under PP over
+    "stage" too: ``stage``, ``st_axes``).  Returns the metrics."""
+    split = dict(ctx=ctx, axes=axes, stage=stage, stage_axes=st_axes)
     with torch.no_grad():
         if tcfg.grad_clip > 0:
-            clip_by_global_norm_(grads, tcfg.grad_clip, ctx, axes)
-        grad_norm = global_norm(grads, ctx, axes)
+            clip_by_global_norm_(grads, tcfg.grad_clip, **split)
+        grad_norm = global_norm(grads, **split)
         lr = lr_at(step).to(grads[0].device)
-        tp = dict(ctx=ctx, axes=axes) if ctx.active else {}
+        kw = split if ctx.active or stage.active else {}
         optimizer.apply_(grads, opt_state, params, lr, tcfg.weight_decay,
-                         **tp)
+                         **kw)
     metrics = dict(metrics)
     metrics["lr"] = lr
     metrics["grad_norm"] = grad_norm
@@ -126,8 +124,9 @@ def _finish(params, opt_state, grads, optimizer, tcfg, lr_at, step,
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     optimizer=None) -> Callable:
     """``train_step(params, opt_state, batch, step) → (params, opt_state,
-    metrics)``; params and state are updated in place."""
-    _check_supported(cfg, tcfg)
+    metrics)``; params and state are updated in place.  The pipeline's
+    options (``pp_stages``, ``microbatches``) are the dist step's: one
+    host ignores them, as the reference's does."""
     if optimizer is None:
         optimizer = make_optimizer(default_optimizer_name(cfg, tcfg))
     lr_at = cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
@@ -220,10 +219,24 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     replicated leaf's gradient is then a seq-block partial, which the
     psum over "model" completes.  A batch's ``enc_frames`` (whisper)
     reach the loss with its rows.
+
+    On a ``DistMesh`` with a "stage" axis of ``pp > 1`` ranks the step
+    runs pipeline parallelism: this rank's params hold its stage's block
+    of the ``groups`` stacks (``dist.sharding.stage_axes``) and the
+    replicated rest, each group's rows split into ``tcfg.microbatches
+    or pp`` microbatches, and :func:`_pipeline_grads` runs them through
+    the stages on a GPipe schedule.  Its gradients are exact for the
+    stage's own block; a replicated leaf's hold only this stage's paths,
+    so ``stage_correct`` sums them over "stage" (no ``/pp``: the
+    schedule differentiates the loss once, not a stage-replicated copy
+    of it, as the reference's single program does), once per pod partial
+    after the data sum and before the quantized hop (linear, as the
+    decode is).  The loss and the aux are then summed over "stage" once.
+    At one stage ``tcfg.microbatches`` is ignored, as the reference's
+    step ignores it.
     """
     from repro_torch.dist import grad_sync
 
-    _check_supported(cfg, tcfg)
     if optimizer is None:
         optimizer = make_optimizer(default_optimizer_name(cfg, tcfg))
     lr_at = cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
@@ -240,47 +253,182 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     ctx = getattr(mesh, "ctx", NULL_CTX)
     if tcfg.seq_shard_activations:
         ctx = dataclasses.replace(ctx, seq_shard=True)
+    pp, stage = mesh.pp, mesh.stage_ctx
+    M = 1
+    if pp > 1:
+        validate_pp(cfg, pp, microbatches=tcfg.microbatches)
+        M = tcfg.microbatches or pp
     axes_by_key = param_axes(cfg, ctx.tp)
+    stage_by_key = stage_axes(cfg, pp)
     mask = (seq_sharded_mask if ctx.sp else model_sharded_mask)(cfg,
                                                                   ctx.tp)
+    stage_mask = stage_sharded_mask(cfg, pp)
 
     def train_step(params, opt_state, batch, lam, residual, step):
         B = batch["tokens"].shape[0]
         keys = leaf_keys(params)
         axes = [axes_by_key[k] for k in keys]
+        st_axes = [stage_by_key[k] for k in keys]
         sharded = [mask[k] for k in keys]
+        staged = [stage_mask[k] for k in keys]
 
         def group_fn(pod, data):
             rows = mesh.group_rows(pod, data, B)
             local = _batch_rows(batch, B, rows)
-            if not cfg.is_moe:
-                grads, m = _grads(params, cfg, local, ctx=ctx)
-                return tp_correct(grads, sharded, ctx), m["loss"]
             lam_ij = float(np.asarray(lam, np.float32)[pod, data])
-            grads, m = _grads(
-                params, cfg, local,
-                objective=lambda m: (lam_ij * m["loss"] + (
-                    tf.AUX_WEIGHT / n_groups) * m["aux_loss"]), ctx=ctx)
+            if pp > 1:
+                # MoE: λ in the objective, the aux with uniform weights
+                coefs = (lam_ij, tf.AUX_WEIGHT / n_groups) if cfg.is_moe \
+                    else (1.0, tf.AUX_WEIGHT)
+                grads, m = _pipeline_grads(params, cfg, local, mesh, ctx, M,
+                                           *coefs)
+            elif not cfg.is_moe:
+                grads, m = _grads(params, cfg, local, ctx=ctx)
+            else:
+                grads, m = _grads(
+                    params, cfg, local,
+                    objective=lambda m: (lam_ij * m["loss"] + (
+                        tf.AUX_WEIGHT / n_groups) * m["aux_loss"]), ctx=ctx)
+            grads = tp_correct(grads, sharded, ctx)
+            if not cfg.is_moe:
+                return grads, m["loss"]
             # aux_ij / n_groups rides beside the loss through its sums
-            return tp_correct(grads, sharded, ctx), torch.stack(
-                [lam_ij * m["loss"], m["aux_loss"] / n_groups])
+            return grads, torch.stack([lam_ij * m["loss"],
+                                       m["aux_loss"] / n_groups])
+
+        def stage_correct(part):
+            """A pod partial's replicated leaves summed over "stage"."""
+            return [g if split else stage.reduce_sum(g)
+                    for g, split in zip(part, staged)]
 
         # MoE: λ is inside each group's objective, so the sums run unweighted
         lam_sum = np.ones_like(np.asarray(lam, np.float32)) if cfg.is_moe \
             else lam
+        correct = stage_correct if pp > 1 else None
         if compressed:
             grads, loss = grad_sync.compressed_coded_psum(
                 mesh, group_fn, lam_sum, residual,
                 block=tcfg.grad_compression_block,
-                mode=tcfg.grad_compression)
+                mode=tcfg.grad_compression, pod_correct=correct)
         else:
-            grads, loss = grad_sync.coded_weighted_psum(mesh, group_fn,
-                                                        lam_sum)
+            grads, loss = grad_sync.coded_weighted_psum(
+                mesh, group_fn, lam_sum, pod_correct=correct)
+        # only the last stage holds the loss terms; every stage its aux
+        loss = stage.reduce_sum(loss)
         metrics = {"loss": loss[0], "aux_loss": loss[1]} if cfg.is_moe \
             else {"loss": loss}
         metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
-                          step, metrics, ctx, axes)
+                          step, metrics, ctx, axes, stage, st_axes)
         return params, opt_state, residual, metrics
 
     train_step.optimizer = optimizer
     return train_step
+
+
+def _pipeline_grads(params, cfg: ModelConfig, local, mesh, ctx: ShardCtx,
+                    M: int, loss_coef: float, aux_coef: float):
+    """One (pod, data) group's gradients on this stage of a pipeline →
+    (gradient leaves in leaf order, ``{"loss", "aux_loss"}``).
+
+    GPipe on an explicit schedule: the forward of every microbatch in
+    turn (stage 0 embeds it, the others receive the previous stage's
+    output; the stage's block of the group stacks runs; the last stage
+    runs the rest layers, the head and the cross-entropy, the others
+    send their output on), then the backward in reverse order (the last
+    stage seeds ``loss_coef · Σ nll·w / denom + aux_coef · aux / M``,
+    the others the cotangent the next stage sends back, plus their own
+    layers' aux; the cotangent of the stage's input goes back to the
+    previous stage).  No cell is computed off the schedule, and the
+    handoffs never enter autograd: a stage differentiates only its own
+    graph, and the gradients accumulate over microbatches into the
+    params' ``.grad``.  Every rank pair issues its handoffs in one order
+    (forwards 0…M−1, then backwards M−1…0), so the chain of stages
+    cannot deadlock.  The whisper encoder runs once on every stage over
+    the group's whole batch; its output's cotangent accumulates over the
+    microbatches and runs back through it once.  The loss terms are the
+    reference's: ``denom`` the batch's (else the total weight), the aux
+    the per-microbatch mean.  ``loss`` is this stage's share (0 but on
+    the last stage) and ``aux_loss`` its layers' aux: the step sums both
+    over "stage"."""
+    first, last = mesh.stage == 0, mesh.stage == mesh.pp - 1
+    leaves = _tree.leaves(params)
+    for p in leaves:
+        p.grad = None
+    tokens = local["tokens"]
+    Bl, S = tokens.shape
+    if Bl % M:
+        raise ValueError(
+            f"{cfg.name}: pipeline parallelism needs the per-group "
+            f"batch ({Bl} rows) divisible by microbatches={M}")
+    mb = Bl // M
+    micro = [_batch_rows({k: v for k, v in local.items()
+                          if k != "enc_frames"}, Bl,
+                         slice(i * mb, (i + 1) * mb)) for i in range(M)]
+    S_loc = S // ctx.tp if ctx.sp else S
+    act = (mb, S_loc, cfg.d_model)
+    act_dtype = tf._torch_dtype(cfg.dtype)
+    dev = tokens.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    saved = []
+    nll_tot, w_tot, aux_tot = zero, zero, zero
+    with torch.enable_grad():
+        pc = tf.cast_params(params, cfg)
+        enc_out = enc_in = None
+        if cfg.is_encdec:
+            enc_out = tf.encode_frames(pc, cfg, local["enc_frames"], ctx)
+            enc_in = enc_out.detach().requires_grad_(True)
+        for i, m in enumerate(micro):
+            pos = tf.default_positions(cfg, m["tokens"], m.get("positions"))
+            rope = tf.rope_of(cfg, pos)
+            enc_i = None if enc_in is None else enc_in[i * mb:(i + 1) * mb]
+            if first:
+                x_in, _ = tf.embed_tokens(pc, cfg, m["tokens"], pos,
+                                          m.get("visual_embeds"), ctx)
+            else:
+                x_in = mesh.recv_prev(torch.empty(
+                    act, dtype=act_dtype, device=dev)).requires_grad_(True)
+            x, aux = tf.apply_groups(pc["groups"], cfg, x_in, rope, enc_i,
+                                     ctx)
+            if last:
+                nll, w, aux_rest = tf.head_loss_terms(
+                    pc, cfg, x, m["targets"], m.get("weights"), rope, enc_i,
+                    ctx)
+                aux = aux + aux_rest
+                nll_tot, w_tot = nll_tot + nll.detach(), w_tot + w.detach()
+                saved.append((x_in, nll, aux))
+            else:
+                if x.dtype != act_dtype or tuple(x.shape) != act:
+                    raise RuntimeError(
+                        f"stage {mesh.stage} output {tuple(x.shape)} "
+                        f"{x.dtype}, the handoff carries {act} {act_dtype}")
+                mesh.send_next(x)
+                saved.append((x_in, x, aux))
+            aux_tot = aux_tot + aux.detach() / M
+        denom = local.get("denom")
+        if denom is None:
+            denom = torch.clamp(w_tot, min=1.0)
+        for i in reversed(range(M)):
+            x_in, out, aux = saved[i]
+            saved[i] = None
+            if last:
+                obj = loss_coef * out / denom
+                if aux.requires_grad:
+                    obj = obj + (aux_coef / M) * aux
+                torch.autograd.backward([obj])
+            else:
+                seeds = [(out, mesh.recv_next(torch.empty_like(out)))]
+                if aux.requires_grad:
+                    seeds.append((aux, torch.full_like(aux, aux_coef / M)))
+                torch.autograd.backward([t for t, _ in seeds],
+                                        [g for _, g in seeds])
+            if not first:
+                mesh.send_prev(x_in.grad)
+            del x_in, out, aux
+        if enc_out is not None and enc_in.grad is not None:
+            torch.autograd.backward([enc_out], [enc_in.grad])
+    grads = []
+    for p in leaves:
+        grads.append(p.grad if p.grad is not None else torch.zeros_like(p))
+        p.grad = None
+    loss = nll_tot / denom if last else zero
+    return grads, {"loss": loss, "aux_loss": aux_tot}

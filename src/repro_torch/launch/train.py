@@ -25,9 +25,12 @@ joins that world instead, whose size may also give the pods or the
 workers ranks of their own (``DistMesh.for_world``).  Rank 0 prints,
 writes ``--metrics-out`` and the checkpoints (the full arrays, which
 restore at any degree).  ``--seq-shard`` adds sequence
-parallelism to ``--tp`` (the sequence length must divide tp).  Not
-ported yet (the flags raise, naming ROADMAP.md): ``--pp`` and
-``--microbatches``.
+parallelism to ``--tp`` (the sequence length must divide tp).  ``--pp
+N`` (with or without ``--tp``) adds a leading "stage" axis of pipeline
+parallelism: the CLI spawns ``pp × tp`` ranks (or joins torchrun's
+world), each stage holding its block of the layer-group stacks, each
+group's rows run as ``--microbatches`` microbatches (default one per
+stage).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -44,6 +47,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --arch granite-moe-3b-a800m --steps 4 --seq-len 16 --dist coded_q \
       --tp 2 --seq-shard
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --steps 4 --seq-len 16 --dist coded_q --pp 2 --tp 2 --seq-shard
 """
 from __future__ import annotations
 
@@ -55,13 +60,14 @@ from repro_torch._device import resolve_device
 from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.dist.launch import join_launcher_world, run_ranks
+from repro_torch.dist.sharding import validate_pp
 
 
 def main(argv=None, full_params: bool = False):
-    """Run the CLI → the session's params at tp 1; under ``--tp N``,
-    rank 0's gathered full arrays by flat key when ``full_params`` is
-    set (every rank joins the gather), else ``None``: at full width
-    they are the whole model in float32."""
+    """Run the CLI → the session's params at tp 1 and pp 1; under ``--tp
+    N`` or ``--pp N``, rank 0's gathered full arrays by flat key when
+    ``full_params`` is set (every rank joins the gather), else ``None``:
+    at full width they are the whole model in float32."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b", choices=list(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true",
@@ -101,9 +107,18 @@ def main(argv=None, full_params: bool = False):
     ap.add_argument("--no-seq-shard", dest="seq_shard",
                     action="store_const", const=False)
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages (not ported: 1 only)")
+                    help="pipeline-parallel stage count (--dist modes): "
+                         "a leading 'stage' axis of ranks splits the "
+                         "stacked layer groups and the train step runs "
+                         "a microbatched pipeline before the coded "
+                         "decode.  Needs n_layers//len(block_pattern) "
+                         "divisible by the stage count; composes with "
+                         "--tp, --seq-shard and the quantized hop")
     ap.add_argument("--microbatches", type=int, default=0,
-                    help="pipeline microbatches (not ported)")
+                    help="pipeline microbatch count per step (0 = one "
+                         "per stage, the minimum that fills the "
+                         "pipeline).  Must divide the per-group coded "
+                         "batch rows (load D × --part-batch)")
     ap.add_argument("--grad-block", type=int, default=64,
                     help="quantization block on the edge→master hop")
     ap.add_argument("--grad-compression", default="",
@@ -144,10 +159,16 @@ def main(argv=None, full_params: bool = False):
     if args.dist == "off" and tp > 1:
         raise SystemExit("--tp requires a --dist mode")
     if args.dist == "off" and args.pp > 1:
-        raise SystemExit("--pp requires a --dist mode")
-    if tp > 1 and not join_launcher_world(args.device):
+        raise SystemExit("--pp requires a --dist mode (the pipeline runs "
+                         "over the 'stage' axis of the coded step)")
+    ranks = tp * max(args.pp, 1)
+    if ranks > 1 and not join_launcher_world(args.device):
         resolve_device(args.device)  # no CUDA: raise here, not in a rank
-        return run_ranks(main, tp, args=(argv, full_params),
+        try:
+            validate_pp(cfg, args.pp)  # a bad degree fails here, once
+        except ValueError as e:
+            raise SystemExit(f"[train] {e}")
+        return run_ranks(main, ranks, args=(argv, full_params),
                          device=args.device, timeout=86400.0)[0]
     ctor = CodedCluster.hetero if args.cluster == "hetero" \
         else CodedCluster.homogeneous
@@ -171,7 +192,7 @@ def main(argv=None, full_params: bool = False):
         force_drop_edge=args.force_drop_edge,
         force_drop_step=args.force_drop_step, stop_after=args.stop_after,
     )
-    full = session.full_params() if full_params and tp > 1 else None
+    full = session.full_params() if full_params and ranks > 1 else None
     if session.rank != 0:
         return None
     if args.metrics_out:
@@ -182,7 +203,7 @@ def main(argv=None, full_params: bool = False):
         print("[train] WARNING: jit cache size unavailable (the port's "
               "step is eager); zero-recompile check skipped",
               file=sys.stderr)
-    return full if tp > 1 else session.params
+    return full if ranks > 1 else session.params
 
 
 if __name__ == "__main__":

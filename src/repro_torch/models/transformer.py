@@ -27,7 +27,10 @@ embeddings in the first positions):
     goes through ``models.attention.FlashAttention`` (the flash kernel
     forward, the reference's recompute backward) and each layer is
     rematerialized with ``torch.utils.checkpoint``, as ``_remat_wrap``
-    does with ``jax.checkpoint``.
+    does with ``jax.checkpoint``.  The pipeline's pieces are
+    :func:`embed_tokens`, :func:`apply_groups` over a stage's block of
+    the group stacks and :func:`head_loss_terms` (the rest layers, the
+    head and the cross-entropy), as the reference splits them.
 
 Tensor parallelism threads a :class:`~repro_torch.dist.sharding.ShardCtx`
 (``ctx``) through every layer kind, as the reference's
@@ -65,6 +68,8 @@ from repro_torch.dist.sharding import (
     NULL_CTX,
     ShardCtx,
     shard_axis,
+    stage_layer_ranges,
+    validate_pp,
     validate_tp,
 )
 from repro_torch.kernels import ops
@@ -106,6 +111,19 @@ def _has_attention(cfg: ModelConfig) -> bool:
     return any(k in ATTENTION_KINDS for k in cfg.block_pattern)
 
 
+def _map_tensors(fn, tree: PyTree) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack_len(tree: PyTree) -> int:
+    """The leading (stacked-layer) dim of a layer stack."""
+    while isinstance(tree, dict):
+        tree = tree[next(iter(tree))]
+    return tree.shape[0]
+
+
 def _index(tree: PyTree, i: int) -> PyTree:
     """Layer ``i`` of a stacked layer dict, as views (no copy)."""
     if isinstance(tree, dict):
@@ -142,7 +160,7 @@ def _norm(p: Dict, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda", dtype=None, tp: int = 1,
-                rank: int = 0) -> PyTree:
+                rank: int = 0, pp: int = 1, stage: int = 0) -> PyTree:
     """Random weights N(0, 0.02²), laid out as the reference's pytree.
 
     Serving allocates the cast working copy directly, as
@@ -169,11 +187,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     With ``tp > 1`` the result is rank ``rank``'s slices
     (``dist.sharding.shard_axis``): each full leaf is drawn in turn, as
     at tp 1, and only its slice kept, so one seed gives the slices of
-    the tp-1 weights and the peak is one full leaf.  ``device="meta"``
-    gives the shapes alone (no generator).
+    the tp-1 weights and the peak is one full leaf.  With ``pp > 1`` the
+    ``groups`` stacks keep stage ``stage``'s block of their leading axis
+    (``dist.sharding.stage_layer_ranges``) the same way, so one seed gives
+    the same global weights at every (pp, tp).  ``device="meta"`` gives
+    the shapes alone (no generator).
     """
     if tp > 1:
         validate_tp(cfg, tp)
+    if pp > 1:
+        validate_pp(cfg, pp)
     _check_supported(cfg)
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
@@ -184,25 +207,45 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                        cfg.head_dim)
     ff = cfg.d_ff_dense or cfg.d_ff
 
-    def keep(name, t):
+    P = len(cfg.block_pattern)
+    n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
+    per_stage = n_groups // max(pp, 1)
+    first_group = stage_layer_ranges(cfg, pp)[stage][0] // P
+
+    def stage_block(t):
+        """Stage ``stage``'s block of a full group stack's leading axis."""
+        if pp <= 1 or t.shape[0] != n_groups:
+            return t
+        return t.narrow(0, first_group, per_stage).clone()
+
+    def keep(name, t, staged=False):
         """This rank's slice of a full leaf as it is drawn."""
         ax = shard_axis(name, tuple(t.shape), cfg, tp)
-        if ax is None:
-            return t
-        n = t.shape[ax] // tp
-        return t.narrow(ax, rank * n, n).clone()
+        if ax is not None:
+            n = t.shape[ax] // tp
+            t = t.narrow(ax, rank * n, n).clone()
+        return stage_block(t) if staged else t
 
-    def normal(name, *shape):
+    def normal(name, *shape, staged=False):
         t = torch.randn(shape, generator=generator, dtype=dt, device=device)
-        return keep(name, t).mul_(0.02)
+        return keep(name, t, staged).mul_(0.02)
 
-    def attn(lead):
-        return {"wq": normal("wq", *lead, d, H * Dh),
-                "wk": normal("wk", *lead, d, Kv * Dh),
-                "wv": normal("wv", *lead, d, Kv * Dh),
-                "wo": normal("wo", *lead, H * Dh, d)}
+    def layers(lead: Tuple[int, ...], kind: str, moe: bool,
+               staged: bool = False) -> Dict:
+        """One pattern position's layers, stacked over ``lead``; a
+        ``staged`` stack keeps the stage's block of every leaf."""
+        def kept(name, t):
+            return keep(name, t, staged)
 
-    def layers(lead: Tuple[int, ...], kind: str, moe: bool) -> Dict:
+        def draw(name, *shape):
+            return normal(name, *shape, staged=staged)
+
+        def attn(lead):
+            return {"wq": draw("wq", *lead, d, H * Dh),
+                    "wk": draw("wk", *lead, d, Kv * Dh),
+                    "wv": draw("wv", *lead, d, Kv * Dh),
+                    "wo": draw("wo", *lead, H * Dh, d)}
+
         ndt = dt if lead else torch.float32
         p: Dict[str, Any] = {
             "norm1": _init_norm(cfg, lead + (d,), device, ndt)}
@@ -211,11 +254,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         elif kind == "ssm":
             p["ssm"] = ssm_lib.init_ssm(
                 d, cfg.expand, cfg.d_state, cfg.d_conv, cfg.ssm_head_dim,
-                generator, device, dt, lead, keep)
+                generator, device, dt, lead, kept)
         else:
             p["rglru"] = rglru_lib.init_rglru_block(
                 d, cfg.lru_width or d, cfg.d_conv, generator, device, dt,
-                lead, keep)
+                lead, kept)
         if cfg.is_encdec:
             p["norm_x"] = _init_norm(cfg, lead + (d,), device, ndt)
             p["xattn"] = attn(lead)
@@ -224,15 +267,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             if moe:
                 p["moe"] = moe_lib.init_moe(
                     d, cfg.d_ff, cfg.n_experts, cfg.n_shared_experts,
-                    generator, device, dt, lead, keep)
+                    generator, device, dt, lead, kept)
             elif cfg.mlp == "swiglu":
-                p["mlp"] = {"wg": normal("wg", *lead, d, ff),
-                            "wu": normal("wu", *lead, d, ff),
-                            "wd": normal("wd", *lead, ff, d)}
+                p["mlp"] = {"wg": draw("wg", *lead, d, ff),
+                            "wu": draw("wu", *lead, d, ff),
+                            "wd": draw("wd", *lead, ff, d)}
             else:
-                p["mlp"] = {"w1": normal("w1", *lead, d, ff),
-                            "w2": normal("w2", *lead, ff, d)}
-        return p
+                p["mlp"] = {"w1": draw("w1", *lead, d, ff),
+                            "w2": draw("w2", *lead, ff, d)}
+        # the deterministic leaves (norms, the recurrences' vectors) are
+        # made whole: the stage's block of them too
+        return _map_tensors(stage_block, p) if staged else p
 
     params: Dict[str, Any] = {
         "embed": {"table": normal("table", V, d)},
@@ -240,10 +285,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
     if not cfg.tie_embeddings:
         params["head"] = {"w": normal("w", d, V)}
-    P = len(cfg.block_pattern)
-    n_groups, n_rest = cfg.n_layers // P, cfg.n_layers % P
     params["groups"] = {f"p{k}": layers((n_groups,), cfg.block_pattern[k],
-                                        cfg.moe_at(k))
+                                        cfg.moe_at(k), staged=pp > 1)
                         for k in range(P)}
     if n_rest:
         params["rest"] = {f"r{k}": layers((), cfg.block_pattern[k],
@@ -499,16 +542,71 @@ def _unembed(params, cfg, x, ctx: ShardCtx = NULL_CTX):
     return _matmul_f32(x, params["head"]["w"], cfg)
 
 
-def _layers(params, cfg):
-    """(params, kind, group key, layer index or None) in model order."""
+def _group_items(groups, cfg):
+    """(params, kind, group key, layer index) of a ``groups`` stack in
+    model order: the whole stack or a stage's block of it (the loop runs
+    over whatever leading dim the stacks carry)."""
     P = len(cfg.block_pattern)
-    for l in range(cfg.n_layers // P):
+    for l in range(_stack_len(groups["p0"])):
         for k in range(P):
-            yield (_index(params["groups"][f"p{k}"], l),
-                   cfg.block_pattern[k], ("groups", f"p{k}"), l)
-    for k in range(cfg.n_layers % P):
+            yield (_index(groups[f"p{k}"], l), cfg.block_pattern[k],
+                   ("groups", f"p{k}"), l)
+
+
+def _rest_items(params, cfg):
+    """(params, kind, key, None) of the remainder layers."""
+    for k in range(cfg.n_layers % len(cfg.block_pattern)):
         yield (params["rest"][f"r{k}"], cfg.block_pattern[k],
                ("rest", f"r{k}"), None)
+
+
+def _layers(params, cfg):
+    """(params, kind, group key, layer index or None) in model order."""
+    yield from _group_items(params["groups"], cfg)
+    yield from _rest_items(params, cfg)
+
+
+def _run_layers(items, x, cfg, rope, enc_out, ctx, auxes, cache=None):
+    """Apply ``items`` (:func:`_group_items` / :func:`_rest_items`) to
+    ``x``, each layer rematerialized under autograd unless a ``cache`` is
+    filled; the MoE layers' aux losses are appended to ``auxes``."""
+    remat = _remat(cfg) and cache is None
+    for lp, kind, (part, key), l in items:
+        if remat:
+            x, aux = checkpoint(_layer_out, lp, x, kind, cfg, rope, enc_out,
+                                ctx, use_reentrant=False)
+        else:
+            x, entry, aux = _layer_apply(lp, x, kind, cfg, rope, enc_out,
+                                         ctx)
+        if aux is not None:
+            auxes.append(aux)
+        if cache is not None:
+            if l is None:
+                cache[part][key] = entry
+            elif kind in ATTENTION_KINDS:
+                cache[part][key]["k"][l] = entry["k"]
+                cache[part][key]["v"][l] = entry["v"]
+    return x
+
+
+def _aux_total(auxes, x) -> torch.Tensor:
+    return (torch.stack(auxes).sum() if auxes else
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def apply_groups(groups: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                 enc_out: Optional[torch.Tensor] = None,
+                 ctx: ShardCtx = NULL_CTX
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``groups`` stacks (cast) over ``x`` → ``(x, their summed
+    aux)``: the whole stack, or a stage's block of it (pipeline
+    parallelism: leading dim ``G / pp``), as the reference's
+    ``_apply_groups``.  ``rope`` is :func:`rope_of`'s."""
+    auxes: list = []
+    x = _run_layers(_group_items(groups, cfg), x, cfg, rope, enc_out, ctx,
+                    auxes)
+    return x, _aux_total(auxes, x)
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -556,27 +654,43 @@ def embed_tokens(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     default positions are ``arange(S)`` per row, broadcast to (3, B, S)
     for an M-RoPE config.  Under SP ``x`` is this rank's sequence block
     (the positions stay whole: blocks gather before attending)."""
-    B, S = tokens.shape
     x = _embed(params, cfg, tokens, ctx)
     if visual_embeds is not None:
         n_vis = visual_embeds.shape[1]
         x = torch.cat([visual_embeds.to(x.dtype), x[:, n_vis:]], dim=1)
-    if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
-        if cfg.mrope_sections:
-            positions = positions.expand(3, B, S)
-    return ctx.scatter_seq(x), positions
+    return ctx.scatter_seq(x), default_positions(cfg, tokens, positions)
+
+
+def default_positions(cfg: ModelConfig, tokens: torch.Tensor,
+                      positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """``positions``, or ``arange(S)`` per row when None, broadcast to
+    (3, B, S) for an M-RoPE config."""
+    if positions is not None:
+        return positions
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    if cfg.mrope_sections:
+        positions = positions.expand(3, B, S)
+    return positions
+
+
+def rope_of(cfg: ModelConfig, positions: torch.Tensor):
+    """The rotary tables every attention layer of a forward shares (None
+    for a config without attention layers)."""
+    return _rope(cfg, positions) if _has_attention(cfg) else None
 
 
 def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor], return_cache: bool,
             enc_frames: Optional[torch.Tensor] = None,
             visual_embeds: Optional[torch.Tensor] = None,
-            ctx: ShardCtx = NULL_CTX
-            ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+            ctx: ShardCtx = NULL_CTX, rest: bool = True):
     """The encoder (encoder–decoder models), the embedding and the layer
-    stack on cast params → (x, cache, the layers' summed aux loss); each
-    layer rematerialized under autograd (``cfg.remat``)."""
+    stack on cast params → (x, cache, the layers' summed aux loss, the
+    rotary tables, the encoder's output); each layer rematerialized
+    under autograd (``cfg.remat``).  ``rest=False`` stops before the
+    remainder layers (the loss runs them in :func:`head_loss_terms`)."""
     enc_out = None
     if cfg.is_encdec:
         if enc_frames is None:
@@ -585,36 +699,23 @@ def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     x, positions = embed_tokens(params, cfg, tokens, positions,
                                 visual_embeds, ctx)
     B, S = tokens.shape
-    rope = _rope(cfg, positions) if _has_attention(cfg) else None
+    rope = rope_of(cfg, positions)
     n_groups = cfg.n_layers // len(cfg.block_pattern)
     KvDh = local_kv_heads(cfg, ctx.tp) * cfg.head_dim
-    cache: Dict[str, Dict] = {"groups": {}, "rest": {}}
+    cache = None
     if return_cache:
+        cache = {"groups": {}, "rest": {}}
         for k, kind in enumerate(cfg.block_pattern):
             cache["groups"][f"p{k}"] = {
                 n: torch.empty((n_groups, B, S, KvDh), dtype=x.dtype,
                                device=x.device) for n in ("k", "v")
             } if kind in ATTENTION_KINDS else ()
-    remat = _remat(cfg) and not return_cache
-    auxes = []
-    for lp, kind, (part, key), l in _layers(params, cfg):
-        if remat:
-            x, aux = checkpoint(_layer_out, lp, x, kind, cfg, rope, enc_out,
-                                ctx, use_reentrant=False)
-        else:
-            x, entry, aux = _layer_apply(lp, x, kind, cfg, rope, enc_out,
-                                         ctx)
-        if aux is not None:
-            auxes.append(aux)
-        if return_cache:
-            if l is None:
-                cache[part][key] = entry
-            elif kind in ATTENTION_KINDS:
-                cache[part][key]["k"][l] = entry["k"]
-                cache[part][key]["v"][l] = entry["v"]
-    aux_total = (torch.stack(auxes).sum() if auxes else
-                 torch.zeros((), dtype=torch.float32, device=x.device))
-    return x, cache, aux_total
+    auxes: list = []
+    items = _layers(params, cfg) if rest else _group_items(
+        params["groups"], cfg)
+    x = _run_layers(items, x, cfg, rope, enc_out, ctx, auxes, cache)
+    return x, cache or {"groups": {}, "rest": {}}, _aux_total(auxes, x), \
+        rope, enc_out
 
 
 def forward(
@@ -641,8 +742,9 @@ def forward(
     ctx = ctx or NULL_CTX
     _check_supported(cfg)
     params = cast_params(params, cfg)
-    x, cache, aux = _hidden(params, cfg, tokens, positions, return_cache,
-                            enc_frames, visual_embeds, ctx)
+    x, cache, aux, _, _ = _hidden(params, cfg, tokens, positions,
+                                  return_cache, enc_frames, visual_embeds,
+                                  ctx)
     if last_only:
         # the final position lives on the last rank's block under SP
         x = ctx.gather_seq(x)[:, -1:]
@@ -680,16 +782,22 @@ def _ce_nll(logits: torch.Tensor, targets: torch.Tensor,
 
 def head_loss_terms(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                     targets: torch.Tensor, weights: Optional[torch.Tensor],
+                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    enc_out: Optional[torch.Tensor] = None,
                     ctx: ShardCtx = NULL_CTX
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Unembed + weighted CE on the layer stack's output; ``params`` must
-    already be cast.  Returns the un-normalized ``(Σ nll·w, Σ w, aux)``
-    so the caller picks the denominator; aux is that of the layers run
-    here, none in the port (``_hidden`` runs the rest layers), so 0."""
+    """Rest layers + unembed + weighted CE on the group stacks' output;
+    ``params`` must already be cast (``rope``: :func:`rope_of`'s tables,
+    ``enc_out``: the encoder's output).  Returns the un-normalized ``(Σ
+    nll·w, Σ w, aux of the rest layers)`` so the caller picks the
+    denominator.  The pipelined step runs it on the last stage."""
+    auxes: list = []
+    x = _run_layers(_rest_items(params, cfg), x, cfg, rope, enc_out, ctx,
+                    auxes)
     logits = _unembed(params, cfg, x, ctx)
     nll = _ce_nll(logits, targets, cfg, ctx)
     w = weights if weights is not None else torch.ones_like(nll)
-    return (nll * w).sum(), w.sum(), torch.zeros((), device=x.device)
+    return (nll * w).sum(), w.sum(), _aux_total(auxes, x)
 
 
 def loss_and_metrics(params: PyTree, cfg: ModelConfig,
@@ -709,12 +817,13 @@ def loss_and_metrics(params: PyTree, cfg: ModelConfig,
     ctx = ctx or NULL_CTX
     _check_supported(cfg)
     params = cast_params(params, cfg)
-    x, _, aux = _hidden(params, cfg, batch["tokens"],
-                        batch.get("positions"), False,
-                        batch.get("enc_frames"), batch.get("visual_embeds"),
-                        ctx)
+    x, _, aux, rope, enc_out = _hidden(
+        params, cfg, batch["tokens"], batch.get("positions"), False,
+        batch.get("enc_frames"), batch.get("visual_embeds"), ctx,
+        rest=False)
     nll_sum, w_sum, aux_rest = head_loss_terms(
-        params, cfg, x, batch["targets"], batch.get("weights"), ctx)
+        params, cfg, x, batch["targets"], batch.get("weights"), rope,
+        enc_out, ctx)
     aux = aux + aux_rest
     denom = batch.get("denom")
     if denom is None:

@@ -22,7 +22,10 @@ clip) all-reduce the sharded leaves' square sums over "model" and count
 a replicated leaf once; adafactor's row and column statistics and its
 update-RMS clip all-reduce over the sharded axis.  ``ctx`` is the
 :class:`~repro_torch.dist.sharding.ShardCtx` and ``axes`` the split
-axis of each leaf (None: replicated), in leaf order.
+axis of each leaf (None: replicated), in leaf order.  Under pipeline
+parallelism ``stage`` (the context over the "stage" group) and
+``stage_axes`` (the ``groups`` stacks' leading axis) add the same
+reductions over "stage": a leaf may be split on both axes.
 """
 from __future__ import annotations
 
@@ -45,22 +48,39 @@ class Optimizer:
     apply_: Callable[..., PyTree]
 
 
+def _active(ctx) -> bool:
+    return ctx is not None and ctx.active
+
+
 def global_norm(tree: PyTree, ctx=None,
-                axes: Optional[Sequence[Optional[int]]] = None
+                axes: Optional[Sequence[Optional[int]]] = None,
+                stage=None,
+                stage_axes: Optional[Sequence[Optional[int]]] = None
                 ) -> torch.Tensor:
     """√Σ over every leaf of its square sum; under TP the sharded leaves'
     part is all-reduced over "model" and each replicated leaf counted
-    once."""
+    once, and under PP the stage-split leaves' part over "stage"."""
     flat = _tree.leaves(tree)
     sq = [torch.sum(torch.square(x.to(torch.float32))) for x in flat]
-    if ctx is None or not ctx.active:
+    if not _active(ctx) and not _active(stage):
         return torch.sqrt(torch.sum(torch.stack(sq)))
     zero = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-    rep = [q for q, ax in zip(sq, axes) if ax is None]
-    shard = [q for q, ax in zip(sq, axes) if ax is not None]
-    total = torch.sum(torch.stack(rep)) if rep else zero
-    if shard:
-        total = total + ctx.reduce_sum(torch.sum(torch.stack(shard)))
+    m_split = [_active(ctx) and ax is not None for ax in axes or
+               [None] * len(sq)]
+    s_split = [_active(stage) and ax is not None for ax in stage_axes or
+               [None] * len(sq)]
+
+    def part(m, st):
+        qs = [q for q, a, b in zip(sq, m_split, s_split) if (a, b) == (m, st)]
+        return torch.sum(torch.stack(qs)) if qs else zero
+
+    # split over "model" first (each stage's own blocks), then "stage"
+    on_model = part(True, False), part(True, True)
+    if any(m_split):
+        on_model = ctx.reduce_sum(torch.stack(on_model)).unbind(0)
+    total = part(False, False) + on_model[0]
+    if any(s_split):
+        total = total + stage.reduce_sum(part(False, True) + on_model[1])
     return torch.sqrt(total)
 
 
@@ -71,11 +91,12 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
-                         ctx=None, axes=None) -> List[torch.Tensor]:
+                         ctx=None, axes=None, stage=None,
+                         stage_axes=None) -> List[torch.Tensor]:
     """:func:`clip_by_global_norm` in place on a list of leaves (the same
-    arithmetic, no second copy of the gradient); under TP the norm is
-    the global one (:func:`global_norm`)."""
-    norm = global_norm(grads, ctx, axes)
+    arithmetic, no second copy of the gradient); under TP and PP the
+    norm is the global one (:func:`global_norm`)."""
+    norm = global_norm(grads, ctx, axes, stage, stage_axes)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))
@@ -98,29 +119,32 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
 
 # ----------------------------------------------------------------------
 class _Split:
-    """How one leaf is split over the "model" ranks, for the reductions
-    of its update: a mean over the split dim is the mean of the ranks'
-    means (equal blocks)."""
+    """How one leaf is split over the "model" ranks (``axis``, ``ctx``)
+    and the "stage" ranks (``stage_axis``, ``stage``), for the
+    reductions of its update: a mean over a split dim is the mean of the
+    ranks' means (equal blocks)."""
 
-    def __init__(self, axis: Optional[int] = None, ctx=None, ndim: int = 0):
-        self.axis = None if axis is None or ctx is None or not ctx.active \
-            else axis % ndim
-        self.ctx, self.ndim = ctx, ndim
+    def __init__(self, axis: Optional[int] = None, ctx=None, ndim: int = 0,
+                 stage_axis: Optional[int] = None, stage=None):
+        self.splits = [(ax % ndim, c) for ax, c in ((axis, ctx),
+                                                    (stage_axis, stage))
+                       if ax is not None and _active(c)]
+        self.ndim = ndim
 
     def mean(self, x, dim: int, leaf_dim: Optional[int] = None,
              keepdim: bool = False):
         """``x.mean(dim)``; ``leaf_dim`` is that dim in the leaf's
         coordinates (default ``dim``: ``x`` has the leaf's shape)."""
         m = x.mean(dim, keepdim=keepdim)
-        d = dim if leaf_dim is None else leaf_dim
-        if self.axis is not None and d % self.ndim == self.axis:
-            m = self.ctx.reduce_sum(m) / self.ctx.tp
+        for ax, c in self.splits:
+            if (dim if leaf_dim is None else leaf_dim) % self.ndim == ax:
+                m = c.reduce_sum(m) / c.tp
         return m
 
     def mean_all(self, x):
         m = torch.mean(x)
-        if self.axis is not None:
-            m = self.ctx.reduce_sum(m) / self.ctx.tp
+        for _, c in self.splits:
+            m = c.reduce_sum(m) / c.tp
         return m
 
 
@@ -167,11 +191,12 @@ def _optimizer(name: str, slots: Tuple[str, ...], init_leaf, leaf,
         return _tree.unflatten_like(params, [u for u, _ in outs]), new_state
 
     def apply_(grads: List, state, params, lr, weight_decay=0.0, *,
-               ctx=None, axes=None):
+               ctx=None, axes=None, stage=None, stage_axes=None):
         flat_p, sts, t = _per_leaf(state, params)
         for i, (p, st) in enumerate(zip(flat_p, sts)):
-            split = (_Split(axes[i], ctx, p.ndim) if axes is not None
-                     else _WHOLE)
+            split = _Split(axes[i] if axes is not None else None, ctx,
+                           p.ndim, stage_axes[i] if stage_axes is not None
+                           else None, stage)
             u, nst = leaf(grads[i], p, st, lr, weight_decay, t, split)
             # the new state goes into the old tensors, so old and new are
             # never both held beyond one leaf

@@ -85,3 +85,21 @@ def test_serve_cli_on_cpu(tmp_path):
                                atol=1e-5)
     with pytest.raises(ValueError, match="divisibility"):
         serve.main(["--device", "cpu", "--tp", "3"])
+
+
+def test_serve_cli_layers_cuts_depth():
+    """``--layers N`` serves the config's first N layers: the request of
+    ``serve.serve`` on that config, at tp 1 and at tp 2."""
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), n_layers=1,
+                              dtype="float32")
+    want = serve.serve(cfg, batch=2, prompt_len=8, gen_len=4, device="cpu")
+    argv = ["--device", "cpu", "--f32", "--batch", "2", "--prompt-len",
+            "8", "--gen", "4", "--layers", "1"]
+    for extra in ([], ["--tp", "2"]):
+        got = serve.main(argv + extra)
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        np.testing.assert_allclose(got["last_logits"].numpy(),
+                                   want["last_logits"].numpy(), rtol=0,
+                                   atol=1e-5)
+    with pytest.raises(SystemExit):
+        serve.main(argv[:-1] + ["3"])

@@ -88,10 +88,14 @@ def test_coded_equals_off_and_coded_q_tracks_it(port):
 def test_session_options_not_ported_raise():
     cfg = get_smoke_config("llama3-8b")
     cl = CodedCluster.homogeneous(2, 4)
-    for kw in (dict(pp=2), dict(tp=2, microbatches=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            CodedSession(cl, cfg, mode="coded", device="cpu", verbose=False,
-                         **kw)
+    # pipeline parallelism is ported: the reference's checks, and a pp-2
+    # session is a rank of a world
+    with pytest.raises(ValueError, match="microbatches requires pp > 1"):
+        CodedSession(cl, cfg, mode="coded", tp=2, microbatches=2,
+                     device="cpu", verbose=False)
+    with pytest.raises(RuntimeError, match="run_ranks"):
+        CodedSession(cl, cfg, mode="coded", pp=2, device="cpu",
+                     verbose=False)
     # tensor parallelism is ported: a tp-2 session is a rank of a world
     with pytest.raises(RuntimeError, match="run_ranks"):
         CodedSession(cl, cfg, mode="coded", tp=2, device="cpu",

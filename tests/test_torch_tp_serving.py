@@ -11,9 +11,8 @@ sessions, checkpoints, the CLIs, the checks.
     tp-1 session; a tp-2 checkpoint against the tp-1 one (the full
     arrays), restored at tp 1 bit for bit, and killed and resumed at tp
     2 bit for bit; the train CLI at ``--tp 2``;
-  * ``validate_tp``'s messages against the reference's, and the regimes
-    not ported (PP and its microbatches) raising ``NotImplementedError``
-    naming ROADMAP.md.
+  * ``validate_tp``'s messages against the reference's, and the
+    pipeline's options beside TP held to the reference's checks.
 
 The MoE, SSM, RG-LRU and encoder–decoder configs at tp 2 are served in
 ``tests/test_torch_tp_serving_archs.py``, sequence parallelism's
@@ -259,15 +258,20 @@ def test_validate_tp_messages_match_reference(arch, tp, change):
 def test_deferred_regimes_raise():
     cfg = get_smoke_config("llama3-8b")
     cl = CodedCluster.homogeneous(2, 4)
-    for kw in (dict(pp=2), dict(microbatches=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            CodedSession(cl, cfg, mode="coded", tp=2, device="cpu",
-                         verbose=False, **kw)
+    # the pipeline's options are ported: the reference's checks
+    with pytest.raises(RuntimeError, match="run_ranks"):
+        CodedSession(cl, cfg, mode="coded", tp=2, pp=2, device="cpu",
+                     verbose=False)
+    with pytest.raises(ValueError, match="microbatches requires pp > 1"):
+        CodedSession(cl, cfg, mode="coded", tp=2, microbatches=2,
+                     device="cpu", verbose=False)
+    with pytest.raises(ValueError, match="pp > 1 requires a dist mode"):
+        CodedSession(cl, cfg, mode="off", pp=2, device="cpu", verbose=False)
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import steps
 
+    # one host ignores them, as the reference's make_train_step does
     for tcfg in (TrainConfig(pp_stages=2), TrainConfig(microbatches=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            steps.make_train_step(cfg, tcfg)
+        steps.make_train_step(cfg, tcfg)
     with pytest.raises(ValueError, match="coded mode"):
         CodedSession(cl, cfg, mode="off", tp=2, device="cpu", verbose=False)

@@ -282,15 +282,17 @@ def mesh_world(pods, data, tp):
 # ----------------------------------------------------------------------
 def train_cases(cases):
     """Each case: one step of the port's dist train step on this world
-    → rank 0's (loss, grad_norm, full params by flat key)."""
+    (``pp`` stages when the case says so) → rank 0's (loss, grad_norm,
+    full params by flat key)."""
     out = []
     for c in cases:
         cfg = dataclasses.replace(f32_cfg(c["arch"]), **c.get("changes", {}))
-        tp = c["tp"]
-        mesh = DistMesh.for_world(c["pods"], c["data"], tp)
+        tp, pp = c["tp"], c.get("pp", 1)
+        mesh = DistMesh.for_world(c["pods"], c["data"], tp, pp=pp)
         tcfg = TrainConfig(**c["tcfg"])
         params = params_from_numpy(
-            shard_params(c["params"], cfg, tp, mesh.model_rank), "cpu")
+            shard_params(c["params"], cfg, tp, mesh.model_rank, pp=pp,
+                         stage=mesh.stage), "cpu")
         for p in _tree.leaves(params):
             p.requires_grad_(True)
         step = steps._make_dist_train_step(cfg, tcfg, mesh)
@@ -305,7 +307,8 @@ def train_cases(cases):
                       1.0 / (c["pods"] * c["data"]), np.float32)
         params, state, residual, m = step(params, state, batch, lam,
                                           residual, 0)
-        full = gather_params(_flatten(params), cfg, mesh.ctx)
+        full = gather_params(_flatten(params), cfg, mesh.ctx,
+                             stage=mesh.stage_ctx)
         out.append({"loss": float(m["loss"]),
                     "grad_norm": float(m["grad_norm"]),
                     "params": full} if dist.get_rank() == 0 else None)
@@ -378,9 +381,11 @@ def archs_at_tp(archs, tp):
 # ----------------------------------------------------------------------
 # sessions
 # ----------------------------------------------------------------------
-def session_run(kw, fit_kw, ckpt_step=0):
+def session_run(kw, fit_kw, ckpt_step=0, with_state=False):
     """A coded session in this world → rank 0's losses, grad norms and
-    full params (after a checkpoint at ``ckpt_step`` when it is set)."""
+    full params (after a checkpoint at ``ckpt_step`` when it is set;
+    ``with_state``: also the full params before the first step and the
+    EF residual rows at the end, gathered as a checkpoint gathers them)."""
     from repro_torch.api import CodedCluster, CodedSession
 
     cl = kw.pop("cluster")
@@ -388,13 +393,23 @@ def session_run(kw, fit_kw, ckpt_step=0):
                else CodedCluster.homogeneous)(cl[1], cl[2])
     s = CodedSession(cluster, f32_cfg(kw.pop("arch")), device="cpu",
                      verbose=False, **kw)
+    # a copy: at one rank the host arrays would share the live params
+    start = ({k: np.array(v) for k, v in s.full_params().items()}
+             if with_state else None)
     s.fit(**fit_kw)
     if ckpt_step:
         s.save_checkpoint(ckpt_step)
     full = s.full_params()
+    residual = None
+    if with_state:
+        residual = s._gather({k: s._mesh.gather_pod_rows(r) for k, r in
+                              zip(leaf_keys(s.params), s.residual)})
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
-    return {"losses": list(s.losses), "params": full}
+    out = {"losses": list(s.losses), "params": full}
+    if with_state:
+        out.update(start=start, residual=residual)
+    return out
 
 
 def shrink_run(kw):
@@ -427,3 +442,187 @@ def shrink_run(kw):
     return {"losses": list(s.losses), "start": start, "params": full,
             "before": before, "after": after, "pods": s.cluster.topo.n}
 
+
+
+# ----------------------------------------------------------------------
+# pipeline parallelism: the "stage" axis
+# ----------------------------------------------------------------------
+def _stage_slices(flat, cfg, tp, pp, mesh, axes=None, st_axes=None):
+    return shard_params(flat, cfg, tp, mesh.model_rank, axes, pp=pp,
+                        stage=mesh.stage, stage_axes=st_axes)
+
+
+def pp_mesh_world(pods, data, tp, pp):
+    """A rank of a (stage, pod, data, model) world: the mesh's decodes,
+    its coordinates, the stage handoff both ways in every dtype the
+    pipeline carries (and fp8 as bytes), the stage sum, and for the
+    configs' params and optimizer states the shard → gather round trip
+    and the optimizer's reductions over both axes."""
+    from repro_torch.optim import clip_by_global_norm_, global_norm
+    from repro_torch.dist.sharding import stage_axes
+
+    mesh = DistMesh.for_world(pods, data, tp, pp=pp)
+    out = {"decodes": mesh_decodes(mesh),
+           "coords": (mesh.stage, mesh.pod_rank, mesh.data_rank,
+                      mesh.model_rank)}
+    st = mesh.stage
+    hand = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+        x = (torch.arange(12, dtype=torch.float32).reshape(2, 2, 3)
+             + 100 * st + 10 * mesh.global_rank).to(dt)
+        got = {}
+        if st + 1 < pp:
+            mesh.send_next(x)
+        if st > 0:
+            got["fwd"] = mesh.recv_prev(torch.empty_like(x)).float().numpy()
+            mesh.send_prev(x)
+        if st + 1 < pp:
+            got["bwd"] = mesh.recv_next(torch.empty_like(x)).float().numpy()
+        hand[str(dt)] = got
+    out["handoff"] = hand
+    out["stage_sum"] = mesh.stage_ctx.reduce_sum(
+        torch.tensor([1.0, float(st)])).numpy()
+    bad = []
+    norms = {}
+    for arch in ("llama3-8b", "gemma3-27b", "mamba2-370m",
+                 "recurrentgemma-2b", "whisper-medium"):
+        cfg = f32_cfg(arch)
+        layers = {"gemma3-27b": 12, "recurrentgemma-2b": 6}.get(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        g = torch.Generator().manual_seed(3)
+        full = tf.init_params(cfg, g, device="cpu", dtype=torch.float32)
+        flat = {k: v.numpy() for k, v in _flatten(full).items()}
+        mine = _stage_slices(flat, cfg, tp, pp, mesh)
+        drawn = _flatten(tf.init_params(
+            cfg, torch.Generator().manual_seed(3), device="cpu",
+            dtype=torch.float32, tp=tp, rank=mesh.model_rank, pp=pp,
+            stage=st))
+        for k, v in drawn.items():
+            if not np.array_equal(v.numpy(), mine[k]):
+                bad.append((arch, "init slice", k))
+        back = gather_params({k: torch.from_numpy(v) for k, v in
+                              mine.items()}, cfg, mesh.ctx,
+                             stage=mesh.stage_ctx)
+        bad += [(arch, "round trip", k) for k, v in flat.items()
+                if not np.array_equal(back[k], v)]
+        axes = param_axes(cfg, tp)
+        st_axes = stage_axes(cfg, pp)
+        keys = leaf_keys(full)
+        grads = [torch.randn(p.shape, generator=g) for p in
+                 _tree.leaves(full)]
+        ax = [axes[k] for k in keys]
+        sx = [st_axes[k] for k in keys]
+        part = [shard_array(shard_array(x, a, tp, mesh.model_rank), b, pp,
+                            st) for x, a, b in zip(grads, ax, sx)]
+        split = dict(ctx=mesh.ctx, axes=ax, stage=mesh.stage_ctx,
+                     stage_axes=sx)
+        res = {"norm": abs(float(global_norm(part, **split))
+                           - float(global_norm(grads)))
+               / float(global_norm(grads))}
+        clipped = [x.clone() for x in grads]
+        clip_by_global_norm_(clipped, 1.0)
+        clip_by_global_norm_(part, 1.0, **split)
+        res["clip"] = max(float((shard_array(shard_array(
+            c, a, tp, mesh.model_rank), b, pp, st) - m).abs().max())
+            for c, m, a, b in zip(clipped, part, ax, sx))
+        for name in ("adafactor", "adamw"):
+            opt = make_optimizer(name)
+            p_full = _tree.map(lambda t: t.clone(), full)
+            p_mine = params_from_numpy(mine, "cpu")
+            st_full, st_mine = opt.init(p_full), opt.init(p_mine)
+            lr = torch.tensor(0.1)
+            opt.apply_([x.clone() for x in clipped], st_full, p_full, lr)
+            opt.apply_([x.clone() for x in part], st_mine, p_mine, lr,
+                       **split)
+            back = gather_params(_flatten(p_mine), cfg, mesh.ctx,
+                                 stage=mesh.stage_ctx)
+            res[name] = max(float(np.abs(back[k] - v.numpy()).max())
+                            for k, v in _flatten(p_full).items())
+            # the state's slices gather back to the whole state
+            flat_st = _flatten(st_mine)
+            whole = gather_params(
+                flat_st, cfg, mesh.ctx,
+                {k: state_axis(k, axes) for k in flat_st}, mesh.stage_ctx,
+                {k: state_axis(k, st_axes) for k in flat_st})
+            res[name + "_state"] = max(
+                float(np.abs(whole[k] - v.numpy()).max())
+                for k, v in _flatten(st_full).items())
+        norms[arch] = res
+    out["round_trip"] = bad
+    out["optimizer"] = norms
+    return out
+
+
+def pp_checkpoint_run(kw, fit_kw, ckpt_dir, resume):
+    """A coded session in this world (or this process) with checkpoints
+    in ``ckpt_dir``: resumed from its latest checkpoint (``resume``),
+    else trained by ``fit_kw`` with the checkpoints ``kw`` asks for →
+    rank 0's losses, full params and full optimizer state (gathered over
+    "model" and "stage")."""
+    from repro_torch.api import CodedCluster, CodedSession
+
+    kw = dict(kw)
+    cl = kw.pop("cluster")
+    cluster = (CodedCluster.hetero if cl[0] == "hetero"
+               else CodedCluster.homogeneous)(cl[1], cl[2])
+    s = CodedSession(cluster, f32_cfg(kw.pop("arch")), device="cpu",
+                     verbose=False, checkpoint_dir=ckpt_dir, resume=resume,
+                     **kw)
+    if not resume:
+        s.fit(**fit_kw)
+    out = {"losses": list(s.losses), "step": s._step,
+           "params": s.full_params(),
+           "opt_state": s._gather(_flatten(s.opt_state), state=True)}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    return out
+
+
+def pp_kill_resume(kw, ckpt_dir, steps, stop):
+    """Kill/resume in this world: an uninterrupted run of ``steps``
+    steps, then a run killed after ``stop`` (``kw``'s checkpoint period
+    puts a checkpoint there) and a
+    fresh session resumed from it → rank 0's (uninterrupted losses,
+    killed losses, resumed losses, both runs' final params)."""
+    from repro_torch.api import CodedCluster, CodedSession
+
+    def session(**extra):
+        k = dict(kw)
+        cl = k.pop("cluster")
+        cluster = (CodedCluster.hetero if cl[0] == "hetero"
+                   else CodedCluster.homogeneous)(cl[1], cl[2])
+        return CodedSession(cluster, f32_cfg(k.pop("arch")), device="cpu",
+                            verbose=False, **k, **extra)
+
+    whole = session()
+    whole.fit(steps)
+    killed = session(checkpoint_dir=ckpt_dir)
+    killed.fit(steps, stop_after=stop)
+    resumed = session(checkpoint_dir=ckpt_dir, resume=True)
+    resumed.fit(steps)
+    out = {"whole": list(whole.losses), "killed": list(killed.losses),
+           "resumed": list(resumed.losses), "start": resumed._step - len(
+               resumed.losses),
+           "params": [whole.full_params(), resumed.full_params()]}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    return out
+
+
+def eval_generate_run(kw, batch, prompts, gen):
+    """A coded session in this world (or this process), untrained: its
+    ``eval_step`` on ``batch`` and ``generate``'s greedy tokens (under PP
+    both gather the whole model first) → rank 0's."""
+    from repro_torch.api import CodedCluster, CodedSession
+
+    kw = dict(kw)
+    cl = kw.pop("cluster")
+    cluster = (CodedCluster.hetero if cl[0] == "hetero"
+               else CodedCluster.homogeneous)(cl[1], cl[2])
+    s = CodedSession(cluster, f32_cfg(kw.pop("arch")), device="cpu",
+                     verbose=False, **kw)
+    out = {"eval": s.eval_step(batch), "tokens": s.generate(prompts, gen)}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    return out
