@@ -262,6 +262,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
      pipeline's microbatch (q 2 × 512 × 12 × 128, Kv 2, with the
      log-sum-exp) and ``coded_combine_q`` at K 2 × F 233,373,696 (the
      tied table every stage holds).
+  shrink. ``CodedSession.shrink`` where pods and workers are ranks of
+     their own (after "pp", before "dryrun"): qwen2-vl-2b at full width
+     cut to 2 layers in coded_q int8 at the phase-6 settings (adamw, seq
+     512, block 64) on ``CodedCluster.hetero(2, 2)`` with the fixed
+     planner, one rank a (pod, data) group: four ranks spawned on the
+     one card over gloo (the reference test's hetero(3, 2) would need
+     ~100 GiB: ``SHRINK_CLUSTER``).  3 steps, then edge 1 shrunk away:
+     its two ranks retire (exit 0; a step there raises; the survivors'
+     groups never wait on them), and on the 2 survivors each rank's own
+     EF residual row (every leaf) equals its row before the shrink bit
+     for bit; 2 steps, a checkpoint (written by the survivors' first
+     rank), the last step; a fresh world of the survivors' size resumes
+     the checkpoint and takes the last step, whose loss equals the
+     uninterrupted run's bit for bit; every loss within
+     ``SHRINK_LOSS_RTOL`` · |loss| of a one-card session (``OneCardMesh``,
+     run in the parent while the survivors resume) that shrinks at the
+     same step; exact launches a step on each rank (one
+     ``coded_combine_q`` a param leaf, the flash forward twice a layer);
+     host ms a step before and after the shrink, and peak memory a rank.
+  dryrun. the dry run's machinery (``api.aot.count_step``, the op
+     counter on the meta device) against the card: phase 4's request
+     (through ``serving.token_loop``, as the server generates)
+     (llama3-8b, 32 layers, bf16, 4 × 1024-token prompts, 32 tokens over
+     the 1057-slot cache) and phase 6's int8 training step (2 layers, seq
+     512) counted on meta: the predicted peak (arguments + the step's
+     peak live bytes) within ``DRY_PEAK_RTOL`` (2%) of the
+     ``max_memory_allocated`` those phases measured (``main`` hands
+     their readings on); phase "tp" (b)'s
+     request at tp 2 (8 layers, 8 new tokens) on a counting group: its
+     collectives in the prefill and in the decode equal the
+     ``tp.collective`` spans rank 0's profile recorded in each; the
+     predicted compute and memory bounds printed beside each phase's
+     profiled device ms, not gated.
   9. the paper's evaluation path (``simulate_training``): the CNN under
      hgc and the logreg under greedy, 3 iterations at batch 32 per part,
      on the card and on the CPU from the same weights (times equal,
@@ -359,7 +392,6 @@ EVAL_RUNS = {  # dataset → (iterations, evaluations every, seed)
 EVAL_TARGET = 0.85            # Table I's target accuracy
 CNN_F = 845_738               # the CNN's parameters (the logreg has 7,850)
 
-
 def log(*a):
     print(*a, flush=True)
 
@@ -415,6 +447,30 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     t_ops = flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops
                                      else "operations")
+
+
+def flash_work(batch, S, T, H, KV, DH, pairs, elem=2, with_lse=False):
+    """(bytes, operations) of one flash call, what its bound counts: q,
+    k, v read once and the output (and the log-sum-exp) written once,
+    4 · Dh operations a head for each attended (query, key) pair."""
+    nbytes = (2 * batch * S * H * DH + 2 * batch * T * KV * DH) * elem \
+        + (batch * S * H * 4 if with_lse else 0)
+    return nbytes, 4 * batch * H * DH * pairs
+
+
+def decode_work(B, H, KV, DH, n_valid, elem=2):
+    """(bytes, operations) of one decode call: the ``n_valid`` attended
+    slots of K and V read once, q read, the output written, ``q_pos``."""
+    nbytes = (2 * B * n_valid * KV * DH + 2 * B * H * DH) * elem + 4
+    return nbytes, 4 * B * H * n_valid * DH
+
+
+def combine_work(R, K, F, payload_bytes, n_scales=0):
+    """(bytes, operations) of one combine: the (K, F) payload, the (R, K)
+    coefficients and the scales read once, the (R, F) f32 output written
+    once; 2 · R · K · F operations, and K · F to dequantize."""
+    nbytes = payload_bytes + R * K * 4 + R * F * 4 + n_scales * 4
+    return nbytes, 2 * R * K * F + (K * F if n_scales else 0)
 
 
 def check_rows(got, want, share: float, what: str) -> float:
@@ -623,9 +679,7 @@ def _time_decode(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0, C=None,
     log(f"[kernels] decode_attention at C={C}: the sweep of each "
         f"of the {B * KV} (sequence, kv head) pairs is split {n_split} ways "
         f"({chunk} slots each): a grid of {B * KV * n_split} blocks")
-    nbytes = (2 * B * n_valid * KV * DH + 2 * B * H * DH) * 2 + 4
-    flops = 4 * B * H * n_valid * DH
-    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    bms, by = bound_ms(*decode_work(B, H, KV, DH, n_valid), "bfloat16")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), row_err
 
@@ -677,10 +731,9 @@ def _time_flash(torch, S=PROMPT, H=H, KV=KV, DH=DH, window=0,
     kernel_ms = graph_ms(lambda: flash_attention_fwd(q, k, v, **kw), 20)
     plain_ms = timed_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 5)
     lib_ms = graph_ms(lib, 20)
-    nbytes = (2 * batch * S * H * DH + 2 * batch * T * KV * DH) * 2 \
-        + (batch * S * H * 4 if with_lse else 0)
-    flops = 4 * batch * H * DH * int(allowed.sum())  # the pairs attended
-    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    bms, by = bound_ms(*flash_work(batch, S, T, H, KV, DH,
+                                   int(allowed.sum()), with_lse=with_lse),
+                       "bfloat16")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), row_err
 
@@ -815,11 +868,9 @@ def _time_combine(torch, kind, R, K, F, block):
     if kind == "f32":
         lib_ms = timed_ms(lambda: torch.mm(c, q), 10, warmup=2)
     again_ms = timed_ms(kernel, 10, warmup=2)
-    payload = q.numel() * q.element_size()
-    nbytes = payload + R * K * 4 + R * F * 4 + (0 if s is None
-                                                 else s.numel() * 4)
-    flops = 2 * R * K * F + (0 if s is None else K * F)
-    bms, by = bound_ms(nbytes, flops, "float32")
+    bms, by = bound_ms(*combine_work(R, K, F, q.numel() * q.element_size(),
+                                     0 if s is None else s.numel()),
+                       "float32")
     return dict(max_abs_err=err, ms=min(first_ms, again_ms),
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms), share, (first_ms, again_ms)
@@ -863,8 +914,7 @@ def _time_combine_eval(torch):
             g = layouts[name]
             turns[name].append(graph_ms(lambda: coded_combine(c, g)))
     plain_ms = timed_ms(lambda: ref.coded_combine_ref(c, packed), 20)
-    bms, by = bound_ms(K * F * 4 + R * K * 4 + R * F * 4, 2 * R * K * F,
-                       "float32")
+    bms, by = bound_ms(*combine_work(R, K, F, K * F * 4), "float32")
     return checked, turns, plain_ms, bms, by
 
 
@@ -1112,13 +1162,17 @@ def device_ms_by_phase(prof):
 
 def phase_serve():
     """The serve CLI at full size (llama3-8b, 32 layers, 1024-token
-    prompts) three times, as :func:`_serve_runs` sets out."""
+    prompts) three times, as :func:`_serve_runs` sets out → the counted
+    run's launches, and its peak memory and device ms a phase."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
 
     argv = ["--arch", "llama3-8b", "--no-smoke", "--batch", str(B),
             "--prompt-len", str(PROMPT), "--gen", str(GEN)]
-    return _serve_runs(lambda: serve.main(argv), get_config("llama3-8b"))
+    measured = {}
+    counts = _serve_runs(lambda: serve.main(argv), get_config("llama3-8b"),
+                         measured=measured)
+    return counts, measured
 
 
 def _attn_layers(cfg) -> int:
@@ -1149,7 +1203,7 @@ def _serve_launches(cfg, prompt: int) -> dict:
 
 
 def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
-                profiled=None):
+                profiled=None, measured=None):
     """One served config, three requests: the first (``warm``, or one
     like the others) pays the one-time costs (cuBLAS heuristics, library
     loads), the second is the counted run — launch counts set to 0 just
@@ -1158,7 +1212,10 @@ def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
     one like the others) runs under ``torch.profiler`` for the device
     time of each phase, set against the counted run's host times (the
     profiler slows the host): the bulk prefill per request, the exact
-    handoff and the decode per token.  → the counted run's launches."""
+    handoff and the decode per token; the counted run's peak memory and
+    the device ms of each phase go into the dict ``measured`` where one
+    is given.
+    → the counted run's launches."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1189,6 +1246,8 @@ def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
             or not torch.isfinite(logits).all():
         raise AssertionError(f"{label} last logits not finite / wrong shape")
     _SERVED[label] = np.asarray(toks)
+    if measured is not None:
+        measured.update(peak=res["max_memory_allocated"], device_ms={})
     log(f"{tag}launches {counts}; prefill {res['prefill_ms']:.2f} ms, "
         f"decode {res['decode_ms_per_token']:.3f} ms/token, "
         f"{res['tok_per_s']:.1f} tok/s, max memory allocated "
@@ -1219,6 +1278,8 @@ def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
             f"new tokens")
     for ph, (host_ms, prof_ms, per, unit) in host.items():
         dev_ms = sum(by_phase[ph].values()) / per
+        if measured is not None:
+            measured["device_ms"][ph] = dev_ms
         log(f"{ptag}{ph}: device {dev_ms:.3f} {unit} over the counted "
             f"run's host {host_ms:.3f} {unit}: device busy "
             f"{100 * dev_ms / host_ms:.1f}% (host under the profiler "
@@ -2003,7 +2064,8 @@ def phase_train():
     int8 for 4 steps (edge 1 dropped at step 2), a fifth step under
     ``torch.profiler``, int4 and fp8 for 2 steps each, then the HGC
     encode/decode check.  The launch counts are set to 0 before the
-    path and read after it; each step's own counts are exact."""
+    path and read after it; each step's own counts are exact.  → the
+    launches, and the int8 step's peak memory and profiled device ms."""
     import dataclasses
 
     import numpy as np
@@ -2063,8 +2125,10 @@ def phase_train():
         result[codec] = dict(losses=list(losses), step_ms=step_ms,
                              peak_gib=peak)
         if codec == "int8":
-            _profile_step(torch, profile, ProfilerActivity, session,
-                          n_steps, step_ms)
+            measured = dict(
+                peak=torch.cuda.max_memory_allocated(),
+                device_ms=_profile_step(torch, profile, ProfilerActivity,
+                                        session, n_steps, step_ms))
             ops.reset_launch_counts()  # the profiled step is not counted
     ops.reset_launch_counts()
     hgc = _hgc_recovery(torch, session)
@@ -2078,14 +2142,14 @@ def phase_train():
         f"max|sum| (limit 1e-5); coded_combine launches 2")
     del session
     torch.cuda.empty_cache()
-    return totals
+    return totals, measured
 
 
 def _profile_step(torch, profile, ProfilerActivity, session, step,
                   step_ms):
     """One more int8 step under ``torch.profiler``: its device time by
     kernel name, over the median host time of the counted steps after
-    the first (the profiler slows the host)."""
+    the first (the profiler slows the host).  → its device ms."""
     import collections
 
     from torch.autograd import DeviceType
@@ -2116,6 +2180,7 @@ def _profile_step(torch, profile, ProfilerActivity, session, step,
         hits = {n: ms for n, ms in by_name.items() if key in n}
         log(f"[profile]   the port's {label}: "
             f"{sum(hits.values()):.3f} ms in {len(hits)} instantiation(s)")
+    return dev
 
 
 CKPT_STEPS, KILL_AT = 4, 2
@@ -2650,14 +2715,16 @@ def _tp_arch_train(mesh, cfg, seq_shard):
 
 
 def _collective_ms(prof, span):
-    """Host ms inside the collectives' spans, by the serve phases (a
-    span belongs to the phase in which it started)."""
+    """Host ms inside the collectives' spans and their count, by the
+    serve phases (a span belongs to the phase in which it started), and
+    the count of all of them."""
     from torch.autograd import DeviceType
 
     from repro_torch.dist.sharding import SPAN
 
     events = prof.events()
     out = dict.fromkeys(span, 0.0)
+    count = dict.fromkeys(span, 0)
     n = 0
     for e in events:
         if e.device_type != DeviceType.CPU or e.name != SPAN:
@@ -2666,7 +2733,8 @@ def _collective_ms(prof, span):
         for ph, (lo, hi) in span.items():
             if lo <= e.time_range.start < hi:
                 out[ph] += e.time_range.elapsed_us() / 1e3
-    return out, n
+                count[ph] += 1
+    return out, n, count
 
 
 def _tp_serve(rank, arch, layers, warm_gen=GEN, profiled=True):
@@ -2731,7 +2799,7 @@ def _tp_serve(rank, arch, layers, warm_gen=GEN, profiled=True):
                           span["serve.prefill"].end),
               "decode": (span["serve.prefill"].end,
                          span["serve.request"].end)}
-    coll, n_coll = _collective_ms(prof, phases)
+    coll, n_coll, by_phase_n = _collective_ms(prof, phases)
     host = {"prefill": prof_res["prefill_ms"],
             "decode": prof_res["decode_ms_per_token"] * TP_PROFILED_GEN}
     out["profile"] = {
@@ -2740,6 +2808,7 @@ def _tp_serve(rank, arch, layers, warm_gen=GEN, profiled=True):
                  top=by_phase[ph].most_common(6))
         for ph in phases}
     out["profile_collectives"] = n_coll
+    out["profile_collectives_by_phase"] = by_phase_n
     del prof, prof_res
     torch.cuda.empty_cache()
     return out
@@ -2998,7 +3067,8 @@ def phase_tp():
     bit; maverick served in bf16 at tp 2 with all 128 experts, cut to
     ``TP_MAVERICK``'s 2 layers, exact launches on each rank.  In (b) and
     (f) the ranks serve the same tokens.  Every gate is read before the
-    phase fails.  → the launches of both ranks' counted runs."""
+    phase fails.  → the launches of both ranks' counted runs, and (b)'s
+    ``tp.collective`` spans a serve phase in rank 0's profile."""
     import numpy as np
     import torch
 
@@ -3100,6 +3170,8 @@ def phase_tp():
         if "profile" not in outs[0][key]:
             continue
         prof = outs[0][key]["profile"]
+        if key == "serve":
+            spans = outs[0][key]["profile_collectives_by_phase"]
         log(f"[profile] tp {arch} rank 0, a {B} x {PROMPT} + "
             f"{TP_PROFILED_GEN}-token request "
             f"({outs[0][key]['profile_collectives']} collectives)")
@@ -3167,7 +3239,7 @@ def phase_tp():
         f"{_nonzero(totals)}")
     if failures:
         raise AssertionError("phase tp: " + "; ".join(failures))
-    return totals
+    return totals, spans
 
 
 # ----------------------------------------------------------------------
@@ -3766,6 +3838,390 @@ def phase_pp():
     return totals
 
 
+# ----------------------------------------------------------------------
+# phase "shrink": a pod lost for good where pods and workers are ranks
+# ----------------------------------------------------------------------
+SHRINK_ARCH, SHRINK_LAYERS = "qwen2-vl-2b", 2
+#: CodedCluster.hetero(2, 2): 4 ranks, a (pod, data) group each.  The
+#: reference test's hetero(3, 2) does not fit the card: its 6 ranks ran
+#: out of its memory in their first step (a rank here peaks at 12.61 GiB,
+#: and there each holds a third pod's EF row more; PERF.md §6)
+SHRINK_CLUSTER = (2, 2)
+SHRINK_BEFORE, SHRINK_AFTER = 3, 3   # steps before and after the shrink
+SHRINK_DEAD_EDGE = 1
+#: the ranks' losses against the one-card session's, × |loss| (phase
+#: "tp"'s bound: the pod sums of 3 and 2 ranks run in another order)
+SHRINK_LOSS_RTOL = TP_LOSS_RTOL
+
+
+def _shrink_session(device, ck_dir="", resume=False):
+    """qwen2-vl-2b at full width cut to 2 layers on ``SHRINK_CLUSTER``
+    with the reference test's planner, in coded_q int8 at the phase-6
+    settings: one rank a (pod, data) group in a world of ranks, or every
+    group on one card (``OneCardMesh``) in a single process."""
+    from repro_torch.api import CodedCluster, CodedSession
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(SHRINK_ARCH),
+                              n_layers=SHRINK_LAYERS)
+    return CodedSession(CodedCluster.hetero(*SHRINK_CLUSTER), cfg,
+                        planner="fixed", mode="coded_q",
+                        grad_compression="int8", device=device,
+                        total_steps=SHRINK_BEFORE + SHRINK_AFTER,
+                        checkpoint_dir=ck_dir, resume=resume,
+                        **_train_kw())
+
+
+def _shrink_steps(session, n, out):
+    """``n`` steps, each timed (host ms, ending in a synchronize) and its
+    launches exactly one ``coded_combine_q`` a param leaf and the flash
+    forward twice a layer (the remat) for the rank's one group."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.kernels import ops
+
+    want = {"coded_combine_q": len(_tree.leaves(session.params)),
+            "flash_attention": 2 * SHRINK_LAYERS}
+    for _ in range(n):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.fit(session._step + 1)
+        torch.cuda.synchronize()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        got = _nonzero(ops.launch_counts())
+        if got != want:
+            raise AssertionError(f"shrink step {session._step - 1}: "
+                                 f"launches {got}, expected {want}")
+        for k, v in got.items():
+            out["counts"][k] = out["counts"].get(k, 0) + v
+
+
+def _shrink_rank(ck_dir):
+    """One rank of the world: 3 steps, edge 1 shrunk away, then on the
+    survivors 2 steps, a checkpoint, and the last step.  A dead rank
+    returns right after the shrink.  → this rank's record."""
+    import torch
+    import torch.distributed as dist
+
+    _rank_threads(torch, dist.get_world_size())
+    torch.cuda.reset_peak_memory_stats()
+    s = _shrink_session("cuda", ck_dir)
+    out = dict(rank=dist.get_rank(), step_ms=[], counts={},
+               layout=(s._mesh.pod_rank, s._mesh.data_rank))
+    _shrink_steps(s, SHRINK_BEFORE, out)
+    pod = s._mesh.pod_rank
+    before = [r[pod].cpu() for r in s.residual]  # this rank's live row
+    t0 = time.perf_counter()
+    s.shrink(dead_edges=[SHRINK_DEAD_EDGE])
+    out["shrink_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["retired"] = s._retired
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if s._retired:
+        try:
+            s.step()
+        except RuntimeError as err:
+            out["refused"] = str(err)
+        return out
+    new_pod = s._mesh.pod_rank
+    out["new_layout"] = (new_pod, s._mesh.data_rank)
+    out["rows_equal"] = all(torch.equal(r[new_pod].cpu(), b)
+                            for r, b in zip(s.residual, before))
+    del before
+    _shrink_steps(s, SHRINK_AFTER - 1, out)
+    t0 = time.perf_counter()
+    s.save_checkpoint()
+    out["save_s"] = time.perf_counter() - t0
+    _shrink_steps(s, 1, out)
+    out["losses"] = list(s.losses)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _shrink_resume_rank(ck_dir):
+    """One rank of a fresh world of the survivors' size: resume the
+    checkpoint and take the last step."""
+    import torch
+    import torch.distributed as dist
+
+    _rank_threads(torch, dist.get_world_size())
+    t0 = time.perf_counter()
+    s = _shrink_session("cuda", ck_dir, resume=True)
+    out = dict(rank=dist.get_rank(), step_ms=[], counts={},
+               start=s._step, m=s.cluster.topo.m,
+               layout=(s._mesh.pod_ranks, s._mesh.data_ranks),
+               resume_s=time.perf_counter() - t0)
+    _shrink_steps(s, 1, out)
+    out["losses"] = list(s.losses)
+    return out
+
+
+def phase_shrink():
+    """``CodedSession.shrink`` where pods and workers are ranks of their
+    own (the docstring's phase "shrink").  → the launches of the ranks'
+    counted steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.dist.launch import run_ranks
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures = []
+    fail = failures.append
+    meta = _shrink_session("meta")
+    n_params = sum(p.numel() for p in _tree.leaves(meta.params))
+    log(f"[shrink] {SHRINK_ARCH} at full width, {SHRINK_LAYERS} layers: "
+        f"{n_params:,} params; hetero{SHRINK_CLUSTER}, K={meta.code.K}, "
+        f"load D={meta.code.load}; coded_q int8, adamw, seq {TRAIN_SEQ}")
+    del meta
+    pods, data = SHRINK_CLUSTER
+    ck = _checkpoint_dir(4 * n_params * (3 + pods - 1))  # + the EF rows
+    n_world, n_live = pods * data, (pods - 1) * data
+    try:
+        t0 = time.perf_counter()
+        outs = run_ranks(_shrink_rank, n_world, args=(str(ck),),
+                         device="cuda", backend="gloo", timeout=900)
+        log(f"[shrink] world of {n_world} ranks: "
+            f"{time.perf_counter() - t0:.1f} s")
+        spawned = {}
+
+        def resume():
+            try:
+                spawned["outs"] = run_ranks(
+                    _shrink_resume_rank, n_live, args=(str(ck),),
+                    device="cuda", backend="gloo", timeout=900)
+            except BaseException as e:  # raised again below
+                spawned["error"] = e
+
+        # the survivors' fresh world resumes while this process runs
+        # the one-card session that shrinks at the same step
+        thread = threading.Thread(target=resume, daemon=True)
+        t0 = time.perf_counter()
+        thread.start()
+        one = _shrink_session("cuda")
+        one.fit(SHRINK_BEFORE)
+        one.shrink(dead_edges=[SHRINK_DEAD_EDGE])
+        one.fit(SHRINK_BEFORE + SHRINK_AFTER)
+        want = np.asarray(one.losses)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        thread.join()
+        if "error" in spawned:
+            raise spawned["error"]
+        resumed = spawned["outs"]
+        log(f"[shrink] one-card session and the resumed world of "
+            f"{n_live}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    dead = [o for o in outs if o["retired"]]
+    live = [o for o in outs if not o["retired"]]
+    gone = list(range(SHRINK_DEAD_EDGE * data, (SHRINK_DEAD_EDGE + 1) * data))
+    if [o["rank"] for o in dead] != gone:
+        fail(f"retired ranks {[o['rank'] for o in dead]}, expected {gone}")
+    for o in dead:
+        log(f"[shrink] rank {o['rank']} (pod {o['layout'][0]}) retired "
+            f"after its {SHRINK_BEFORE} steps, exit 0; a step there "
+            f"raises: {o.get('refused', 'NOT RAISED')!r}")
+        if "refused" not in o:
+            fail(f"rank {o['rank']}: a step after retiring did not raise")
+    for o in live:
+        before, after = o["step_ms"][:SHRINK_BEFORE], \
+            o["step_ms"][SHRINK_BEFORE:]
+        log(f"[shrink] rank {o['rank']}: pod {o['layout'][0]} -> "
+            f"{o['new_layout'][0]}, data {o['layout'][1]}; host ms a step "
+            f"before the shrink {[round(x, 1) for x in before]}, after "
+            f"{[round(x, 1) for x in after]}; shrink {o['shrink_ms']:.1f} "
+            f"ms; checkpoint {o['save_s']:.1f} s; peak "
+            f"{o['peak_gib']:.2f} GiB allocated; EF rows carried bit for "
+            f"bit: {o['rows_equal']}")
+        if not o["rows_equal"]:
+            fail(f"rank {o['rank']}: its pod's EF residual row changed "
+                 f"across the shrink")
+        got = np.asarray(o["losses"])
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"rank {o['rank']}: losses {got}")
+            continue
+        rel = np.abs(got - want) / np.abs(want)
+        log(f"[shrink] rank {o['rank']} losses {got.round(5).tolist()}; "
+            f"one-card {want.round(5).tolist()}: max |diff| / |loss| "
+            f"{rel.max():.3g} (limit {SHRINK_LOSS_RTOL})")
+        if not rel.max() <= SHRINK_LOSS_RTOL:
+            fail(f"rank {o['rank']}: losses off the one-card session's by "
+                 f"{rel.max():.3g} x |loss|")
+    last = live[0]["losses"][-1] if live else None
+    for r in resumed:
+        log(f"[shrink] resumed rank {r['rank']}: layout {r['layout']} "
+            f"for m={r['m']}, from step {r['start']} (built in "
+            f"{r['resume_s']:.1f} s), step {r['step_ms'][0]:.1f} ms, loss "
+            f"{r['losses'][-1]!r} (uninterrupted {last!r})")
+        if r["start"] != SHRINK_BEFORE + SHRINK_AFTER - 1 \
+                or r["losses"][-1] != last:
+            fail(f"resumed rank {r['rank']}: from step {r['start']}, loss "
+                 f"{r['losses'][-1]!r} against {last!r}")
+    totals = {name: 0 for name in ops.KERNELS}
+    for o in outs + resumed:
+        for k, v in o["counts"].items():
+            totals[k] += v
+    log(f"[shrink] launches of the counted steps, every rank: "
+        f"{_nonzero(totals)}")
+    if failures:
+        raise AssertionError("phase shrink: " + "; ".join(failures))
+    return totals
+
+
+# ----------------------------------------------------------------------
+# phase "dryrun": the dry run's predictions against the card
+# ----------------------------------------------------------------------
+#: predicted peak memory against ``max_memory_allocated``.  The sound
+#: count read −0.77% and −0.21% (phase 4) and −0.34% (phase 6) on an
+#: H100; phase 4's step makes 1.05 of its 16.1 GiB (the prefill's cache,
+#: its 1057-slot copy, the activations), so a count that missed all of
+#: the step's own memory would read about −7%.  2% sits between the two.
+DRY_PEAK_RTOL = 0.02
+
+
+def _meta_request(cfg, tp, gen):
+    """Phase 4's request on the meta device at tp ``tp`` (rank 0's view,
+    its collectives on a counting group of ``tp`` ranks on one host),
+    through ``serving.token_loop`` → the counted records of its prefill
+    and of its decode loop (the first greedy pick, then ``gen`` decode
+    steps and picks), whose arguments hold the prefill's outputs: the
+    request's peak is the larger of the two."""
+    import torch
+
+    from repro_torch.api import aot, serving
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.mesh import NVLINK_BW
+
+    tallies = {ph: sh.CollectiveTally() for ph in ("prefill", "decode")}
+    ctxs = {ph: sh.NULL_CTX if tp == 1 else sh.ShardCtx(
+        tp=tp, rank=0, group=sh.CountingGroup(tp, tuple(range(tp)),
+                                              NVLINK_BW, t))
+        for ph, t in tallies.items()}
+    params = aot.tf_params(cfg, tp)
+    prompt = torch.empty((B, PROMPT), dtype=torch.long, device="meta")
+    recs, decoding = {}, []
+    prefill_fn = serving.make_prefill_fn(cfg, PROMPT + gen + 1,
+                                         ctx=ctxs["prefill"])
+
+    def prefill(params, prompt):
+        out, recs["prefill"] = aot.count_step(prefill_fn, params, prompt,
+                                              tally=tallies["prefill"])
+        # the decode loop's counter, from the first pick on
+        decoding.append(op_analysis.OpCounter((params,) + tuple(out)))
+        decoding[0].__enter__()
+        return out
+
+    with torch.no_grad():  # counts as inference_mode does, faster
+        serving.token_loop(params, cfg, prompt, gen, prefill_fn=prefill,
+                           decode_fn=serving.make_decode_fn(
+                               cfg, ctx=ctxs["decode"]),
+                           ctx=ctxs["decode"])
+        decoding[0].__exit__(None, None, None)
+    recs["decode"] = op_analysis.analysis_record(decoding[0],
+                                                 tallies["decode"])
+    recs["decode"]["memory_analysis"] = decoding[0].memory_analysis()
+    return recs
+
+
+def _bound_ms(rec, per=1):
+    """The step's predicted compute and memory bounds (the attention
+    kernels' own bytes), ms."""
+    from repro_torch.api import aot
+
+    r = aot.roofline_terms(rec)
+    return 1e3 * r["compute_s"] / per, 1e3 * r["memory_s_pallas"] / per
+
+
+def phase_dryrun(serve, train, spans):
+    """The dry run's machinery (``api.aot``, ``launch.op_analysis``) on
+    the meta device against what phases 4 (``serve``: its peak and
+    device ms), 6 (``train``: the same) and "tp" (``spans``: (b)'s
+    ``tp.collective`` spans a phase) measured (the docstring's phase
+    "dryrun").  No kernel runs: → no launches."""
+    import torch
+
+    from repro_torch.api import aot
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import grad_sync
+
+    failures = []
+    fail = failures.append
+    gib = 2 ** 30
+
+    def gate(label, rec, measured):
+        m = rec["memory_analysis"]
+        pred = m["peak_bytes"]
+        share = pred / measured - 1
+        log(f"[dryrun] {label}: predicted peak {pred / gib:.2f} GiB "
+            f"(arguments {m['argument_bytes'] / gib:.2f}, step "
+            f"{(pred - m['argument_bytes']) / gib:.2f}) against "
+            f"max_memory_allocated {measured / gib:.2f} GiB: "
+            f"{100 * share:+.2f}% (limit ±{100 * DRY_PEAK_RTOL:.0f}%)")
+        if not abs(share) <= DRY_PEAK_RTOL:
+            fail(f"{label}: predicted peak off by {100 * share:+.1f}%")
+
+    # phase 4: llama3-8b, 32 layers, bf16, B 4, 1024-token prompts, GEN
+    cfg = get_config("llama3-8b")
+    t0 = time.perf_counter()
+    recs = _meta_request(cfg, 1, GEN)
+    log(f"[dryrun] phase 4's request counted on meta in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gate("phase 4 (serve)", max(recs.values(), key=lambda r: r[
+        "memory_analysis"]["peak_bytes"]), serve["peak"])
+    for ph, per, unit in (("prefill", 1, "ms"), ("decode", GEN,
+                                                 "ms/token")):
+        c, m = _bound_ms(recs[ph], per)
+        log(f"[dryrun] phase 4 {ph}: predicted bound compute {c:.3f} "
+            f"{unit}, memory {m:.3f} {unit}; profiled device "
+            f"{serve['device_ms'][ph]:.3f} {unit} (not gated)")
+
+    # phase 6: llama3-8b, 2 layers, coded_q int8 step on one card
+    t0 = time.perf_counter()
+    s = _session(_train_cfg(), "coded_q", "int8", "meta",
+                 total_steps=5, **_train_kw())
+    topo = s.cluster.topo
+    fast_e, fast_w = tuple(range(topo.n)), [tuple(range(m))
+                                            for m in topo.m]
+    batch = s._to_device(s.build_batch(fast_e, fast_w))
+    lam = grad_sync.lam_array_from_code(s.code, fast_e, fast_w, topo.n,
+                                        topo.m[0])
+    _, rec = aot.count_step(
+        s.train_step, s.params, s.opt_state, batch, lam, s.residual, 0,
+        arguments=(s.params, s.opt_state, batch, s.residual))
+    del s, batch
+    log(f"[dryrun] phase 6's int8 step counted on meta in "
+        f"{time.perf_counter() - t0:.1f} s; its kernels "
+        f"{ {k: v['calls'] for k, v in rec['kernels'].items()} }")
+    gate("phase 6 (int8 train step)", rec, train["peak"])
+    c, m = _bound_ms(rec)
+    log(f"[dryrun] phase 6 step: predicted bound compute {c:.3f} ms, "
+        f"memory {m:.3f} ms; profiled device {train['device_ms']:.3f} ms "
+        f"(not gated)")
+
+    # phase "tp" (b): llama3-8b cut to 8 layers at tp 2, its collectives
+    recs = _meta_request(dataclasses.replace(cfg, n_layers=TP_SERVE_LAYERS),
+                         TP, TP_PROFILED_GEN)
+    for ph in ("prefill", "decode"):
+        n = sum(v["count"] for v in recs[ph]["collectives"].values())
+        log(f"[dryrun] tp {TP} llama3-8b ({TP_SERVE_LAYERS} layers) {ph}: "
+            f"counted collectives {n} "
+            f"({ {k: v['count'] for k, v in recs[ph]['collectives'].items() if v['count']} }); "
+            f"phase tp (b) rank 0's profile: {spans[ph]} tp.collective "
+            f"spans")
+        if n != spans[ph]:
+            fail(f"tp {ph}: {n} collectives counted, {spans[ph]} profiled")
+    if failures:
+        raise AssertionError("phase dryrun: " + "; ".join(failures))
+    return {}
+
+
 def _nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
@@ -4101,9 +4557,9 @@ def main() -> int:
     sys.path.insert(0, str(src))
     t0 = time.perf_counter()
 
-    def phase(fn):
+    def phase(fn, *args):
         t = time.perf_counter()
-        out = fn()
+        out = fn(*args)
         log(f"[phase] {fn.__name__}: {time.perf_counter() - t:.1f} s")
         return out
 
@@ -4111,22 +4567,24 @@ def main() -> int:
     phase(phase_build)
     rows = phase(phase_kernels)
     phase(phase_parity)
-    counts = phase(phase_serve)
+    counts, serve_measured = phase(phase_serve)
     archs_counts = phase(phase_archs)
     rec_counts = phase(phase_recurrent)
     encdec_counts = phase(phase_encdec_vlm)
     phase(phase_train_parity)
-    train_counts = phase(phase_train)
+    train_counts, train_measured = phase(phase_train)
     ckpt_counts = phase(phase_checkpoint)
     orch_counts = phase(phase_orchestrate)
-    tp_counts = phase(phase_tp)
+    tp_counts, tp_spans = phase(phase_tp)
     pp_counts = phase(phase_pp)
+    shrink_counts = phase(phase_shrink)
+    phase(phase_dryrun, serve_measured, train_measured, tp_spans)
     eval_counts = phase(phase_eval)
     paths = {"archs": archs_counts, "recurrent": rec_counts,
              "encdec_vlm": encdec_counts, "train": train_counts,
              "checkpoint": ckpt_counts,
              "orchestrate": orch_counts, "tp": tp_counts, "pp": pp_counts,
-             "eval": eval_counts}
+             "shrink": shrink_counts, "eval": eval_counts}
     log(f"[done] launches on the main paths: serve {counts}, " + ", ".join(
         f"{name} { {k: v for k, v in c.items() if v} }"
         for name, c in paths.items()))

@@ -87,11 +87,17 @@ def make_decode_fn(cfg: ModelConfig,
 
 
 def generate_tokens(params, cfg: ModelConfig, prompt: torch.Tensor,
-                    gen_len: int, *, prefill_fn: Callable,
-                    decode_fn: Callable, enc_frames=None,
-                    greedy: bool = True, seed: int = 0,
-                    ctx: Optional[ShardCtx] = None) -> np.ndarray:
-    """The generation loop over prebuilt step fns → (B, gen_len) tokens.
+                    gen_len: int, **kw) -> np.ndarray:
+    """:func:`token_loop`'s tokens on the host (numpy)."""
+    return token_loop(params, cfg, prompt, gen_len, **kw).cpu().numpy()
+
+
+def token_loop(params, cfg: ModelConfig, prompt: torch.Tensor,
+               gen_len: int, *, prefill_fn: Callable, decode_fn: Callable,
+               enc_frames=None, greedy: bool = True, seed: int = 0,
+               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """The generation loop over prebuilt step fns → (B, gen_len) int32
+    tokens on the prompt's device (on ``meta``, the dry run's shapes).
 
     ``enc_frames`` go to the prefill of an encoder–decoder model.
     Greedy takes the first maximum, as ``jnp.argmax`` does (under TP
@@ -123,7 +129,7 @@ def generate_tokens(params, cfg: ModelConfig, prompt: torch.Tensor,
         out.append(tok)
         logits, cache = decode_fn(params, tok, cache)
         tok = pick(logits)
-    return torch.cat(out, dim=1).cpu().numpy()
+    return torch.cat(out, dim=1)
 
 
 def _on_device(params, device: torch.device) -> None:

@@ -28,10 +28,10 @@ Under tensor parallelism (``tp > 1``, a coded mode) the session is one
 rank of a world that the caller set up (``dist.launch.run_ranks``,
 ``torchrun``, or ``launch.train --tp``, which spawns it): every rank
 builds the same session, holds its slices of the params and the state,
-and runs the same steps; rank 0 prints and writes checkpoints, which
-hold the gathered full arrays (the tp-1 format: they restore at any
-degree).  A drop or a replan changes only λ, as at tp 1.  With
-``seq_shard=True`` the ranks also split the sequence between the TP
+and runs the same steps; the mesh's first rank prints and writes
+checkpoints, which hold the gathered full arrays (the tp-1 format: they
+restore at any degree).  A drop or a replan changes only λ, as at tp 1.
+With ``seq_shard=True`` the ranks also split the sequence between the TP
 collective pairs (sequence parallelism; ``validate_seq_shard``'s
 checks: tp > 1, ``seq_len`` divisible by tp).  With ``pp > 1`` (a coded
 mode) the ranks also form a leading "stage" axis of pipeline
@@ -98,11 +98,6 @@ PyTree = Any
 MODES = ("off", "coded", "coded_int8", "coded_q")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md")
-
-
 class ReplanError(RuntimeError):
     """A replan or shrink produced a plan the deployed session cannot
     run; the session keeps its previous code.  ``constraint`` names what
@@ -133,6 +128,15 @@ def _code_desc(code) -> Dict:
 
 def _serve_only():
     return RuntimeError("serve-only session (cluster=None) cannot train")
+
+
+def _require_uniform(topo) -> None:
+    """The coded modes' (pod, data) mesh needs every edge to hold the
+    same number of workers."""
+    if len(set(topo.m)) != 1:
+        raise ValueError(
+            f"dist modes need a uniform topology for the (pod, data) "
+            f"mesh, got m={topo.m}")
 
 
 def build_coded_batch(code: HGCCode, streams, fast_e, fast_w, seq_len,
@@ -304,7 +308,13 @@ class CodedSession:
             self.pp = 1  # a serve-only session holds the whole model
         self._axes = param_axes(cfg, self.tp)  # flat key → split axis
         self._st_axes = stage_axes(cfg, self.pp)  # flat key → stage axis
+        self._verbose = verbose
         self.verbose = verbose and self.rank == 0
+        #: the global ranks the session's mesh spans (None: the whole
+        #: world); ``shrink`` narrows it to the survivors
+        self._ranks = None
+        #: set on a rank whose pod or worker ``shrink`` removed
+        self._retired = False
         self.losses: List[float] = []
         #: the coded MoE steps' aux losses, of this process's steps
         self.aux_losses: List[float] = []
@@ -314,7 +324,9 @@ class CodedSession:
             self.params = params_from_numpy(
                 self._my_slices(params), self.device, dtype=torch.float32)
         else:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
+            # the meta device (the dry run: shapes only) draws nothing
+            gen = None if self.device.type == "meta" else \
+                torch.Generator(device=self.device).manual_seed(seed)
             self.params = tf.init_params(cfg, gen, device=self.device,
                                          dtype=torch.float32, tp=self.tp,
                                          rank=self.model_rank, pp=self.pp,
@@ -496,10 +508,7 @@ class CodedSession:
             self.train_step = steps_lib.make_train_step(
                 self.cfg, self.tcfg, optimizer=self._optimizer)
             return
-        if len(set(topo.m)) != 1:
-            raise ValueError(
-                f"dist modes need a uniform topology for the (pod, data) "
-                f"mesh, got m={topo.m}")
+        _require_uniform(topo)
         self._require_dist_uniform_load(self.code)
         from repro_torch.dist import compression
         from repro_torch.dist.mesh import DistMesh, OneCardMesh
@@ -507,7 +516,7 @@ class CodedSession:
         self._validate_pp(self.code)
         if dist.is_initialized() and dist.get_world_size() > 1:
             self._mesh = DistMesh.for_world(topo.n, topo.m[0], self.tp,
-                                            pp=self.pp)
+                                            pp=self.pp, ranks=self._ranks)
             self._ctx = self._mesh.ctx
             where = ("ranks ("
                      + (f"stage {self.pp} × " if self.pp > 1 else "")
@@ -639,13 +648,20 @@ class CodedSession:
         self._step = step + 1
         return dict(metrics)
 
+    def _check_trains(self) -> None:
+        if self.cluster is None:
+            raise _serve_only()
+        if self._retired:
+            raise RuntimeError(
+                f"rank {self.rank} was shrunk away: its pod or worker died "
+                f"(CodedSession.shrink); it takes part in no later step")
+
     def external_step(self, fast_e, fast_w, *, worker_totals=None,
                       sim_iter_ms: float = 0.0, batch=None) -> Dict:
         """One train step under an EXTERNALLY observed completion set —
         the orchestrator's entry point (``fast_w`` indexed by edge for
         ALL edges); only the λ operand changes."""
-        if self.cluster is None:
-            raise _serve_only()
+        self._check_trains()
         topo = self.cluster.topo
         need_e = topo.n - self.code.tol.s_e
         if len(set(fast_e)) < need_e:
@@ -668,8 +684,7 @@ class CodedSession:
     def step(self, batch=None) -> Dict:
         """One training iteration at the session's current step index
         (a straggler pattern sampled from the cluster model)."""
-        if self.cluster is None:
-            raise _serve_only()
+        self._check_trains()
         return self._iteration(self._step, batch=batch)
 
     def fit(self, steps: Optional[int] = None, *, replan_every: int = 0,
@@ -680,8 +695,7 @@ class CodedSession:
         target step (default ``total_steps``); a resumed session goes on
         from its restored step.  ``stop_after`` simulates a kill: exit
         after N total steps without touching the LR schedule."""
-        if self.cluster is None:
-            raise _serve_only()
+        self._check_trains()
         total = steps if steps is not None else self.tcfg.total_steps
         start = self._step
         t0 = time.time()
@@ -764,14 +778,19 @@ class CodedSession:
         """Drop PERMANENTLY failed nodes, replan on the survivors, and go
         on training.  In the coded modes the mesh is rebuilt with the new
         pod count and the surviving pods keep their own EF residual rows;
-        the shrink record rides checkpoints.  Over ranks only the layout
-        whose pods and workers all run on every rank (``pod_ranks =
-        data_ranks = 1``) shrinks; a pipeline keeps its stage axis."""
-        mesh = self._mesh
-        if getattr(mesh, "pod_ranks", 1) > 1 or \
-                getattr(mesh, "data_ranks", 1) > 1:
-            raise _not_ported("shrink on a mesh whose pods or workers "
-                              "are ranks of their own")
+        the shrink record rides checkpoints.
+
+        Over ranks every rank of the mesh calls it.  Where pods or
+        workers are ranks of their own (``pod_ranks = pods``,
+        ``data_ranks = data``) the ranks of a dead pod or worker retire:
+        they return the plan, hold no mesh, and raise on any later step;
+        the survivors (every stage and model rank of a surviving group)
+        rebuild the mesh among themselves, a pod's index renumbered
+        among the surviving pods.  A shrink that leaves the edges
+        unequal raises the non-uniform topology's ``ValueError`` and
+        keeps the session as it was."""
+        if self._retired:
+            raise RuntimeError(f"rank {self.rank} was shrunk away already")
         old_topo = self.cluster.topo
         old_cluster = self.cluster
         keep = [i for i in range(old_topo.n) if i not in set(dead_edges)]
@@ -784,28 +803,57 @@ class CodedSession:
             self.cluster = old_cluster
             raise
         except ValueError as err:
+            self.cluster = old_cluster
             # the survivors cannot host ANY compatible plan: keep the
             # pre-shrink session intact and report what broke
-            self.cluster = old_cluster
             raise ReplanError(
                 str(err), constraint="plan",
                 topo=old_cluster.shrink(dead_edges, dead_workers).topo,
             ) from err
+        topo = self.cluster.topo
+        if getattr(self._mesh, "ranks", None) is not None and \
+                len(set(topo.m)) != 1:
+            self.cluster = old_cluster  # before any rank retires
+            _require_uniform(topo)
         self.plan = plan
         self.code = plan.code
         _extend_streams(self.streams, self.code.K, self.cfg.vocab,
                         self.part_batch, self.seq_len, self.seed)
+        if self._mesh is None:
+            self._log_shrink()
+            return self.plan
+        if getattr(self._mesh, "ranks", None) is not None:
+            from repro_torch.dist import mesh as mesh_lib
+
+            alive = mesh_lib.survivors(self._mesh, dead_edges, dead_workers)
+            mesh_lib.subset_group(alive)  # every rank of the world
+            if self.rank not in alive:
+                self._retire()
+                return self.plan
+            self._ranks = alive
+            self.verbose = self._verbose and self.rank == alive[0]
+        self._log_shrink()
+        if self.residual:  # surviving pods keep their own rows
+            idx = torch.as_tensor(keep, device=self.device)
+            self.residual = [r.index_select(0, idx) for r in self.residual]
+        self._setup_train_step()
+        return self.plan
+
+    def _log_shrink(self) -> None:
         if self.verbose:
             print(f"[train] shrink: topology → m={self.cluster.topo.m}, "
                   f"(s_e={self.code.tol.s_e}, s_w={self.code.tol.s_w}), "
                   f"K={self.code.K}")
-        if self._mesh is not None:
-            if self.residual:  # surviving pods keep their own rows
-                idx = torch.as_tensor(keep, device=self.device)
-                self.residual = [r.index_select(0, idx)
-                                 for r in self.residual]
-            self._setup_train_step()
-        return self.plan
+
+    def _retire(self) -> None:
+        """This rank's pod or worker died: no mesh, no state, no later
+        collective."""
+        self._retired = True
+        self._mesh = None
+        self.verbose = False
+        self.train_step = None
+        self.params = self.opt_state = None
+        self.residual = []
 
     # ------------------------------------------------------------------
     # checkpointing / reporting
@@ -816,6 +864,7 @@ class CodedSession:
         the params) in the reference's layout."""
         if self.store is None:
             raise RuntimeError("session has no checkpoint_dir")
+        self._check_trains()
         step = self._step if step is None else step
         if dist.is_initialized() and dist.get_world_size() > 1:
             return self._save_gathered(step)
@@ -848,8 +897,8 @@ class CodedSession:
     def _save_gathered(self, step: int) -> str:
         """The checkpoint of a session over ranks: every rank gathers the
         full arrays (params, optimizer state, EF residual rows, one leaf
-        at a time), rank 0 writes them in the pp-1/tp-1 format, and every
-        rank returns once the file is in place."""
+        at a time), the mesh's first rank writes them in the pp-1/tp-1
+        format, and every rank returns once the file is in place."""
         params = self._gather(_flatten(self.params))
         opt = self._gather(_flatten(self.opt_state), state=True)
         extra = self._extra_state()
@@ -859,10 +908,11 @@ class CodedSession:
                     for k, r in zip(keys, self.residual)}
             extra["ef_residual"] = self._gather(rows)
         path = ""
-        if self.rank == 0:
+        ranks = self._mesh.ranks if self._mesh is not None else (0,)
+        if self.rank == ranks[0]:
             path = self.store.save(step, {"params": params,
                                           "opt_state": opt}, extra=extra)
-        dist.barrier()
+        dist.barrier(group=getattr(self._mesh, "group", None))
         return path
 
     def full_params(self) -> Dict[str, np.ndarray]:

@@ -8,8 +8,9 @@ ROADMAP.md, where its slice is queued).
 from __future__ import annotations
 
 import importlib
+from typing import Tuple
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 ARCH_IDS = (
     "llama3-8b",
@@ -45,3 +46,25 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Assignment rules: which (arch × shape) cells run.
+
+    * long_500k only for sub-quadratic archs,
+    * decode shapes skipped for encoder-only archs (none assigned).
+    """
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "dense-attention arch: 512k decode is out of scope"
+    return True, ""
+
+
+def all_cells():
+    """All (arch, shape) cells with applicability flags."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            ok, why = shape_applicable(cfg, s)
+            out.append((a, s.name, ok, why))
+    return out

@@ -34,6 +34,11 @@ pipeline parallelism: ``world = stages × pod_ranks × data_ranks × tp``,
 stage first, as the reference's mesh orders its axes; each stage holds
 its block of the layer-group stacks, hands activations to the next
 stage over a two-rank group, and sums over its stage group.
+
+A mesh may span a subset of the world (``ranks``): after
+``CodedSession.shrink`` the survivors of a dead pod or worker run on,
+and its ranks retire.  Rank and group numbers are then counted within
+the subset (:func:`survivors`, :func:`subset_group`).
 """
 from __future__ import annotations
 
@@ -146,27 +151,69 @@ class OneCardMesh:
 _GROUPS: Dict[Tuple, object] = {}
 
 
+def _group(ranks: Sequence[int]):
+    """The process group of ``ranks`` (global), made once per world."""
+    key = (id(dist.group.WORLD), tuple(ranks))
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(ranks))
+    return _GROUPS[key]
+
+
 def _axis_groups(rank_lists: List[List[int]]) -> Dict[int, object]:
-    """One process group per member list, made by every rank in the same
-    order (``new_group`` is collective over the world) → rank → its
-    group."""
+    """One process group per member list, made by every rank of the mesh
+    in the same order (``new_group`` names a group by a per-process
+    count) → rank → its group."""
     out = {}
     for ranks in rank_lists:
-        key = (id(dist.group.WORLD), tuple(ranks))
-        if key not in _GROUPS:
-            _GROUPS[key] = dist.new_group(list(ranks))
+        g = _group(ranks)
         for r in ranks:
-            out[r] = _GROUPS[key]
+            out[r] = g
     return out
+
+
+def subset_group(ranks: Sequence[int]):
+    """The group of the ranks that take part in a mesh (None: the whole
+    world).  Every rank of the world calls it with the same ``ranks``,
+    members or not (``new_group``'s contract); a non-member gets a
+    handle it never uses."""
+    ranks = tuple(ranks)
+    if len(ranks) == dist.get_world_size():
+        return None
+    return _group(ranks)
+
+
+def survivors(mesh: "DistMesh", dead_edges=(), dead_workers=()
+              ) -> Tuple[int, ...]:
+    """The global ranks of ``mesh`` that hold a surviving (pod, data)
+    group: ``dead_edges`` and ``dead_workers`` ((edge, worker) pairs) in
+    the current numbering, as ``CodedCluster.shrink`` takes them.  Every
+    rank of a layout that runs all groups on each rank survives; the
+    "stage" and "model" axes are kept whole."""
+    dead_e = set(dead_edges)
+    dead_w = {tuple(p) for p in dead_workers}
+    keep = []
+    for v, rank in enumerate(mesh.ranks):
+        d = (v // mesh.tp) % mesh.data_ranks
+        p = (v // (mesh.tp * mesh.data_ranks)) % mesh.pod_ranks
+        if mesh.pod_ranks > 1 and p in dead_e:
+            continue
+        if mesh.data_ranks > 1 and (p, d) in dead_w:
+            continue
+        keep.append(rank)
+    return tuple(keep)
 
 
 class DistMesh(OneCardMesh):
     """The (pod, data) mesh, a "model" axis and a leading "stage" axis
     over the ranks of the current ``torch.distributed`` world.
 
-    Rank ``((s · pod_ranks + p) · data_ranks + d) · tp + m`` holds stage
-    ``s``, pod coordinate ``p``, data coordinate ``d`` and model index
-    ``m``; it runs the groups :meth:`pod_indices` × :meth:`data_indices`.
+    Rank ``ranks[((s · pod_ranks + p) · data_ranks + d) · tp + m]``
+    holds stage ``s``, pod coordinate ``p``, data coordinate ``d`` and
+    model index ``m``; it runs the groups :meth:`pod_indices` ×
+    :meth:`data_indices`.  ``ranks`` (global, ascending; default the
+    whole world) are the ranks that take part: ``group`` is theirs
+    (None for the whole world), and every rank of the world has made it
+    (:func:`subset_group`) before the members build the mesh.
     ``ctx`` is the :class:`~repro_torch.dist.sharding.ShardCtx` of its
     model group, ``stage_ctx`` the same over its stage group (span
     ``pp.collective``); :meth:`send_next` / :meth:`recv_prev` (and their
@@ -176,7 +223,8 @@ class DistMesh(OneCardMesh):
     """
 
     def __init__(self, pods: int, data: int, tp: int = 1, *,
-                 pod_ranks: int = 1, data_ranks: int = 1, stages: int = 1):
+                 pod_ranks: int = 1, data_ranks: int = 1, stages: int = 1,
+                 ranks: Optional[Sequence[int]] = None):
         super().__init__(pods, data)
         if (pod_ranks, data_ranks) not in ((1, 1), (self.pods, self.data)) \
                 or tp < 1 or stages < 1:
@@ -185,24 +233,29 @@ class DistMesh(OneCardMesh):
                 f"{tp}) for ({self.pods} x {self.data}) groups: (pod, "
                 f"data) ranks must be (1, 1) or ({self.pods}, {self.data})")
         world = stages * pod_ranks * data_ranks * tp
-        if not dist.is_initialized() or dist.get_world_size() != world:
-            have = dist.get_world_size() if dist.is_initialized() else 1
+        have = dist.get_world_size() if dist.is_initialized() else 1
+        ranks = tuple(range(have) if ranks is None else ranks)
+        if not dist.is_initialized() or len(ranks) != world:
             raise ValueError(
                 f"mesh of " + (f"{stages} x " if stages > 1 else "")
                 + f"{pod_ranks} x {data_ranks} x {tp} ranks needs a world "
-                f"of {world}, this one has {have}")
+                f"of {world}, this one has {len(ranks)}")
         self.tp, self.pod_ranks, self.data_ranks = tp, pod_ranks, data_ranks
         self.pp = stages
-        rank = self.global_rank = dist.get_rank()
-        self.model_rank = rank % tp
-        self.data_rank = (rank // tp) % data_ranks
-        self.pod_rank = (rank // (tp * data_ranks)) % pod_ranks
-        self.stage = rank // (tp * data_ranks * pod_ranks)
+        self.ranks = ranks
+        self.group = subset_group(ranks)
+        self.global_rank = dist.get_rank()
+        v = ranks.index(self.global_rank)  # this rank within the mesh
+        self.model_rank = v % tp
+        self.data_rank = (v // tp) % data_ranks
+        self.pod_rank = (v // (tp * data_ranks)) % pod_ranks
+        self.stage = v // (tp * data_ranks * pod_ranks)
         S, P, D, M = (range(stages), range(pod_ranks), range(data_ranks),
                       range(tp))
+        rank = self.global_rank
 
         def at(s, p, d, m):
-            return ((s * pod_ranks + p) * data_ranks + d) * tp + m
+            return ranks[((s * pod_ranks + p) * data_ranks + d) * tp + m]
 
         model = _axis_groups([[at(s, p, d, m) for m in M] for s in S
                               for p in P for d in D]) if tp > 1 else {}
@@ -226,20 +279,21 @@ class DistMesh(OneCardMesh):
             for s in range(stages - 1):
                 pairs = _axis_groups([[at(s, *c), at(s + 1, *c)]
                                       for c in coords])
+                step = tp * data_ranks * pod_ranks
                 if self.stage == s:
-                    self._next = (rank + tp * data_ranks * pod_ranks,
-                                  pairs[rank])
+                    self._next = (ranks[v + step], pairs[rank])
                 elif self.stage == s + 1:
-                    self._prev = (rank - tp * data_ranks * pod_ranks,
-                                  pairs[rank])
+                    self._prev = (ranks[v - step], pairs[rank])
 
     @classmethod
-    def for_world(cls, pods: int, data: int, tp: int,
-                  pp: int = 1) -> "DistMesh":
-        """The layout the world's size implies: ``world / (pp · tp)``
+    def for_world(cls, pods: int, data: int, tp: int, pp: int = 1,
+                  ranks: Optional[Sequence[int]] = None) -> "DistMesh":
+        """The layout the world's size implies (the size of ``ranks``,
+        when given: the ranks that take part): ``world / (pp · tp)``
         ranks over (pod, data) are 1 (every group in turn on each rank)
         or ``pods × data`` (a group each)."""
-        world = dist.get_world_size() if dist.is_initialized() else 1
+        world = len(ranks) if ranks is not None else (
+            dist.get_world_size() if dist.is_initialized() else 1)
         if world % (tp * pp):
             raise ValueError(f"a world of {world} ranks does not split "
                              f"into tp={tp}" + (f" x pp={pp}" if pp > 1
@@ -248,7 +302,7 @@ class DistMesh(OneCardMesh):
         for pr, dr in ((1, 1), (pods, data)):
             if pr * dr == n:
                 return cls(pods, data, tp, pod_ranks=pr, data_ranks=dr,
-                           stages=pp)
+                           stages=pp, ranks=ranks)
         raise ValueError(
             f"a world of {world} ranks at tp={tp}"
             + (f", pp={pp}" if pp > 1 else "")

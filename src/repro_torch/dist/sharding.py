@@ -48,6 +48,13 @@ no NCCL world of two ranks).  A :class:`ShardCtx` over the stage group (``span``
 :data:`PP_SPAN`) carries the stage sums: the gradient correction, the
 optimizer's reductions and the gathers of stage-split leaves.
 
+The dry run (``launch.op_analysis``) runs one rank's step on the
+``meta`` device with a :class:`CountingGroup` as the group: every
+collective here then moves nothing, returns a result of the right shape
+and records itself (kind, operand bytes, link bytes) in the group's
+:class:`CollectiveTally`; with :data:`TALLY` set, the collectives of a
+real world are recorded the same way.
+
 FSDP, the pjit anchors and ``serve_shardings`` are XLA's and have no
 counterpart.
 """
@@ -55,7 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -72,13 +79,115 @@ SPAN = "tp.collective"
 PP_SPAN = "pp.collective"
 
 
-def all_reduce(x: torch.Tensor, group, op=None,
-               span: str = SPAN) -> torch.Tensor:
-    """A reduced copy of ``x`` over ``group`` (``x`` is left alone)."""
+#: the collectives' kinds, as the reference's HLO names them
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter",
+               "collective-permute")
+#: ranks a host holds (one card each) and ranks a pod holds, for the
+#: tallies' link classes (``launch.mesh``'s production layout)
+HOST_RANKS, POD_RANKS = 8, 256
+
+
+class CollectiveTally:
+    """Per kind of collective: ``count``, ``operand_bytes``,
+    ``output_bytes``, ``link_bytes`` (what one rank puts on its links: a
+    ring all-reduce 2(n−1)/n of the operand, an all-gather (n−1)/n of its
+    output, a reduce-scatter (n−1)/n of its operand, a handoff the
+    operand), ``link_bytes_bf16eq`` (float32 at 2 bytes),
+    ``cross_host_link_bytes`` and ``cross_pod_link_bytes`` (the link
+    bytes of groups whose ranks span hosts of :data:`HOST_RANKS` cards or
+    pods of :data:`POD_RANKS`), and ``link_s`` (the link bytes over the
+    group's link rate, where the group knows it)."""
+
+    def __init__(self):
+        self.by_kind = {c: dict(count=0, operand_bytes=0.0,
+                                output_bytes=0.0, link_bytes=0.0,
+                                link_bytes_bf16eq=0.0,
+                                cross_host_link_bytes=0.0,
+                                cross_pod_link_bytes=0.0, link_s=0.0)
+                        for c in COLLECTIVES}
+
+    def add(self, kind: str, x: torch.Tensor, n: int,
+            ranks: Sequence[int], link: float = 0.0) -> None:
+        """One collective of ``kind`` over ``n`` ranks (global ``ranks``)
+        with operand ``x`` on this rank."""
+        operand = x.numel() * x.element_size()
+        eq = x.numel() * (2 if x.dtype in (torch.float32, torch.float64)
+                          else x.element_size())
+        output = operand * (n if kind == "all-gather" else 1)
+        if kind == "reduce-scatter":
+            output = operand // n
+        share = {"all-reduce": 2.0 * (n - 1) / n,
+                 "all-gather": float(n - 1),
+                 "reduce-scatter": (n - 1) / n}.get(kind, 1.0)
+        rec = self.by_kind[kind]
+        rec["count"] += 1
+        rec["operand_bytes"] += operand
+        rec["output_bytes"] += output
+        rec["link_bytes"] += share * operand
+        rec["link_bytes_bf16eq"] += share * eq
+        if len({r // HOST_RANKS for r in ranks}) > 1:
+            rec["cross_host_link_bytes"] += share * operand
+        if len({r // POD_RANKS for r in ranks}) > 1:
+            rec["cross_pod_link_bytes"] += share * operand
+        if link:
+            rec["link_s"] += share * eq / link
+
+    def total(self, key: str) -> float:
+        return sum(v[key] for v in self.by_kind.values())
+
+
+#: the tally of a real world's collectives (None: not recorded)
+TALLY: Optional[CollectiveTally] = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CountingGroup:
+    """A process group of the dry run: ``size`` ranks, this rank's group
+    of global ``ranks`` in the production layout, each rank on a link of
+    ``link`` bytes/s each way.  Its collectives move nothing (a result of
+    the right shape, on the operand's device) and record themselves in
+    ``tally``."""
+
+    size: int
+    ranks: Tuple[int, ...]
+    link: float
+    tally: CollectiveTally
+
+
+def group_size(group) -> int:
+    """The ranks of ``group``: a :class:`CountingGroup`'s size, or a
+    process group's (``None``: the world's)."""
+    if isinstance(group, CountingGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def _record(kind: str, x: torch.Tensor, group) -> bool:
+    """Record a collective in its tally → whether ``group`` counts only
+    (a :class:`CountingGroup`: nothing to move)."""
+    if isinstance(group, CountingGroup):
+        group.tally.add(kind, x, group.size, group.ranks, group.link)
+        return True
+    if TALLY is not None:
+        ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
+        TALLY.add(kind, x, len(ranks), ranks)
+    return False
+
+
+def _all_reduce(x: torch.Tensor, group, op=None,
+                span: str = SPAN) -> torch.Tensor:
     buf = x.detach().clone(memory_format=torch.contiguous_format)
     with torch.profiler.record_function(span):
         dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
     return buf
+
+
+def all_reduce(x: torch.Tensor, group, op=None,
+               span: str = SPAN) -> torch.Tensor:
+    """A reduced copy of ``x`` over ``group`` (``x`` is left alone)."""
+    if _record("all-reduce", x, group):
+        return x.detach().clone(memory_format=torch.contiguous_format)
+    return _all_reduce(x, group, op, span)
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +202,8 @@ def send_to(x: torch.Tensor, me: int, peer: int, group) -> None:
     collectives are ``all_reduce`` and ``broadcast``): a ``broadcast``
     from ``me`` inside the pair, as bytes."""
     x = x.detach().contiguous()
+    if _record("collective-permute", x, group):
+        return
     with torch.profiler.record_function(PP_SPAN):
         if dist.get_backend(group) == "nccl":
             dist.send(x, dst=peer, group=group)
@@ -102,7 +213,10 @@ def send_to(x: torch.Tensor, me: int, peer: int, group) -> None:
 
 def recv_from(buf: torch.Tensor, peer: int, group) -> torch.Tensor:
     """The stage handoff, receiving side: global rank ``peer``'s tensor
-    into the contiguous ``buf`` (its shape and dtype) → ``buf``."""
+    into the contiguous ``buf`` (its shape and dtype) → ``buf``; a
+    handoff is recorded once, by its sender."""
+    if isinstance(group, CountingGroup):
+        return buf
     with torch.profiler.record_function(PP_SPAN):
         if dist.get_backend(group) == "nccl":
             dist.recv(buf, src=peer, group=group)
@@ -122,6 +236,9 @@ def gather_rows(out: torch.Tensor, index: int, local: torch.Tensor,
     each byte is its owner's plus zeros, so the result is exact for any
     dtype (and fp8, which gloo lacks, travels as bytes).
     """
+    if _record("all-gather", local, group):
+        out[index].copy_(local)
+        return
     if dist.get_backend(group) == "nccl":
         with torch.profiler.record_function(span):
             dist.all_gather_into_tensor(
@@ -151,13 +268,15 @@ def reduce_scatter(x: torch.Tensor, axis: int, index: int, n: int,
     Otherwise (gloo) the ``all_reduce`` of a copy, then the block."""
     axis %= x.ndim
     local = x.shape[axis] // n
+    if _record("reduce-scatter", x, group):
+        return x.detach().narrow(axis, index * local, local).contiguous()
     if dist.get_backend(group) == "nccl":
         src = x.detach().movedim(axis, 0).contiguous()
         out = src.new_empty((local,) + tuple(src.shape[1:]))
         with torch.profiler.record_function(SPAN):
             dist.reduce_scatter_tensor(out, src, group=group)
         return out.movedim(0, axis).contiguous()
-    full = all_reduce(x, group)
+    full = _all_reduce(x, group)
     return full.narrow(axis, index * local, local).contiguous()
 
 

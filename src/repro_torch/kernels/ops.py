@@ -3,6 +3,14 @@
 A CUDA tensor launches the hand-written Hopper kernel, or the call
 raises; a CPU tensor runs the kernel's plain version
 (``kernels.ref``).  There is no fallback from one to the other.
+
+A ``meta`` tensor (the dry run, ``launch.op_analysis``) computes
+nothing: the wrapper returns an empty ``meta`` output of the kernel's
+shape and dtype and adds the kernel's own work to :data:`META_WORK` —
+its operations and bytes as ``chip_smoke.py``'s bound counts them (each
+input byte read once, each output written once) and, apart, the S×T
+score elements that the attention kernels keep on chip and the plain
+version would write to memory.  The launch counters do not move.
 """
 from __future__ import annotations
 
@@ -36,9 +44,60 @@ KERNELS = {
 
 
 def _route(t: torch.Tensor) -> str:
-    if t.device.type not in ("cuda", "cpu"):
+    if t.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel route for device {t.device}")
     return t.device.type
+
+
+#: the kernels' work on the ``meta`` device since :func:`reset_meta_work`,
+#: by kernel name: ``calls``, ``flops``, ``bytes`` (the kernel's own) and
+#: ``scores`` (the S×T elements the plain version would materialize)
+META_WORK: Dict[str, Dict[str, float]] = {}
+
+
+def reset_meta_work() -> None:
+    META_WORK.clear()
+
+
+def _meta_work(name: str, flops: float, nbytes: float,
+               scores: float = 0.0) -> None:
+    w = META_WORK.setdefault(name, dict(calls=0, flops=0.0, bytes=0.0,
+                                        scores=0.0))
+    w["calls"] += 1
+    w["flops"] += float(flops)
+    w["bytes"] += float(nbytes)
+    w["scores"] += float(scores)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def attended_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the flash kernel attends: positions
+    ``0..S-1`` × ``0..T-1`` under the causal and window masks
+    (``models.attention._allowed``)."""
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(S,
+                                                                   np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def valid_slots(C: int, q_pos, window: int) -> int:
+    """The cache slots the decode kernel reads: those of a ``C``-slot
+    ring (``window`` 0: the whole cache) holding a position within the
+    window up to ``q_pos``; a tensor ``q_pos`` (on the ``meta`` device:
+    no value) counts a full cache, ``q_pos = C − 1``."""
+    if isinstance(q_pos, torch.Tensor):
+        q_pos = C - 1
+    w = window or C
+    s = np.arange(C, dtype=np.int64)
+    k_pos = s + w * np.floor_divide(q_pos - s, w)  # length q_pos + 1
+    ok = (k_pos >= 0) & (k_pos <= q_pos)
+    if window > 0:
+        ok &= q_pos - k_pos < window
+    return int(ok.sum())
 
 
 def decode_attention(q, k_cache, v_cache, q_pos, window: int = 0,
@@ -49,9 +108,18 @@ def decode_attention(q, k_cache, v_cache, q_pos, window: int = 0,
     on ``q``'s device (the decode cache's ``length``), which the kernel
     reads on the device.
     """
-    if _route(q) == "cuda":
+    route = _route(q)
+    if route == "cuda":
         return decode_attention_fwd(q, k_cache, v_cache, q_pos,
                                     window=window, softcap=softcap)
+    if route == "meta":
+        B, _, H, Dh = q.shape
+        Kv = k_cache.shape[2]
+        n = valid_slots(k_cache.shape[1], q_pos, window)
+        _meta_work("decode_attention", 4 * B * H * n * Dh,
+                   2 * B * n * Kv * Dh * k_cache.element_size()
+                   + 2 * _nbytes(q) + 4, scores=B * H * n)
+        return torch.empty_like(q)
     return ref.decode_attention_ref(q, k_cache, v_cache, q_pos,
                                     window=window, softcap=softcap)
 
@@ -60,9 +128,22 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, return_lse: bool = False):
     """Self-attention over positions ``0..S-1`` × ``0..T-1``; out
     (B, S, H, Dh) [, each row's log-sum-exp (B, S, H) float32]."""
-    if _route(q) == "cuda":
+    route = _route(q)
+    if route == "cuda":
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    softcap=softcap, return_lse=return_lse)
+    if route == "meta":
+        B, S, H, Dh = q.shape
+        T = k.shape[1]
+        out = torch.empty_like(q)
+        _meta_work("flash_attention",
+                   4 * B * H * Dh * attended_pairs(S, T, causal, window),
+                   2 * _nbytes(q) + 2 * _nbytes(k)
+                   + (B * S * H * 4 if return_lse else 0),
+                   scores=B * H * S * T)
+        if return_lse:
+            return out, q.new_empty((B, S, H), dtype=torch.float32)
+        return out
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, return_lse=return_lse)
 
@@ -70,31 +151,57 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 # ----------------------------------------------------------------------
 # coded combine (eqs. 22/25/27) and the compressed hop's fused dequant
 # ----------------------------------------------------------------------
+def _combine_meta(name: str, coeff, grads, scales, F: int) -> torch.Tensor:
+    """The combine's empty ``meta`` output (R, F) float32 and its work."""
+    R, K = coeff.shape
+    out = grads.new_empty((R, F), dtype=torch.float32)
+    extra = 0 if scales is None else K * F
+    _meta_work(name, 2 * R * K * F + extra, _nbytes(grads, coeff, out)
+               + (0 if scales is None else _nbytes(scales)))
+    return out
+
+
 def combine(coeff, grads) -> torch.Tensor:
     """out (R, F) = coeff (R, K) @ grads (K, F), float32."""
-    if _route(grads) == "cuda":
+    route = _route(grads)
+    if route == "cuda":
         return coded_combine(coeff, grads)
+    if route == "meta":
+        return _combine_meta("coded_combine", coeff, grads, None,
+                             grads.shape[-1])
     return ref.coded_combine_ref(coeff, grads)
 
 
 def combine_q(coeff, grads_q, scales, block: int = 128) -> torch.Tensor:
     """int8 payload (K, F) dequantized by block, then ``coeff @ ·``."""
-    if _route(grads_q) == "cuda":
+    route = _route(grads_q)
+    if route == "cuda":
         return coded_combine_q(coeff, grads_q, scales, block=block)
+    if route == "meta":
+        return _combine_meta("coded_combine_q", coeff, grads_q, scales,
+                             grads_q.shape[-1])
     return ref.coded_combine_q_ref(coeff, grads_q, scales, block)
 
 
 def combine_q4(coeff, grads_q, scales, block: int = 128) -> torch.Tensor:
     """Packed int4 payload (K, F // 2) dequantized by block, then ``coeff @ ·``."""
-    if _route(grads_q) == "cuda":
+    route = _route(grads_q)
+    if route == "cuda":
         return coded_combine_q4(coeff, grads_q, scales, block=block)
+    if route == "meta":
+        return _combine_meta("coded_combine_q4", coeff, grads_q, scales,
+                             2 * grads_q.shape[-1])
     return ref.coded_combine_q4_ref(coeff, grads_q, scales, block)
 
 
 def combine_f8(coeff, grads_q, scales, block: int = 128) -> torch.Tensor:
     """fp8-e4m3 payload (K, F) dequantized by block, then ``coeff @ ·``."""
-    if _route(grads_q) == "cuda":
+    route = _route(grads_q)
+    if route == "cuda":
         return coded_combine_f8(coeff, grads_q, scales, block=block)
+    if route == "meta":
+        return _combine_meta("coded_combine_f8", coeff, grads_q, scales,
+                             grads_q.shape[-1])
     return ref.coded_combine_f8_ref(coeff, grads_q, scales, block)
 
 

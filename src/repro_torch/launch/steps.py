@@ -4,9 +4,11 @@ PyTorch counterpart of ``repro.launch.steps``:
 
   * :func:`make_train_step` — the single-host step (mode ``off``):
     microbatched gradient accumulation, global-norm clipping, the cosine
-    LR schedule and the optimizer update.  The HGC hook rides the batch:
-    per-example coded weights (coeff × λ) in ``batch["weights"]`` and the
-    fixed ``batch["denom"]`` make the gradient the decoded aggregate.
+    LR schedule and the optimizer update (one data-parallel rank's, with
+    its "model" slices under a ``ctx``: the dry run's step).  The HGC
+    hook rides the batch: per-example coded weights (coeff × λ) in
+    ``batch["weights"]`` and the fixed ``batch["denom"]`` make the
+    gradient the decoded aggregate.
   * :func:`_make_dist_train_step` — the coded step (modes ``coded``,
     ``coded_int8``, ``coded_q``) on the (pod, data) mesh — on one card
     (``OneCardMesh``) or over ranks with tensor parallelism
@@ -19,6 +21,9 @@ PyTorch counterpart of ``repro.launch.steps``:
     aux gradient decoded with uniform weights (the reference's rule).
     On a ``DistMesh`` with a "stage" axis the coded step runs pipeline
     parallelism (:func:`_pipeline_grads`).
+  * :func:`make_serve_step` and :func:`make_prefill_step` (one decode
+    step, the prefill), and the dry run's inputs on the ``meta`` device:
+    :func:`input_specs`, :func:`abstract_state`, :func:`abstract_cache`.
 
 Steps update the params and the optimizer state in place and return
 them.
@@ -33,10 +38,12 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.checkpoint.params import leaf_keys
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.dist.sharding import (
     NULL_CTX,
     ShardCtx,
+    all_reduce,
+    group_size,
     model_sharded_mask,
     param_axes,
     seq_sharded_mask,
@@ -122,18 +129,34 @@ def _finish(params, opt_state, grads, optimizer, tcfg, lr_at, step,
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    optimizer=None) -> Callable:
+                    optimizer=None, ctx: ShardCtx = NULL_CTX,
+                    dp_group=None) -> Callable:
     """``train_step(params, opt_state, batch, step) → (params, opt_state,
     metrics)``; params and state are updated in place.  The pipeline's
     options (``pp_stages``, ``microbatches``) are the dist step's: one
-    host ignores them, as the reference's does."""
+    host ignores them, as the reference's does.
+
+    Under an active ``ctx`` (a "model" axis: tensor parallelism, with
+    ``seq_shard`` sequence parallelism) the params are this rank's
+    slices: the gradients go through :func:`tp_correct` and the update
+    reduces over "model".  ``dp_group`` (a process group, or the dry
+    run's ``CountingGroup``) holds the data-parallel ranks, each with its
+    own rows of the global batch: the gradients and the loss are then
+    averaged over it, where the reference's pjit step has XLA insert that
+    reduction (the global batch's mean where every rank's rows carry the
+    same weight sum, as the dry run's do)."""
     if optimizer is None:
         optimizer = make_optimizer(default_optimizer_name(cfg, tcfg))
     lr_at = cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+    axes_by_key = mask = None
+    if ctx.active:
+        axes_by_key = param_axes(cfg, ctx.tp)
+        mask = (seq_sharded_mask if ctx.sp else model_sharded_mask)(
+            cfg, ctx.tp)
 
     def grads_of(params, batch):
         if not (tcfg.microbatch and tcfg.microbatch > 0):
-            grads, m = _grads(params, cfg, batch)
+            grads, m = _grads(params, cfg, batch, ctx=ctx)
             return grads, {"loss": m["loss"]}
         B = batch["tokens"].shape[0]
         mb = min(tcfg.microbatch, B)
@@ -144,7 +167,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         acc, lsum = None, None
         for i in range(n_micro):
             micro = _batch_rows(batch, B, slice(i * mb, (i + 1) * mb))
-            g, m = _grads(params, cfg, micro)
+            g, m = _grads(params, cfg, micro, ctx=ctx)
             if acc is None:
                 acc = [x.to(torch.float32) for x in g]
                 lsum = m["loss"]
@@ -160,8 +183,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     def train_step(params, opt_state, batch, step):
         grads, metrics = grads_of(params, batch)
+        axes = None
+        if ctx.active:
+            keys = leaf_keys(params)
+            grads = tp_correct(grads, [mask[k] for k in keys], ctx)
+            axes = [axes_by_key[k] for k in keys]
+        if dp_group is not None:
+            n = group_size(dp_group)
+            grads = [all_reduce(g, dp_group).div_(n) for g in grads]
+            metrics["loss"] = all_reduce(metrics["loss"], dp_group).div_(n)
         metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
-                          step, metrics)
+                          step, metrics, ctx, axes)
         return params, opt_state, metrics
 
     train_step.optimizer = optimizer
@@ -432,3 +464,88 @@ def _pipeline_grads(params, cfg: ModelConfig, local, mesh, ctx: ShardCtx,
         p.grad = None
     loss = nll_tot / denom if last else zero
     return grads, {"loss": loss, "aux_loss": aux_tot}
+
+
+# ----------------------------------------------------------------------
+# serving steps, and the dry run's inputs on the meta device
+# ----------------------------------------------------------------------
+def make_serve_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX) -> Callable:
+    """serve_step(params, cache, token) → (logits, new_cache)."""
+
+    def serve_step(params, cache, token):
+        return tf.decode_step(params, cfg, token, cache, ctx=ctx)
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX
+                      ) -> Callable:
+    """prefill_step(params, batch) → (last logits, cache)."""
+
+    def prefill_step(params, batch):
+        logits, cache, _ = tf.forward(
+            params, cfg, batch["tokens"],
+            positions=batch.get("positions"),
+            enc_frames=batch.get("enc_frames"),
+            return_cache=True,
+            last_only=True,
+            ctx=ctx,
+        )
+        return logits[:, -1], cache
+
+    return prefill_step
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, batch: int = 0,
+                device="meta") -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of a cell: empty tensors on
+    ``device`` (``meta``: shapes only, no memory) with the reference's
+    keys, shapes and dtypes (``batch`` rows, default the cell's global
+    batch).  Frontend stubs (whisper frames / VLM patch embeds) appear
+    as precomputed embedding tensors."""
+    B, S = batch or shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def spec(shp, dt):
+        return torch.empty(shp, dtype=dt, device=device)
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": spec((B, S), i32)}
+        if shape.kind == "train":
+            specs["targets"] = spec((B, S), i32)
+            specs["weights"] = spec((B, S), f32)
+        if cfg.mrope_sections:
+            specs["positions"] = spec((3, B, S), i32)
+        if cfg.is_encdec:
+            specs["enc_frames"] = spec((B, cfg.enc_len, cfg.d_model), f32)
+        return specs
+    # decode: one new token against a seq_len cache
+    return {"token": spec((B, 1), i32)}
+
+
+def abstract_state(cfg: ModelConfig, tcfg: TrainConfig, optimizer=None,
+                   tp: int = 1, rank: int = 0):
+    """(params, opt_state) on the ``meta`` device: the reference's
+    shapes and dtypes (params in ``cfg.param_dtype``, the norm scales in
+    float32 whatever it says), this ``rank``'s slices at ``tp`` > 1."""
+    from repro_torch.checkpoint.params import _flatten, _unflatten
+
+    if optimizer is None:
+        optimizer = make_optimizer(default_optimizer_name(cfg, tcfg))
+    params = _flatten(tf.init_params(
+        cfg, device="meta", dtype=tf._torch_dtype(cfg.param_dtype), tp=tp,
+        rank=rank))
+    params = _unflatten({k: v.float() if k.endswith("/scale") else v
+                         for k, v in params.items()})
+    return params, optimizer.init(params)
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeConfig, batch: int = 0,
+                   tp: int = 1):
+    """The decode cache of a cell on the ``meta`` device (``batch`` rows,
+    default the cell's global batch; this rank's heads at ``tp``): K/V
+    in the model dtype (``cfg.dtype``), the recurrent states in float32,
+    as the reference's; an encoder–decoder model's also holds
+    ``cross_pos``, the cross decode's query position on the device."""
+    return tf.init_cache(cfg, batch or shape.global_batch, shape.seq_len,
+                         device="meta", tp=tp)

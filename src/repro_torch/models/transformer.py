@@ -513,11 +513,12 @@ class _MatmulF32(torch.autograd.Function):
 
 def _matmul_f32(x, w, cfg):
     """The vocab matmul accumulated and returned in f32 without an f32
-    copy of the weights."""
+    copy of the weights (on the card, and on ``meta``, the dry run's
+    stand-in for it; the CPU has no such matmul)."""
     x = x.to(_torch_dtype(cfg.dtype))
     if w.dtype == torch.float32:
         return x @ w
-    if w.is_cuda:
+    if w.is_cuda or w.is_meta:
         x2 = x.reshape(-1, x.shape[-1])
         out = _MatmulF32.apply(x2, w)
         return out.reshape(*x.shape[:-1], w.shape[-1])

@@ -27,7 +27,12 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.dist import compression, grad_sync
 from repro_torch.dist.mesh import DistMesh, OneCardMesh
-from repro_torch.dist.sharding import model_ctx, param_axes, state_axis
+from repro_torch.dist.sharding import (
+    ShardCtx,
+    model_ctx,
+    param_axes,
+    state_axis,
+)
 from repro_torch.launch import steps
 from repro_torch.models import transformer as tf
 from repro_torch.optim import make_optimizer
@@ -625,4 +630,187 @@ def eval_generate_run(kw, batch, prompts, gen):
     out = {"eval": s.eval_step(batch), "tokens": s.generate(prompts, gen)}
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
+    return out
+
+
+# ----------------------------------------------------------------------
+# shrink where pods and workers are ranks of their own
+# ----------------------------------------------------------------------
+def _gathered_rows(s):
+    """The first EF residual leaf with every pod's row current, full over
+    "model" (collective over the mesh)."""
+    key = leaf_keys(s.params)[0]
+    rows = s._mesh.gather_pod_rows(s.residual[0])
+    return np.array(gather_params({key: rows}, s.cfg, s._ctx,
+                                  {key: s._axes[key]})[key])
+
+
+def shrink_ranks_run(kw, dead_edges=(1,), ck_dir="", params=None,
+                     probe_uneven=False):
+    """A coded_int8 session on hetero(3, 2) in this world: 3 steps,
+    ``dead_edges`` shrunk away (after a refused uneven shrink of worker
+    (0, 1), with ``probe_uneven``), a checkpoint into ``ck_dir`` if
+    given, 3 more steps → this rank's record: whether it retired (then
+    the message its next step raised), else the losses, the first
+    residual leaf's gathered rows before and after the shrink and the
+    full params at the end."""
+    from repro_torch.api import CodedCluster, CodedSession
+
+    s = CodedSession(CodedCluster.hetero(3, 2), f32_cfg("llama3-8b"),
+                     planner="fixed", mode="coded_int8", device="cpu",
+                     verbose=False, checkpoint_dir=ck_dir, params=params,
+                     **kw)
+    layout = (s._mesh.pod_ranks, s._mesh.data_ranks, s._mesh.tp)
+    s.fit(3)
+    out = {"rank": dist.get_rank(), "layout": layout,
+           "before": _gathered_rows(s)}
+    if probe_uneven:
+        try:
+            s.shrink(dead_workers=[(0, 1)])
+        except ValueError as err:
+            out["uneven"] = (str(err), s.cluster.topo.m, s.code.topo.m)
+    plan = s.shrink(dead_edges=list(dead_edges))
+    out["plan_m"] = plan.code.topo.m
+    out["retired"] = s._retired
+    if s._retired:
+        try:
+            s.step()
+        except RuntimeError as err:
+            out["error"] = str(err)
+        return out
+    out["after"] = _gathered_rows(s)
+    out["mesh"] = (s._mesh.ranks, s._mesh.pod_rank, s._mesh.data_rank)
+    if ck_dir:
+        out["ck_path"] = s.save_checkpoint()
+    s.fit(6)
+    out["losses"] = list(s.losses)
+    out["params"] = s.full_params()
+    return out
+
+
+def resume_ranks_run(kw, ck_dir):
+    """A fresh session on the unshrunk hetero(3, 2) cluster that resumes
+    ``ck_dir`` in this (smaller) world and steps to 6 → its losses, the
+    topology it restored, the layout it runs and the full params."""
+    from repro_torch.api import CodedCluster, CodedSession
+
+    s = CodedSession(CodedCluster.hetero(3, 2), f32_cfg("llama3-8b"),
+                     planner="fixed", mode="coded_int8", device="cpu",
+                     verbose=False, checkpoint_dir=ck_dir, resume=True,
+                     **kw)
+    start = s._step
+    s.fit(6)
+    return {"start": start, "losses": list(s.losses),
+            "m": s.cluster.topo.m, "dead_edges": s.cluster.dead_edges,
+            "layout": (s._mesh.pod_ranks, s._mesh.data_ranks, s._mesh.tp),
+            "params": s.full_params()}
+
+
+# ----------------------------------------------------------------------
+# the collectives of one step, tallied
+# ----------------------------------------------------------------------
+TALLY_B, TALLY_S, TALLY_GEN = 2, 16, 2
+
+
+def tally_steps(ctx, device):
+    """The llama3-8b float32 smoke config at ``ctx``'s degree on
+    ``device`` (``meta``: shapes only): a train step (sgd), the same with
+    sequence parallelism, and a served request (bulk prefill and
+    ``TALLY_GEN`` greedy tokens) → name → a function that runs it."""
+    from repro_torch.api import serving
+
+    cfg = f32_cfg("llama3-8b")
+    tcfg = TrainConfig(optimizer="sgd", lr=0.05, warmup_steps=0)
+    gen = None if device == "meta" else torch.Generator().manual_seed(0)
+    params = tf.init_params(cfg, gen, device=device, dtype=torch.float32,
+                            tp=ctx.tp, rank=ctx.rank)
+    rng = np.random.default_rng(1)
+    shape = (TALLY_B, TALLY_S)
+
+    def ids():
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, shape))
+        return t.to(device)
+
+    batch = {"tokens": ids(), "targets": ids(),
+             "weights": torch.ones(shape, device=device)}
+
+    def train(sp):
+        def run():
+            c = dataclasses.replace(ctx, seq_shard=sp)
+            for p in _tree.leaves(params):
+                p.requires_grad_(True)
+            step = steps.make_train_step(cfg, tcfg, ctx=c)
+            step(params, step.optimizer.init(params), batch, 0)
+        return run
+
+    def serve():
+        with torch.no_grad():
+            max_len = TALLY_S + TALLY_GEN + 1
+            serving.token_loop(
+                params, cfg, batch["tokens"], TALLY_GEN,
+                prefill_fn=serving.make_prefill_fn(cfg, max_len, ctx=ctx),
+                decode_fn=serving.make_decode_fn(cfg, ctx=ctx), ctx=ctx)
+
+    return {"train": train(False), "train-sp": train(True), "serve": serve}
+
+
+def tally_run():
+    """Each of :func:`tally_steps` in this world's model axis, its
+    collectives recorded in ``sharding.TALLY`` → name → per kind
+    (count, operand bytes, link bytes)."""
+    from repro_torch.dist import sharding
+
+    out = {}
+    for name, run in tally_steps(model_ctx(dist.get_world_size()),
+                                 "cpu").items():
+        sharding.TALLY = sharding.CollectiveTally()
+        run()
+        out[name] = {k: (v["count"], v["operand_bytes"], v["link_bytes"])
+                     for k, v in sharding.TALLY.by_kind.items()}
+        sharding.TALLY = None
+    return out
+
+
+# ----------------------------------------------------------------------
+# make_train_step's tensor- and data-parallel step (the dry run's)
+# ----------------------------------------------------------------------
+#: case → (data-parallel ranks, sequence parallelism); "model" is 2 ranks
+DP_CASES = {"tp2": (1, False), "tp2-sp": (1, True), "tp2dp2": (2, False)}
+#: no clipping: a clipped step would hide a gradient off by a factor
+DP_TCFG = TrainConfig(optimizer="sgd", lr=0.05, warmup_steps=0,
+                      grad_clip=0.0)
+
+
+def dp_train_run(flat, batch):
+    """One sgd step of ``launch.steps.make_train_step`` per case of
+    :data:`DP_CASES` in a world of 4 ranks, rank 2·d + m at data index d
+    and model index m: the llama3-8b float32 smoke config's slices of
+    ``flat`` under a "model" ctx of 2; at 2 data ranks each takes its
+    half of ``batch``'s rows and the step averages over the data group →
+    case → rank 0's (loss, gathered params)."""
+    cfg = f32_cfg("llama3-8b")
+    r = dist.get_rank()
+    d, m = divmod(r, 2)
+    model_groups = [dist.new_group([2 * i, 2 * i + 1]) for i in range(2)]
+    data_groups = [dist.new_group([j, 2 + j]) for j in range(2)]
+    out = {}
+    for name, (dp, sp) in DP_CASES.items():
+        ctx = ShardCtx(tp=2, rank=m, group=model_groups[d], seq_shard=sp)
+        params = params_from_numpy(shard_params(flat, cfg, 2, m), "cpu")
+        for p in _tree.leaves(params):
+            p.requires_grad_(True)
+        n = len(batch["tokens"]) // dp
+        rows = slice(d * n, (d + 1) * n) if dp > 1 else slice(None)
+        local = {k: torch.from_numpy(np.asarray(v)[rows])
+                 for k, v in batch.items()}
+        local["tokens"], local["targets"] = (local["tokens"].long(),
+                                             local["targets"].long())
+        step = steps.make_train_step(
+            cfg, DP_TCFG, ctx=ctx,
+            dp_group=data_groups[m] if dp > 1 else None)
+        params, _, metrics = step(params, step.optimizer.init(params),
+                                  local, 0)
+        full = gather_params(_flatten(params), cfg, ctx)
+        out[name] = ({"loss": float(metrics["loss"]), "params": full}
+                     if r == 0 else None)
     return out
