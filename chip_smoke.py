@@ -122,8 +122,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      prompt handed off token by token (a self and a cross decode launch
      per layer and token: 48 × (16 + 32)); the profiled whisper request
      16 + 8 tokens, its encoder's device time split out by the launches
-     under its span.  qwen2-vl trained (14 of its 28 layers; phase "pp"
-     trains it whole) in coded_q int8 as granite-moe, twice, bit for
+     under its span.  qwen2-vl trained (14 of its 28 layers, as phase
+     "pp" trains it) in coded_q int8 as granite-moe, twice, bit for
      bit; whisper cut to 2 + 2 layers through
      ``make_train_step`` (adamw, 4 × 64 tokens over 1500 frames): the
      step-0 gradients card against CPU by phase 5's rule (the encoder's
@@ -244,10 +244,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      pipelined dist step on two ranks, the quarter batch tiled over two
      groups with λ = 1/2, against the single-device step on the quarter
      in the parent: losses and gradient norms within ``TP_LOSS_RTOL``.
-     (b) qwen2-vl-2b whole (28 layers, 14 a stage) in coded_q int8 at
-     the phase-6 settings with pp 2 and 2 microbatches, 4 steps (edge 1
-     dropped at step 2), twice: exact launches a step on each rank
-     (flash 8 groups × 2 microbatches × 14 layers × 2 for the remat; the
+     (b) qwen2-vl-2b at 14 of its 28 layers (``PP_VLM_LAYERS``, 7 a
+     stage) in coded_q int8 at the phase-6 settings with pp 2 and 2
+     microbatches, 4 steps (edge 1 dropped at step 2), twice: exact
+     launches a step on each rank (flash 8 groups × 2 microbatches × 7
+     layers × 2 for the remat; the
      int8 combine once per leaf held), finite losses, the step-0 loss
      within 2e-3 · |loss| and steps 1–3 within ``TP_LOSS_RTOL`` of a
      pp-1 session in the parent whose gradient is summed over the same 2
@@ -267,8 +268,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      cut to 2 layers in coded_q int8 at the phase-6 settings (adamw, seq
      512, block 64) on ``CodedCluster.hetero(2, 2)`` with the fixed
      planner, one rank a (pod, data) group: four ranks spawned on the
-     one card over gloo (the reference test's hetero(3, 2) would need
-     ~100 GiB: ``SHRINK_CLUSTER``).  3 steps, then edge 1 shrunk away:
+     one card over gloo (``SHRINK_CLUSTER``), FSDP over each pod's two
+     data ranks (the session's default): each rank's params, adamw state
+     and EF residual (its own pod's row) equal the slice arithmetic's
+     bytes, at construction and after the shrink.  3 steps, then edge 1
+     shrunk away (the state gathered over the old data groups first):
      its two ranks retire (exit 0; a step there raises; the survivors'
      groups never wait on them), and on the 2 survivors each rank's own
      EF residual row (every leaf) equals its row before the shrink bit
@@ -278,9 +282,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      uninterrupted run's bit for bit; every loss within
      ``SHRINK_LOSS_RTOL`` · |loss| of a one-card session (``OneCardMesh``,
      run in the parent while the survivors resume) that shrinks at the
-     same step; exact launches a step on each rank (one
+     same step, and the survivors' gathered params after the last step
+     within ``SHRINK_PARAM_RTOL`` of its params (per leaf, × the leaf's
+     largest |value|); exact launches a step on each rank (one
      ``coded_combine_q`` a param leaf, the flash forward twice a layer);
-     host ms a step before and after the shrink, and peak memory a rank.
+     host ms a step before and after the shrink, and peak memory a rank;
+     rank 0's step ``SHRINK_GATED_STEP`` records its own peak and, under
+     a CPU profile, its ``fsdp.collective`` spans for phase "dryrun".
   dryrun. the dry run's machinery (``api.aot.count_step``, the op
      counter on the meta device) against the card: phase 4's request
      (through ``serving.token_loop``, as the server generates)
@@ -292,9 +300,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      their readings on); phase "tp" (b)'s
      request at tp 2 (8 layers, 8 new tokens) on a counting group: its
      collectives in the prefill and in the decode equal the
-     ``tp.collective`` spans rank 0's profile recorded in each; the
-     predicted compute and memory bounds printed beside each phase's
-     profiled device ms, not gated.
+     ``tp.collective`` spans rank 0's profile recorded in each; phase
+     "shrink"'s rank 0 step on a counting ``DistMesh`` (its FSDP blocks,
+     the transient whole copies, its own EF row): the predicted peak
+     within ``DRY_PEAK_RTOL`` of that step's ``max_memory_allocated``,
+     and the FSDP gathers its data group records equal to the step's
+     ``fsdp.collective`` spans; the predicted compute and memory bounds
+     printed beside each phase's profiled device ms, not gated.
   9. the paper's evaluation path (``simulate_training``): the CNN under
      hgc and the logreg under greedy, 3 iterations at batch 32 per part,
      on the card and on the CPU from the same weights (times equal,
@@ -3246,7 +3258,11 @@ def phase_tp():
 # phase "pp": pipeline parallelism, ranks sharing the card over gloo
 # ----------------------------------------------------------------------
 PP = 2
-PP_VLM = "qwen2-vl-2b"    # (b), (c): trained whole (28 layers, 14 a stage)
+PP_VLM = "qwen2-vl-2b"    # (b), (c): trained at PP_VLM_LAYERS
+#: (b), (c): 14 of qwen2-vl's 28 layers (at 28 the script read 1148.7 s on
+#: an H100, of its 1200 s limit, once phase "shrink" ran FSDP; (c)'s
+#: TP/SP collectives and (b)'s steps shrink with the depth: PERF.md §4)
+PP_VLM_LAYERS = 14
 PP_MICRO = 2              # (b), (c): 4 rows a group, 2 a microbatch
 PP_STEPS = 4              # (b): edge 1 dropped at step 2, twice
 #: (c): one step, once (with M 2 and SP, ~2700 gloo collectives a step
@@ -3471,9 +3487,9 @@ def _pp_profile(session, step):
 
 def _pp_train(rank, ref_dir, tp=1, seq_shard=False, steps=PP_STEPS,
               runs=2, profiled=True):
-    """Rank ``rank``'s coded_q int8 training of qwen2-vl-2b whole at the
-    phase-6 settings with pp 2 (``tp``, ``seq_shard``: composed with TP
-    and SP), ``PP_MICRO`` microbatches, ``steps`` steps with edge 1
+    """Rank ``rank``'s coded_q int8 training of qwen2-vl-2b
+    (``PP_VLM_LAYERS``) at the phase-6 settings with pp 2 (``tp``,
+    ``seq_shard``: composed with TP and SP), ``PP_MICRO`` microbatches, ``steps`` steps with edge 1
     dropped at step 2 (when there is one), ``runs`` times: exact launches
     a step (flash 8 groups × the microbatches × the stage's attention
     layers × 2 for the remat; the int8 combine once per leaf the rank
@@ -3488,7 +3504,7 @@ def _pp_train(rank, ref_dir, tp=1, seq_shard=False, steps=PP_STEPS,
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
 
-    cfg = get_config(PP_VLM)
+    cfg = dataclasses.replace(get_config(PP_VLM), n_layers=PP_VLM_LAYERS)
     totals = {name: 0 for name in ops.KERNELS}
     out = []
     drop = 2
@@ -3596,8 +3612,8 @@ def _pp_rank(ref):
 
 
 def _pp_tp_rank(ref):
-    """One rank of phase "pp" (c): qwen2-vl-2b whole at pp 2 × tp 2 with
-    SP (four ranks), once."""
+    """One rank of phase "pp" (c): qwen2-vl-2b (``PP_VLM_LAYERS``) at pp
+    2 × tp 2 with SP (four ranks), once."""
     import torch
     import torch.distributed as dist
 
@@ -3673,8 +3689,9 @@ def phase_pp():
     the pipelined dist step on two ranks against the single-device step
     in this process (the CPU tests' construction: the quarter tiled over
     2 groups, λ = 1/2): losses and gradient norms within
-    ``TP_LOSS_RTOL``.  (b) qwen2-vl-2b whole in coded_q int8 at the
-    phase-6 settings with pp 2 and 2 microbatches, 4 steps with edge 1
+    ``TP_LOSS_RTOL``.  (b) qwen2-vl-2b (``PP_VLM_LAYERS``) in coded_q
+    int8 at the phase-6 settings with pp 2 and 2 microbatches, 4 steps
+    with edge 1
     dropped at step 2, twice: exact launches a step on each rank, finite
     losses, the step-0 loss within 2e-3 · |loss| of a pp-1 session's in
     this process (its gradient summed over the same row blocks as the
@@ -3704,7 +3721,7 @@ def phase_pp():
     failures = []
     fail = failures.append
     torch.cuda.reset_peak_memory_stats()
-    vlm = get_config(PP_VLM)
+    vlm = dataclasses.replace(get_config(PP_VLM), n_layers=PP_VLM_LAYERS)
     ref_dir = _checkpoint_dir(2 * 4 * sum(
         p.numel() for p in _tree.leaves(tf.init_params(vlm, device="meta"))))
     spawned = {}
@@ -3842,23 +3859,33 @@ def phase_pp():
 # phase "shrink": a pod lost for good where pods and workers are ranks
 # ----------------------------------------------------------------------
 SHRINK_ARCH, SHRINK_LAYERS = "qwen2-vl-2b", 2
-#: CodedCluster.hetero(2, 2): 4 ranks, a (pod, data) group each.  The
-#: reference test's hetero(3, 2) does not fit the card: its 6 ranks ran
-#: out of its memory in their first step (a rank here peaks at 12.61 GiB,
-#: and there each holds a third pod's EF row more; PERF.md §6)
+#: CodedCluster.hetero(2, 2): 4 ranks, a (pod, data) group each, FSDP
+#: over each pod's 2 data ranks (the session's default).  Without FSDP
+#: the reference test's hetero(3, 2) did not fit the card: its 6 ranks
+#: ran out of its memory in their first step (a rank of hetero(2, 2)
+#: peaked at 12.61 GiB; PERF.md §6)
 SHRINK_CLUSTER = (2, 2)
 SHRINK_BEFORE, SHRINK_AFTER = 3, 3   # steps before and after the shrink
 SHRINK_DEAD_EDGE = 1
 #: the ranks' losses against the one-card session's, × |loss| (phase
 #: "tp"'s bound: the pod sums of 3 and 2 ranks run in another order)
 SHRINK_LOSS_RTOL = TP_LOSS_RTOL
+#: the survivors' params after the last step against the one-card
+#: session's, per leaf, × the leaf's largest |value|: FSDP stores blocks
+#: but steps on whole leaves with the fsdp=False arithmetic, and the
+#: losses matched bit for bit without it (PERF.md §6)
+SHRINK_PARAM_RTOL = 1e-6
+#: the step (before the shrink: adamw's moments exist, no first-call
+#: work) whose peak and FSDP gathers rank 0 measures for phase "dryrun"
+SHRINK_GATED_STEP = 2
 
 
 def _shrink_session(device, ck_dir="", resume=False):
     """qwen2-vl-2b at full width cut to 2 layers on ``SHRINK_CLUSTER``
     with the reference test's planner, in coded_q int8 at the phase-6
-    settings: one rank a (pod, data) group in a world of ranks, or every
-    group on one card (``OneCardMesh``) in a single process."""
+    settings: one rank a (pod, data) group in a world of ranks (FSDP
+    over the data ranks), or every group on one card (``OneCardMesh``)
+    in a single process."""
     from repro_torch.api import CodedCluster, CodedSession
     from repro_torch.configs.registry import get_config
 
@@ -3872,24 +3899,73 @@ def _shrink_session(device, ck_dir="", resume=False):
                         **_train_kw())
 
 
-def _shrink_steps(session, n, out):
-    """``n`` steps, each timed (host ms, ending in a synchronize) and its
-    launches exactly one ``coded_combine_q`` a param leaf and the flash
-    forward twice a layer (the remat) for the rank's one group."""
+def _held_bytes(session) -> dict:
+    """The bytes a rank's session holds (params, optimizer state, EF
+    residual rows) and the slice arithmetic's: each leaf's whole size
+    (the params' full shapes, the state made for them on ``meta``) over
+    the data count on a split dim (``state_axis`` for the state), and one
+    pod's row of every leaf for the residual."""
     import torch
 
     from repro_torch import _tree
+    from repro_torch.checkpoint.params import _flatten, _unflatten
+    from repro_torch.dist.sharding import _full_shapes, state_axis
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))
+
+    data = session._data.tp if session._data.active else 1
+    axes = session._data_axes
+    full = {k: torch.empty(v, device="meta")
+            for k, v in _full_shapes(session.cfg).items()}
+    state = _flatten(session._optimizer.init(_unflatten(full)))
+
+    def want(flat, ax_of):
+        return sum(v.numel() * v.element_size()
+                   // (data if ax_of(k) is not None else 1)
+                   for k, v in flat.items())
+
+    return {"held": (nbytes(session.params), nbytes(session.opt_state),
+                     nbytes(session.residual)),
+            "want": (want(full, axes.get),
+                     want(state, lambda k: state_axis(k, axes)),
+                     4 * sum(v.numel() for v in full.values()))}
+
+
+def _shrink_steps(session, n, out, gated=False):
+    """``n`` steps, each timed (host ms, ending in a synchronize) and its
+    launches exactly one ``coded_combine_q`` a param leaf and the flash
+    forward twice a layer (the remat) for the rank's one group.  With
+    ``gated``, step ``SHRINK_GATED_STEP`` also records its own
+    ``max_memory_allocated`` and, under a CPU profile, its
+    ``fsdp.collective`` spans (the FSDP gathers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import _tree
+    from repro_torch.dist.sharding import FSDP_SPAN
     from repro_torch.kernels import ops
 
     want = {"coded_combine_q": len(_tree.leaves(session.params)),
             "flash_attention": 2 * SHRINK_LAYERS}
     for _ in range(n):
         ops.reset_launch_counts()
+        measure = gated and session._step == SHRINK_GATED_STEP
         torch.cuda.synchronize()
+        if measure:
+            torch.cuda.reset_peak_memory_stats()
+            prof = profile(activities=[ProfilerActivity.CPU])
+            prof.__enter__()
         t0 = time.perf_counter()
         session.fit(session._step + 1)
         torch.cuda.synchronize()
         out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        if measure:
+            prof.__exit__(None, None, None)
+            out["step_peak"] = torch.cuda.max_memory_allocated()
+            out["fsdp_spans"] = sum(e.name == FSDP_SPAN
+                                    for e in prof.events())
+            del prof
         got = _nonzero(ops.launch_counts())
         if got != want:
             raise AssertionError(f"shrink step {session._step - 1}: "
@@ -3900,8 +3976,10 @@ def _shrink_steps(session, n, out):
 
 def _shrink_rank(ck_dir):
     """One rank of the world: 3 steps, edge 1 shrunk away, then on the
-    survivors 2 steps, a checkpoint, and the last step.  A dead rank
-    returns right after the shrink.  → this rank's record."""
+    survivors 2 steps, a checkpoint, and the last step; the survivors'
+    first rank writes the gathered params beside the checkpoint.  A dead
+    rank returns right after the shrink.  → this rank's record."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -3909,10 +3987,12 @@ def _shrink_rank(ck_dir):
     torch.cuda.reset_peak_memory_stats()
     s = _shrink_session("cuda", ck_dir)
     out = dict(rank=dist.get_rank(), step_ms=[], counts={},
-               layout=(s._mesh.pod_rank, s._mesh.data_rank))
-    _shrink_steps(s, SHRINK_BEFORE, out)
-    pod = s._mesh.pod_rank
-    before = [r[pod].cpu() for r in s.residual]  # this rank's live row
+               layout=(s._mesh.pod_rank, s._mesh.data_rank),
+               fsdp=s._data.active, bytes=_held_bytes(s))
+    _shrink_steps(s, SHRINK_BEFORE, out, gated=out["rank"] == 0)
+    # this rank's live row (a pod rank holds only its own)
+    before = [r[s._mesh.residual_row(s._mesh.pod_rank)].cpu()
+              for r in s.residual]
     t0 = time.perf_counter()
     s.shrink(dead_edges=[SHRINK_DEAD_EDGE])
     out["shrink_ms"] = 1e3 * (time.perf_counter() - t0)
@@ -3926,9 +4006,11 @@ def _shrink_rank(ck_dir):
         return out
     new_pod = s._mesh.pod_rank
     out["new_layout"] = (new_pod, s._mesh.data_rank)
-    out["rows_equal"] = all(torch.equal(r[new_pod].cpu(), b)
-                            for r, b in zip(s.residual, before))
+    out["rows_equal"] = all(
+        torch.equal(r[s._mesh.residual_row(new_pod)].cpu(), b)
+        for r, b in zip(s.residual, before))
     del before
+    out["bytes_after"] = _held_bytes(s)
     _shrink_steps(s, SHRINK_AFTER - 1, out)
     t0 = time.perf_counter()
     s.save_checkpoint()
@@ -3936,6 +4018,9 @@ def _shrink_rank(ck_dir):
     _shrink_steps(s, 1, out)
     out["losses"] = list(s.losses)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    full = s.full_params()  # collective over the survivors
+    if out["rank"] == s._mesh.ranks[0]:
+        np.savez(Path(ck_dir) / "ranks_params.npz", **full)
     return out
 
 
@@ -3959,8 +4044,9 @@ def _shrink_resume_rank(ck_dir):
 
 def phase_shrink():
     """``CodedSession.shrink`` where pods and workers are ranks of their
-    own (the docstring's phase "shrink").  → the launches of the ranks'
-    counted steps."""
+    own, FSDP over the data ranks (the docstring's phase "shrink").  →
+    (the launches of the ranks' counted steps, rank 0's measured step
+    for phase "dryrun": its ``max_memory_allocated`` and FSDP gathers)."""
     import numpy as np
     import torch
 
@@ -3972,14 +4058,18 @@ def phase_shrink():
     torch.cuda.empty_cache()
     failures = []
     fail = failures.append
+    gib = 2 ** 30
     meta = _shrink_session("meta")
     n_params = sum(p.numel() for p in _tree.leaves(meta.params))
     log(f"[shrink] {SHRINK_ARCH} at full width, {SHRINK_LAYERS} layers: "
         f"{n_params:,} params; hetero{SHRINK_CLUSTER}, K={meta.code.K}, "
-        f"load D={meta.code.load}; coded_q int8, adamw, seq {TRAIN_SEQ}")
+        f"load D={meta.code.load}; coded_q int8, adamw, seq {TRAIN_SEQ}; "
+        f"FSDP over each pod's data ranks")
     del meta
     pods, data = SHRINK_CLUSTER
-    ck = _checkpoint_dir(4 * n_params * (3 + pods - 1))  # + the EF rows
+    # the checkpoint (params, m, v, every pod's EF row) and the ranks'
+    # gathered params
+    ck = _checkpoint_dir(4 * n_params * (4 + pods - 1))
     n_world, n_live = pods * data, (pods - 1) * data
     try:
         t0 = time.perf_counter()
@@ -4007,7 +4097,14 @@ def phase_shrink():
         one.shrink(dead_edges=[SHRINK_DEAD_EDGE])
         one.fit(SHRINK_BEFORE + SHRINK_AFTER)
         want = np.asarray(one.losses)
-        del one
+        ranks_params = np.load(ck / "ranks_params.npz")
+        worst, worst_key = 0.0, ""
+        for k, v in one.full_params().items():
+            off = float(np.abs(ranks_params[k] - v).max()
+                        / max(float(np.abs(v).max()), 1e-30))
+            if off >= worst:
+                worst, worst_key = off, k
+        del one, ranks_params
         gc.collect()
         torch.cuda.empty_cache()
         thread.join()
@@ -4018,6 +4115,28 @@ def phase_shrink():
             f"{n_live}: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(ck, ignore_errors=True)
+    log(f"[shrink] the survivors' params after step "
+        f"{SHRINK_BEFORE + SHRINK_AFTER - 1} against the one-card "
+        f"session's: max |diff| / max |param| {worst:.3g} ({worst_key}; "
+        f"limit {SHRINK_PARAM_RTOL:g})")
+    if not worst <= SHRINK_PARAM_RTOL:
+        fail(f"params off the one-card session's by {worst:.3g} x max "
+             f"|param| ({worst_key})")
+    for o in outs:
+        for when, b in (("built", o["bytes"]),
+                        ("after the shrink", o.get("bytes_after"))):
+            if b is None:
+                continue
+            held, want_b = b["held"], b["want"]
+            log(f"[shrink] rank {o['rank']} {when}: holds params "
+                f"{held[0] / gib:.3f} GiB, adamw state "
+                f"{held[1] / gib:.3f} GiB (slice arithmetic "
+                f"{want_b[0] / gib:.3f}, {want_b[1] / gib:.3f}), EF "
+                f"residual {held[2] / gib:.3f} GiB (one pod's row: "
+                f"{want_b[2] / gib:.3f}); FSDP {o['fsdp']}")
+            if held != want_b or not o["fsdp"]:
+                fail(f"rank {o['rank']} {when}: holds {held} bytes, the "
+                     f"FSDP slice arithmetic gives {want_b}")
     dead = [o for o in outs if o["retired"]]
     live = [o for o in outs if not o["retired"]]
     gone = list(range(SHRINK_DEAD_EDGE * data, (SHRINK_DEAD_EDGE + 1) * data))
@@ -4026,7 +4145,8 @@ def phase_shrink():
     for o in dead:
         log(f"[shrink] rank {o['rank']} (pod {o['layout'][0]}) retired "
             f"after its {SHRINK_BEFORE} steps, exit 0; a step there "
-            f"raises: {o.get('refused', 'NOT RAISED')!r}")
+            f"raises: {o.get('refused', 'NOT RAISED')!r}; peak "
+            f"{o['peak_gib']:.2f} GiB allocated")
         if "refused" not in o:
             fail(f"rank {o['rank']}: a step after retiring did not raise")
     for o in live:
@@ -4037,8 +4157,8 @@ def phase_shrink():
             f"before the shrink {[round(x, 1) for x in before]}, after "
             f"{[round(x, 1) for x in after]}; shrink {o['shrink_ms']:.1f} "
             f"ms; checkpoint {o['save_s']:.1f} s; peak "
-            f"{o['peak_gib']:.2f} GiB allocated; EF rows carried bit for "
-            f"bit: {o['rows_equal']}")
+            f"{o['peak_gib']:.2f} GiB allocated (without FSDP: "
+            f"12.61); EF rows carried bit for bit: {o['rows_equal']}")
         if not o["rows_equal"]:
             fail(f"rank {o['rank']}: its pod's EF residual row changed "
                  f"across the shrink")
@@ -4071,7 +4191,12 @@ def phase_shrink():
         f"{_nonzero(totals)}")
     if failures:
         raise AssertionError("phase shrink: " + "; ".join(failures))
-    return totals
+    rank0 = outs[0]
+    log(f"[shrink] rank 0's step {SHRINK_GATED_STEP}: "
+        f"max_memory_allocated {rank0['step_peak'] / gib:.2f} GiB, "
+        f"{rank0['fsdp_spans']} fsdp.collective spans (profiled)")
+    return totals, {"peak": rank0["step_peak"],
+                    "fsdp_spans": rank0["fsdp_spans"]}
 
 
 # ----------------------------------------------------------------------
@@ -4139,12 +4264,54 @@ def _bound_ms(rec, per=1):
     return 1e3 * r["compute_s"] / per, 1e3 * r["memory_s_pallas"] / per
 
 
-def phase_dryrun(serve, train, spans):
+def _meta_fsdp_step():
+    """Phase "shrink"'s rank 0 step on the meta device: the hetero(2, 2)
+    session's state cut to rank 0's FSDP blocks and its own pod's EF
+    row, its collectives on a counting ``DistMesh`` (the FSDP gathers on
+    a group of their own) → (the counted record, the FSDP gathers'
+    tally)."""
+    from repro_torch import _tree
+    from repro_torch.api import aot
+    from repro_torch.dist import compression, grad_sync
+    from repro_torch.dist import sharding as sh
+    from repro_torch.dist.mesh import DistMesh
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import NVLINK_BW
+
+    s = _shrink_session("meta")
+    pods, data = SHRINK_CLUSTER
+    tally = sh.CollectiveTally()
+    mesh = DistMesh.counting(pods, data, pod_ranks=pods, data_ranks=data,
+                             tally=tally, link=NVLINK_BW)
+    fsdp_tally = sh.CollectiveTally()
+    mesh.data_ctx = dataclasses.replace(mesh.data_ctx, group=dataclasses
+                                        .replace(mesh.data_ctx.group,
+                                                 tally=fsdp_tally))
+    residual = _tree.leaves(compression.init_pod_residuals(
+        s.params, len(mesh.residual_rows())))
+    s._slice_data(mesh.data_ctx)
+    step = steps_lib._make_dist_train_step(s.cfg, s.tcfg, mesh,
+                                           optimizer=s._optimizer)
+    topo = s.cluster.topo
+    fast_e, fast_w = tuple(range(topo.n)), [tuple(range(m))
+                                            for m in topo.m]
+    batch = s._to_device(s.build_batch(fast_e, fast_w))
+    lam = grad_sync.lam_array_from_code(s.code, fast_e, fast_w, topo.n,
+                                        topo.m[0])
+    _, rec = aot.count_step(
+        step, s.params, s.opt_state, batch, lam, residual,
+        SHRINK_GATED_STEP,
+        arguments=(s.params, s.opt_state, batch, residual), tally=tally)
+    return rec, fsdp_tally
+
+
+def phase_dryrun(serve, train, spans, shrink):
     """The dry run's machinery (``api.aot``, ``launch.op_analysis``) on
     the meta device against what phases 4 (``serve``: its peak and
-    device ms), 6 (``train``: the same) and "tp" (``spans``: (b)'s
-    ``tp.collective`` spans a phase) measured (the docstring's phase
-    "dryrun").  No kernel runs: → no launches."""
+    device ms), 6 (``train``: the same), "tp" (``spans``: (b)'s
+    ``tp.collective`` spans a phase) and "shrink" (``shrink``: rank 0's
+    FSDP step's peak and ``fsdp.collective`` spans) measured (the
+    docstring's phase "dryrun").  No kernel runs: → no launches."""
     import torch
 
     from repro_torch.api import aot
@@ -4217,6 +4384,22 @@ def phase_dryrun(serve, train, spans):
             f"spans")
         if n != spans[ph]:
             fail(f"tp {ph}: {n} collectives counted, {spans[ph]} profiled")
+
+    # phase "shrink": rank 0's FSDP step (blocks, whole copies, own row)
+    t0 = time.perf_counter()
+    rec, fsdp_tally = _meta_fsdp_step()
+    log(f"[dryrun] phase shrink's rank 0 FSDP step counted on meta in "
+        f"{time.perf_counter() - t0:.1f} s; collectives "
+        f"{ {k: v['count'] for k, v in rec['collectives'].items() if v['count']} }")
+    gate(f"phase shrink (FSDP rank 0, step {SHRINK_GATED_STEP})", rec,
+         shrink["peak"])
+    n = fsdp_tally.by_kind["all-gather"]["count"]
+    log(f"[dryrun] FSDP gathers over data counted {n} "
+        f"({fsdp_tally.total('operand_bytes') / 2 ** 30:.3f} GiB of "
+        f"blocks); phase shrink rank 0's profile: {shrink['fsdp_spans']} "
+        f"fsdp.collective spans")
+    if n != shrink["fsdp_spans"] or fsdp_tally.total("count") != n:
+        fail(f"FSDP: {n} gathers counted, {shrink['fsdp_spans']} profiled")
     if failures:
         raise AssertionError("phase dryrun: " + "; ".join(failures))
     return {}
@@ -4577,8 +4760,9 @@ def main() -> int:
     orch_counts = phase(phase_orchestrate)
     tp_counts, tp_spans = phase(phase_tp)
     pp_counts = phase(phase_pp)
-    shrink_counts = phase(phase_shrink)
-    phase(phase_dryrun, serve_measured, train_measured, tp_spans)
+    shrink_counts, shrink_measured = phase(phase_shrink)
+    phase(phase_dryrun, serve_measured, train_measured, tp_spans,
+          shrink_measured)
     eval_counts = phase(phase_eval)
     paths = {"archs": archs_counts, "recurrent": rec_counts,
              "encdec_vlm": encdec_counts, "train": train_counts,

@@ -19,9 +19,9 @@ data-parallel, and the batch's rows split over them (a batch smaller
 than that is replicated).  Train cells run ``launch.steps.
 make_train_step`` with the gradients averaged over the data-parallel
 ranks, which the reference's pjit step has XLA insert, recorded as one
-all-reduce a gradient leaf and one for the loss; prefill and decode
-cells run
-``make_prefill_step`` / ``make_serve_step``.
+all-reduce a whole gradient leaf (an FSDP block's: below) and one for
+the loss; prefill and decode cells run ``make_prefill_step`` /
+``make_serve_step``.
 
 Constants are the H100 SXM's (NVIDIA's data sheet): 989e12 bf16 dense
 FLOP/s, 3.35e12 B/s of HBM, NVLink 450e9 B/s each way within a host of 8,
@@ -29,22 +29,30 @@ and the inter-host link ``launch.mesh`` assumes (50e9 B/s a card).
 
 Options, against the reference's:
 
-  * ``fsdp=True`` (the reference's default; its decode cells never
-    shard over "data") on a train or prefill cell, and ``mode=
-    "dp_only"``, need layouts the port does not run (FSDP is XLA's; the
-    port's data parallelism replicates the params): they return
-    ``status: "error"`` naming ROADMAP.md §1; ``moe_ep_axis="data"``
-    likewise: the port's expert parallelism rides the "model" axis;
-  * ``remat``, ``kv_repeat`` (the reference's head padding to 16) and
-    ``seq_shard`` (sequence parallelism on the "model" axis) change what
-    the port runs; ``microbatch`` is the accumulation size of the global
-    batch, so a rank accumulates over ``microbatch / dp`` of its rows;
-  * ``flash``, ``sharded_accum`` and ``remat_policy`` select nothing in
-    the port (its full-sequence attention is always the flash kernel, a
-    rank accumulates its own slices, and remat always recomputes whole
-    layers): their defaults are what it runs, and any other value
-    returns ``status: "error"`` naming ROADMAP.md §1, so a sweep over
-    them writes no record of a step it did not count.
+  * ``fsdp=True`` (the reference's default; decode cells never shard
+    over "data"): train and prefill cells store the params (and the
+    optimizer state) as rank 0's FSDP blocks by the reference's fitted
+    "data" entries (``launch.mesh.fsdp_layout``); the step gathers each
+    split leaf over its ranks once at entry (all-gathers under the
+    ``fsdp.collective`` span), and a train step reduce-scatters the
+    accumulated gradient of a split leaf over them (then all-reduces the
+    block over the other data-parallel ranks) and updates the blocks.
+    The predicted peak holds the blocks and the transient whole copies;
+  * ``mode="dp_only"``: no tensor parallelism, the batch over all ranks,
+    FSDP over "data" and "model" together;
+  * ``moe_ep_axis="data"``: the experts stored over "data" on their
+    expert dim (whole on "model"), gathered like any FSDP leaf;
+  * ``sharded_accum=True``: each microbatch's gradient reduced into the
+    block-shaped float32 accumulator (``launch.steps.make_train_step``);
+  * ``remat``, ``remat_policy`` (``"save_block_outputs"`` keeps each
+    sublayer's post-all-reduce output and recomputes the rest),
+    ``kv_repeat`` (the reference's head padding to 16) and ``seq_shard``
+    (sequence parallelism on the "model" axis) change what the port
+    runs; ``microbatch`` is the accumulation size of the global batch,
+    so a rank accumulates over ``microbatch / dp`` of its rows;
+  * ``flash`` selects nothing: the port's full-sequence attention is
+    always the flash kernel, whose backward recomputes the scores as the
+    reference's ``flash=True`` does.
 """
 from __future__ import annotations
 
@@ -61,18 +69,16 @@ from repro_torch.configs.registry import get_config, shape_applicable
 from repro_torch.dist import sharding as sh
 from repro_torch.launch import op_analysis
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import NVLINK_BW, make_production_mesh
+from repro_torch.launch.mesh import (
+    NVLINK_BW,
+    fsdp_layout,
+    make_production_mesh,
+)
 
 # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = 989e12  # bf16 dense, per card
 HBM_BW = 3.35e12  # bytes/s
 LINK_BW = NVLINK_BW  # bytes/s each way within a host (IB_BW between)
-
-_NOT_TRAINED = ("{what}: the port trains no such layout (its data "
-                "parallelism replicates the params); see ROADMAP.md §1")
-_NO_OPTION = ("{what}: the port has no such option (it runs "
-              "{runs}); see ROADMAP.md §1")
-
 
 def count_step(fn: Callable, *args, arguments: Any = None,
                tally: Optional[sh.CollectiveTally] = None
@@ -131,6 +137,10 @@ def run_cell(
     overrides = {}
     if not remat:
         overrides["remat"] = False
+    if flash:
+        overrides["flash"] = True
+    if remat_policy != "full":
+        overrides["remat_policy"] = remat_policy
     if kv_repeat and cfg.n_kv_heads and cfg.n_heads >= 8:
         # the reference's head alignment to the TP degree: KV heads
         # replicated to 16, Q heads zero-padded to a multiple of 16
@@ -156,53 +166,52 @@ def run_cell(
         "seq_shard": seq_shard,
     }
     try:
-        for what, runs, given in (
-                ("flash=True", "the flash kernel whatever it says",
-                 flash),
-                ("sharded_accum=True", "a rank's own slices",
-                 sharded_accum),
-                (f"remat_policy={remat_policy!r}", "remat of whole layers",
-                 remat_policy != "full")):
-            if given:
-                raise ValueError(_NO_OPTION.format(what=what, runs=runs))
-        if fsdp and shape.kind in ("train", "prefill"):
-            raise ValueError(_NOT_TRAINED.format(
-                what="fsdp=True (params sharded over 'data')"))
-        if mode == "dp_only":
-            raise ValueError(_NOT_TRAINED.format(
-                what="mode='dp_only' (the model axis as data)"))
-        if moe_ep_axis != "model":
-            raise ValueError(_NOT_TRAINED.format(
-                what=f"moe_ep_axis={moe_ep_axis!r} (experts over "
-                     f"{moe_ep_axis!r})"))
-        tp = model_degree(cfg, mesh.shape["model"])
+        if seq_shard and mode == "dp_only":
+            raise ValueError(
+                "seq_shard needs tensor parallelism (mode='dp_only' "
+                "has no model-sharded activations to seq-shard)")
+        if mode not in ("2d", "dp_only"):
+            raise ValueError(f"unknown sharding mode {mode!r}")
+        ep = moe_ep_axis if moe_ep_axis in mesh.shape else "model"
+        tp = 1 if mode == "dp_only" else model_degree(cfg,
+                                                      mesh.shape["model"])
         dp = mesh.size // tp
         if seq_shard:
             sh.validate_seq_shard(cfg, tp, shape.seq_len)
         tally = sh.CollectiveTally()
         tp_group = mesh.counting_group(tuple(range(tp)), tally)
-        dp_group = mesh.counting_group(tuple(range(0, mesh.size, tp)),
-                                          tally)
+        dp_ranks = tuple(range(0, mesh.size, tp))
+        dp_group = mesh.counting_group(dp_ranks, tally)
         ctx = sh.ShardCtx(tp=tp, rank=0, group=tp_group,
                           seq_shard=seq_shard) if tp > 1 else sh.NULL_CTX
+        fsdp_split = None
+        if fsdp and shape.kind in ("train", "prefill"):
+            fsdp_split = fsdp_layout(mesh, cfg, dp_ranks, tally, mode=mode,
+                                     moe_ep_axis=ep)
         rows = max(shape.global_batch // dp, 1)
-        rec.update(tp=tp, dp=dp, rows_per_rank=rows)
+        rec.update(tp=tp, dp=dp, rows_per_rank=rows,
+                   fsdp_leaves=sum(v is not None
+                                   for v in (fsdp_split or {}).values()))
         batch = steps_lib.input_specs(cfg, shape, batch=rows)
         if shape.kind == "train":
             tcfg = TrainConfig(microbatch=max(microbatch // dp, 1)
                                if microbatch else 0)
-            params, opt = steps_lib.abstract_state(cfg, tcfg, tp=tp)
+            params, opt = steps_lib.abstract_state(
+                cfg, tcfg, tp=tp, moe_ep_axis=ep, fsdp=fsdp_split)
             for p in _tree.leaves(params):
                 p.requires_grad_(True)
 
             step = steps_lib.make_train_step(
-                cfg, tcfg, ctx=ctx, dp_group=dp_group if dp > 1 else None)
+                cfg, tcfg, ctx=ctx, dp_group=dp_group if dp > 1 else None,
+                fsdp=fsdp_split, sharded_accum=sharded_accum,
+                moe_ep_axis=ep)
             _, ana = count_step(step, params, opt, _long(batch), 0,
                                 tally=tally)
         else:
-            params = tf_params(cfg, tp)
+            params = tf_params(cfg, tp, moe_ep_axis=ep)
             if shape.kind == "prefill":
-                step = steps_lib.make_prefill_step(cfg, ctx)
+                params = steps_lib.fsdp_blocks(params, fsdp_split)
+                step = steps_lib.make_prefill_step(cfg, ctx, fsdp_split)
                 with torch.no_grad():
                     _, ana = count_step(step, params, _long(batch),
                                         tally=tally)
@@ -251,12 +260,22 @@ def run_cell(
     return rec
 
 
-def tf_params(cfg, tp: int = 1, rank: int = 0):
+def tf_params(cfg, tp: int = 1, rank: int = 0,
+              moe_ep_axis: str = "model"):
     """Serving weights on ``meta``: the working copy in ``cfg.dtype``, as
-    ``launch.serve`` draws them."""
+    ``launch.serve`` draws them (this ``rank``'s slices at ``tp``; the
+    experts whole on "model" with ``moe_ep_axis="data"``)."""
+    from repro_torch.checkpoint.params import (
+        _flatten,
+        _unflatten,
+        shard_array,
+    )
     from repro_torch.models import transformer as tf
 
-    return tf.init_params(cfg, device="meta", tp=tp, rank=rank)
+    axes = sh.param_axes(cfg, tp, moe_ep_axis)
+    return _unflatten({k: shard_array(v, axes[k], tp, rank).clone()
+                       for k, v in _flatten(tf.init_params(
+                           cfg, device="meta")).items()})
 
 
 def roofline_terms(ana: Dict) -> Dict:

@@ -41,6 +41,17 @@ block of the layer-group stacks, each group's rows run as
 checks run at construction, on every replan and on shrink.  ``eval_step``
 and ``generate`` of a pp > 1 session gather the whole model first.
 
+Where the data ranks are ranks of their own (``data_ranks = data > 1``)
+and ``fsdp`` is on (the reference's ``TrainConfig.fsdp`` default), each
+rank holds only its FSDP blocks of the params and the optimizer state
+(``dist.sharding.data_axes``: the reference's fitted "data" entries);
+the step gathers the whole leaves and updates the blocks, and every
+reader of whole params (``full_params``, ``eval_step``, ``generate``,
+checkpoints, which keep the pp-1/tp-1 whole format) gathers them over
+the data group first.  ``shrink`` gathers them over the old data group
+before any rank retires and cuts them again for the survivors.  A rank
+of a pod-ranks layout holds only its own pod's EF residual row.
+
 Quickstart::
 
     from repro_torch.api import CodedCluster, CodedSession
@@ -82,6 +93,8 @@ from repro_torch.data.pipeline import TokenStream
 from repro_torch.dist.elastic import Plan, price_tolerance
 from repro_torch.dist.sharding import (
     NULL_CTX,
+    data_axes,
+    fsdp_block,
     model_ctx,
     param_axes,
     stage_axes,
@@ -190,7 +203,9 @@ class CodedSession:
     (``checkpoint.params``) — e.g. the reference session's own initial
     params; None draws them from ``seed`` (the port's initializer, not
     the reference's).  A resumed session takes its weights from the
-    checkpoint instead.
+    checkpoint instead.  ``fsdp`` (``TrainConfig.fsdp``, the reference's
+    default) stores the params and the optimizer state as FSDP blocks
+    where the data ranks are ranks of their own (no effect elsewhere).
     """
 
     def __init__(
@@ -223,6 +238,7 @@ class CodedSession:
         log_every: int = 10,
         verbose: bool = True,
         params: Optional[Dict[str, np.ndarray]] = None,
+        fsdp: bool = True,
         device="cuda",
     ):
         if mode not in MODES:
@@ -319,6 +335,11 @@ class CodedSession:
         #: the coded MoE steps' aux losses, of this process's steps
         self.aux_losses: List[float] = []
         self._serve_cache: Dict = {}
+        #: the FSDP context over this rank's data group (inactive: the
+        #: params and the state are whole over "data") and each param
+        #: leaf's "data" dim
+        self._data = NULL_CTX
+        self._data_axes: Dict[str, Optional[int]] = {}
 
         if params is not None:
             self.params = params_from_numpy(
@@ -375,6 +396,7 @@ class CodedSession:
             grad_compression_block=grad_block,
             seq_shard_activations=self.seq_shard,
             pp_stages=self.pp, microbatches=self.microbatches,
+            fsdp=bool(fsdp),
         )
 
         # ---- data: one resumable stream per dataset part -------------
@@ -400,21 +422,67 @@ class CodedSession:
     # ------------------------------------------------------------------
     # restore
     # ------------------------------------------------------------------
-    def _split_axes(self, flat, state: bool):
-        """(the "model" axes, the stage axes) of ``flat``'s keys: the
-        params', or with ``state`` an optimizer state's (``state_axis``
-        of the params')."""
-        if not state:
-            return self._axes, self._st_axes
-        return ({k: state_axis(k, self._axes) for k in flat},
-                {k: state_axis(k, self._st_axes) for k in flat})
+    def _split_axes(self, flat, kind: str = "params"):
+        """(the "model" axes, the stage axes, the FSDP "data" axes) of
+        ``flat``'s keys: the params', an optimizer state's (``kind=
+        "state"``: ``state_axis`` of the params') or the EF residual's
+        (``"residual"``: the params' model and stage axes, whole over
+        "data")."""
+        if kind == "params":
+            return self._axes, self._st_axes, self._data_axes
+        if kind == "residual":
+            return self._axes, self._st_axes, {}
+        return tuple({k: state_axis(k, a) for k in flat}
+                     for a in (self._axes, self._st_axes, self._data_axes))
 
-    def _my_slices(self, flat, state: bool = False):
+    def _my_slices(self, flat, kind: str = "params"):
         """This rank's slices of full flat-key arrays: the "model" axis
-        (tp), then the stage's block (pp)."""
-        axes, st = self._split_axes(flat, state)
+        (tp), then the stage's block (pp); whole over "data" (the train
+        step's setup cuts the FSDP blocks)."""
+        axes, st, _ = self._split_axes(flat, kind)
         return shard_params(flat, self.cfg, self.tp, self.model_rank, axes,
                             pp=self.pp, stage=self.stage, stage_axes=st)
+
+    def _data_map(self, tree, kind: str, fn):
+        """``tree`` (the params or the optimizer state) with ``fn(leaf,
+        its "data" dim)`` in place of each leaf the FSDP layout splits."""
+        flat = _flatten(tree)
+        axes = self._split_axes(flat, kind)[2]
+        return _unflatten({k: v if axes.get(k) is None else fn(v, axes[k])
+                           for k, v in flat.items()})
+
+    def _slice_data(self, data) -> None:
+        """Cut the params and the optimizer state, whole over "data", to
+        this rank's FSDP blocks over ``data`` (an inactive context: leave
+        them whole)."""
+        if not data.active:
+            return
+        self._data, self._data_axes = data, data_axes(self.cfg, data.tp)
+
+        def cut(v, ax):
+            return fsdp_block(v.detach(), ax, data).clone()
+
+        self.params = self._data_map(self.params, "params", cut)
+        self.opt_state = self._data_map(self.opt_state, "state", cut)
+        for p in _tree.leaves(self.params):
+            p.requires_grad_(True)
+
+    def _whole_over_data(self, tree, kind: str = "params"):
+        """``tree``'s leaves whole over "data" (gathered from every data
+        rank's block: collective), as new tensors."""
+        return self._data_map(
+            tree, kind, lambda v, ax: self._data.gather(v.detach(), ax))
+
+    def _unslice_data(self) -> None:
+        """The params and the optimizer state whole over "data" again
+        (collective over the data group)."""
+        if not self._data.active:
+            return
+        self.params = self._whole_over_data(self.params)
+        self.opt_state = self._whole_over_data(self.opt_state, "state")
+        for p in _tree.leaves(self.params):
+            p.requires_grad_(True)
+        self._data, self._data_axes = NULL_CTX, {}
 
     def _resume(self):
         start, state, extra = self.store.restore()
@@ -431,7 +499,7 @@ class CodedSession:
             # freshly initialized state is already right then
             flat = {k: tensor_from_numpy(a, self.device) for k, a in
                     self._my_slices(_flatten(state["opt_state"]),
-                                    state=True).items()}
+                                    "state").items()}
             self.opt_state = _unflatten(flat)
         del state
         cl = extra.get("cluster")
@@ -493,9 +561,11 @@ class CodedSession:
     # ------------------------------------------------------------------
     def _setup_train_step(self):
         """The train step of the mode; in the coded modes the mesh (one
-        card, or the ranks of the world) and the per-pod EF residuals
-        (one list entry per param leaf, in leaf order, this rank's
-        slices under TP)."""
+        card, or the ranks of the world), the per-pod EF residuals (one
+        list entry per param leaf, in leaf order, this rank's slices
+        under TP, the rows of ``mesh.residual_rows()``) and, under FSDP,
+        this rank's blocks of the params and the state (they come in
+        whole over "data")."""
         from repro_torch.launch import steps as steps_lib
 
         topo = self.cluster.topo
@@ -545,12 +615,17 @@ class CodedSession:
                 saved = self._restored_extra.pop("ef_residual")
                 keys = leaf_keys(self.params)
                 mine = self._my_slices(dict(zip(
-                    keys, _tree.leaves_like(saved, self.params))))
-                self.residual = [tensor_from_numpy(mine[k], self.device)
-                                 .float() for k in keys]
+                    keys, _tree.leaves_like(saved, self.params))),
+                    "residual")
+                rows = list(self._mesh.residual_rows())
+                self.residual = [tensor_from_numpy(
+                    np.asarray(mine[k])[rows], self.device).float()
+                    for k in keys]
             else:
-                self.residual = _tree.leaves(
-                    compression.init_pod_residuals(self.params, topo.n))
+                self.residual = _tree.leaves(compression.init_pod_residuals(
+                    self.params, len(self._mesh.residual_rows())))
+        self._slice_data(self._mesh.data_ctx if self.tcfg.fsdp
+                         else NULL_CTX)
         self.train_step = steps_lib._make_dist_train_step(
             self.cfg, self.tcfg, self._mesh, optimizer=self._optimizer)
 
@@ -827,13 +902,18 @@ class CodedSession:
 
             alive = mesh_lib.survivors(self._mesh, dead_edges, dead_workers)
             mesh_lib.subset_group(alive)  # every rank of the world
+            # FSDP: whole over the old data group while its dead ranks
+            # still hold their blocks; the setup cuts them for the new one
+            self._unslice_data()
             if self.rank not in alive:
                 self._retire()
                 return self.plan
             self._ranks = alive
             self.verbose = self._verbose and self.rank == alive[0]
         self._log_shrink()
-        if self.residual:  # surviving pods keep their own rows
+        if self.residual and len(self._mesh.residual_rows()) > 1:
+            # surviving pods keep their own rows (a pod rank holds only
+            # its own)
             idx = torch.as_tensor(keep, device=self.device)
             self.residual = [r.index_select(0, idx) for r in self.residual]
         self._setup_train_step()
@@ -854,6 +934,7 @@ class CodedSession:
         self.train_step = None
         self.params = self.opt_state = None
         self.residual = []
+        self._data, self._data_axes = NULL_CTX, {}
 
     # ------------------------------------------------------------------
     # checkpointing / reporting
@@ -887,26 +968,28 @@ class CodedSession:
             "cluster": cluster_state,
         }
 
-    def _gather(self, flat, state: bool = False) -> Dict[str, np.ndarray]:
-        """The full arrays of every rank's flat-key slices, over "model"
-        and "stage" (collective)."""
-        axes, st = self._split_axes(flat, state)
+    def _gather(self, flat, kind: str = "params") -> Dict[str, np.ndarray]:
+        """The full arrays of every rank's flat-key slices, over "model",
+        "stage" and the FSDP "data" (collective)."""
+        axes, st, data = self._split_axes(flat, kind)
         return gather_params(flat, self.cfg, self._ctx, axes,
-                             getattr(self._mesh, "stage_ctx", None), st)
+                             getattr(self._mesh, "stage_ctx", None), st,
+                             self._data, data)
 
     def _save_gathered(self, step: int) -> str:
         """The checkpoint of a session over ranks: every rank gathers the
-        full arrays (params, optimizer state, EF residual rows, one leaf
-        at a time), the mesh's first rank writes them in the pp-1/tp-1
-        format, and every rank returns once the file is in place."""
+        full arrays (params, optimizer state, every pod's EF residual
+        row, one leaf at a time), the mesh's first rank writes them in the
+        pp-1/tp-1 format, and every rank returns once the file is in
+        place."""
         params = self._gather(_flatten(self.params))
-        opt = self._gather(_flatten(self.opt_state), state=True)
+        opt = self._gather(_flatten(self.opt_state), "state")
         extra = self._extra_state()
         if self.tcfg.grad_compression != "none":
             keys = leaf_keys(self.params)
             rows = {k: self._mesh.gather_pod_rows(r)
                     for k, r in zip(keys, self.residual)}
-            extra["ef_residual"] = self._gather(rows)
+            extra["ef_residual"] = self._gather(rows, "residual")
         path = ""
         ranks = self._mesh.ranks if self._mesh is not None else (0,)
         if self.rank == ranks[0]:
@@ -916,16 +999,17 @@ class CodedSession:
         return path
 
     def full_params(self) -> Dict[str, np.ndarray]:
-        """The params as full host arrays by flat key (under TP and PP
-        gathered from every rank: collective)."""
+        """The params as full host arrays by flat key (under TP, PP and
+        FSDP gathered from every rank: collective)."""
         return self._gather(_flatten(self.params))
 
     def _whole_params(self):
-        """The params the forward needs: this rank's, or under PP the
-        whole layer stacks (gathered over "stage": collective) at this
-        rank's "model" slices."""
+        """The params the forward needs: this rank's, whole over "data"
+        under FSDP (gathered: collective), or under PP the whole layer
+        stacks (gathered over "stage" too) at this rank's "model"
+        slices."""
         if self.pp == 1:
-            return self.params
+            return self._whole_over_data(self.params)
         return params_from_numpy(
             shard_params(self.full_params(), self.cfg, self.tp,
                          self.model_rank, self._axes), self.device)

@@ -15,7 +15,10 @@ arrays from every rank's, both by flat key, so a checkpoint holds the
 full arrays whatever the degree that wrote it.  Under pipeline
 parallelism a rank's ``groups`` leaves are also its stage's block of
 their leading axis (``dist.sharding.stage_axes``): both cut and gather
-that axis too (``pp``/``stage``, ``stage``/``stage_axes``).
+that axis too (``pp``/``stage``, ``stage``/``stage_axes``); under FSDP
+a leaf is also a data rank's block on its "data" dim
+(``dist.sharding.data_axes``; ``data``/``data_rank``, ``data``/
+``data_axes``).
 """
 from __future__ import annotations
 
@@ -135,43 +138,56 @@ def shard_array(arr, axis: Optional[int], tp: int, rank: int):
 def shard_params(flat_np: Dict[str, np.ndarray], cfg, tp: int, rank: int,
                  axes: Optional[Dict[str, Optional[int]]] = None, *,
                  pp: int = 1, stage: int = 0,
-                 stage_axes: Optional[Dict[str, Optional[int]]] = None
+                 stage_axes: Optional[Dict[str, Optional[int]]] = None,
+                 data: int = 1, data_rank: int = 0,
+                 data_axes: Optional[Dict[str, Optional[int]]] = None
                  ) -> Dict[str, np.ndarray]:
     """Rank ``rank``'s slices of full flat-key arrays (params, or any
     tree whose keys ``axes`` maps; default the params' axes of ``cfg`` at
-    ``tp``), and with ``pp > 1`` stage ``stage``'s block of them
-    (``stage_axes``, default the params' of ``cfg``) → flat ``{key:
-    array}``."""
+    ``tp``), with ``pp > 1`` stage ``stage``'s block of them
+    (``stage_axes``, default the params' of ``cfg``), and with ``data >
+    1`` data rank ``data_rank``'s FSDP block (``data_axes``, default the
+    params' of ``cfg``) → flat ``{key: array}``."""
     from repro_torch.dist import sharding
 
     axes = sharding.param_axes(cfg, tp) if axes is None else axes
     if pp > 1 and stage_axes is None:
         stage_axes = sharding.stage_axes(cfg, pp)
-    return {k: shard_array(shard_array(v, axes.get(k), tp, rank),
-                           (stage_axes or {}).get(k), pp, stage)
-            for k, v in flat_np.items()}
+    if data > 1 and data_axes is None:
+        data_axes = sharding.data_axes(cfg, data)
+    return {k: shard_array(shard_array(shard_array(
+        v, axes.get(k), tp, rank), (stage_axes or {}).get(k), pp, stage),
+        (data_axes or {}).get(k), data, data_rank)
+        for k, v in flat_np.items()}
 
 
 def gather_params(flat: Dict[str, torch.Tensor], cfg, ctx,
                   axes: Optional[Dict[str, Optional[int]]] = None,
                   stage=None,
-                  stage_axes: Optional[Dict[str, Optional[int]]] = None
+                  stage_axes: Optional[Dict[str, Optional[int]]] = None,
+                  data=None,
+                  data_axes: Optional[Dict[str, Optional[int]]] = None
                   ) -> Dict[str, np.ndarray]:
     """The full arrays of every rank's flat-key slices (collective over
-    ``ctx``'s group, and ``stage``'s, the "stage" context, when it is
-    active: every rank calls it with the same keys) → flat ``{key:
-    full}`` host numpy arrays (bfloat16 as float32), gathered one leaf
-    at a time."""
+    ``ctx``'s group, and ``stage``'s and ``data``'s, the "stage" and the
+    FSDP contexts, when they are active: every rank calls it with the
+    same keys) → flat ``{key: full}`` host numpy arrays (bfloat16 as
+    float32), gathered one leaf at a time."""
     from repro_torch.dist import sharding
 
     axes = sharding.param_axes(cfg, ctx.tp) if axes is None else axes
     staged = stage is not None and stage.active
     if staged and stage_axes is None:
         stage_axes = sharding.stage_axes(cfg, stage.tp)
+    fsdp = data is not None and data.active
+    if fsdp and data_axes is None:
+        data_axes = sharding.data_axes(cfg, data.tp)
     out = {}
     for k, v in flat.items():
         ax = axes.get(k)
         full = v.detach()
+        if fsdp and data_axes.get(k) is not None:
+            full = data.gather(full, data_axes[k])
         if ax is not None and ctx.active:
             full = ctx.gather(full, ax)
         if staged and stage_axes.get(k) is not None:

@@ -99,11 +99,11 @@ def compressed_coded_psum(mesh, group_fn: GroupFn, lam,
     each pod's payload is gathered into its row of ``(n_pods, payload)``
     and combined through the matching fused dequant kernel with unit
     coefficients (eq. 27 over quantized payloads).  ``residual`` leaves
-    are ``(n_pods, *leaf.shape)`` float32 and are updated in place to
-    what the payload failed to carry (EF-SGD: transmitted values
-    telescope).  A process encodes only its own pods' partials (its
-    rows of ``residual``); the all-gather fills the other rows of the
-    payload.  Returns ``(decoded leaves, Σ_ij λ_ij · loss_ij)``.
+    are ``(rows, *leaf.shape)`` float32, one row for each pod of
+    ``mesh.residual_rows()`` (every pod's, or a pod rank's own), and are
+    updated in place to what the payload failed to carry (EF-SGD:
+    transmitted values telescope).  A process encodes only its own pods'
+    partials; the all-gather fills the other rows of the payload.  Returns ``(decoded leaves, Σ_ij λ_ij · loss_ij)``.
     """
     qbuf: List[torch.Tensor] = []  # per leaf (n_pods, payload)
     sbuf: List[torch.Tensor] = []  # per leaf (n_pods, n_blocks)
@@ -119,7 +119,8 @@ def compressed_coded_psum(mesh, group_fn: GroupFn, lam,
                              f"gradients {len(part)}")
         shapes = [y.shape for y in part]
         for n, r in enumerate(residual):
-            q, s = _encode_hop(part[n], r[pod], block, mode)
+            q, s = _encode_hop(part[n], r[mesh.residual_row(pod)], block,
+                               mode)
             part[n] = None  # one pod's f32 partial alive at a time
             if len(qbuf) == n:
                 qbuf.append(q.new_empty((mesh.pods,) + tuple(q.shape)))

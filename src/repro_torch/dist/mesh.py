@@ -39,6 +39,16 @@ A mesh may span a subset of the world (``ranks``): after
 ``CodedSession.shrink`` the survivors of a dead pod or worker run on,
 and its ranks retire.  Rank and group numbers are then counted within
 the subset (:func:`survivors`, :func:`subset_group`).
+
+Where the data ranks are ranks of their own (``data_ranks = data > 1``)
+``data_ctx`` is the :class:`~repro_torch.dist.sharding.ShardCtx` over a
+rank's data group (span ``fsdp.collective``): FSDP stores the params
+split over it.  Where the pods are (``pod_ranks = pods``) a rank holds
+only its own pod's EF residual row (:meth:`residual_rows`), as the
+reference's ``P("pod", …)`` layout does; :meth:`gather_pod_rows` brings
+every pod's together.  :meth:`DistMesh.counting` builds one rank's mesh
+over counting groups (``dist.sharding.CountingGroup``) with no world:
+the dry run of a rank's coded step.
 """
 from __future__ import annotations
 
@@ -49,8 +59,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.dist.sharding import (
+    FSDP_SPAN,
     NULL_CTX,
     PP_SPAN,
+    CollectiveTally,
+    CountingGroup,
     ShardCtx,
     all_reduce,
     gather_rows,
@@ -67,7 +80,7 @@ class OneCardMesh:
     device of the batch the step is given).  One stage: ``pp`` 1."""
 
     pp, stage = 1, 0
-    stage_ctx = NULL_CTX
+    stage_ctx = data_ctx = NULL_CTX
 
     def __init__(self, pods: int, data: int):
         if pods < 1 or data < 1:
@@ -141,9 +154,18 @@ class OneCardMesh:
         """Sums over pods held by other processes: none here."""
         return tensors
 
+    def residual_rows(self) -> Sequence[int]:
+        """The pods whose EF residual rows this process holds, in row
+        order: all of them."""
+        return range(self.pods)
+
+    def residual_row(self, pod: int) -> int:
+        """Pod ``pod``'s row in this process's residual leaves."""
+        return list(self.residual_rows()).index(pod)
+
     def gather_pod_rows(self, rows: torch.Tensor) -> torch.Tensor:
-        """A per-pod ``(n_pods, …)`` array (the EF residual) with every
-        pod's row current: here every row is this process's own."""
+        """The ``(n_pods, …)`` array of every pod's EF residual row, from
+        this process's rows: here they are all of them."""
         return rows
 
 
@@ -159,13 +181,14 @@ def _group(ranks: Sequence[int]):
     return _GROUPS[key]
 
 
-def _axis_groups(rank_lists: List[List[int]]) -> Dict[int, object]:
-    """One process group per member list, made by every rank of the mesh
-    in the same order (``new_group`` names a group by a per-process
-    count) → rank → its group."""
+def _axis_groups(rank_lists: List[List[int]], make=_group
+                 ) -> Dict[int, object]:
+    """One process group per member list (``make(ranks)``), made by every
+    rank of the mesh in the same order (``new_group`` names a group by a
+    per-process count) → rank → its group."""
     out = {}
     for ranks in rank_lists:
-        g = _group(ranks)
+        g = make(ranks)
         for r in ranks:
             out[r] = g
     return out
@@ -224,7 +247,7 @@ class DistMesh(OneCardMesh):
 
     def __init__(self, pods: int, data: int, tp: int = 1, *,
                  pod_ranks: int = 1, data_ranks: int = 1, stages: int = 1,
-                 ranks: Optional[Sequence[int]] = None):
+                 ranks: Optional[Sequence[int]] = None, _counting=None):
         super().__init__(pods, data)
         if (pod_ranks, data_ranks) not in ((1, 1), (self.pods, self.data)) \
                 or tp < 1 or stages < 1:
@@ -233,18 +256,28 @@ class DistMesh(OneCardMesh):
                 f"{tp}) for ({self.pods} x {self.data}) groups: (pod, "
                 f"data) ranks must be (1, 1) or ({self.pods}, {self.data})")
         world = stages * pod_ranks * data_ranks * tp
-        have = dist.get_world_size() if dist.is_initialized() else 1
-        ranks = tuple(range(have) if ranks is None else ranks)
-        if not dist.is_initialized() or len(ranks) != world:
-            raise ValueError(
-                f"mesh of " + (f"{stages} x " if stages > 1 else "")
-                + f"{pod_ranks} x {data_ranks} x {tp} ranks needs a world "
-                f"of {world}, this one has {len(ranks)}")
+        make = _group
+        if _counting is not None:  # the dry run: no world
+            rank, tally, link = _counting
+            ranks = tuple(range(world))
+
+            def make(rs):
+                return CountingGroup(len(rs), tuple(rs), link, tally)
+
+            self.group, self.global_rank = make(ranks), ranks[rank]
+        else:
+            have = dist.get_world_size() if dist.is_initialized() else 1
+            ranks = tuple(range(have) if ranks is None else ranks)
+            if not dist.is_initialized() or len(ranks) != world:
+                raise ValueError(
+                    f"mesh of " + (f"{stages} x " if stages > 1 else "")
+                    + f"{pod_ranks} x {data_ranks} x {tp} ranks needs a "
+                    f"world of {world}, this one has {len(ranks)}")
+            self.group = subset_group(ranks)
+            self.global_rank = dist.get_rank()
         self.tp, self.pod_ranks, self.data_ranks = tp, pod_ranks, data_ranks
         self.pp = stages
         self.ranks = ranks
-        self.group = subset_group(ranks)
-        self.global_rank = dist.get_rank()
         v = ranks.index(self.global_rank)  # this rank within the mesh
         self.model_rank = v % tp
         self.data_rank = (v // tp) % data_ranks
@@ -258,27 +291,32 @@ class DistMesh(OneCardMesh):
             return ranks[((s * pod_ranks + p) * data_ranks + d) * tp + m]
 
         model = _axis_groups([[at(s, p, d, m) for m in M] for s in S
-                              for p in P for d in D]) if tp > 1 else {}
+                              for p in P for d in D], make) if tp > 1 else {}
         self._data_group = _axis_groups(
-            [[at(s, p, d, m) for d in D] for s in S for p in P for m in M]
-        ).get(rank) if data_ranks > 1 else None
+            [[at(s, p, d, m) for d in D] for s in S for p in P for m in M],
+            make).get(rank) if data_ranks > 1 else None
         self._pod_group = _axis_groups(
-            [[at(s, p, d, m) for p in P] for s in S for d in D for m in M]
-        ).get(rank) if pod_ranks > 1 else None
+            [[at(s, p, d, m) for p in P] for s in S for d in D for m in M],
+            make).get(rank) if pod_ranks > 1 else None
         self.ctx = ShardCtx(tp=tp, rank=self.model_rank,
                             group=model.get(rank))
+        self.data_ctx = NULL_CTX
+        if data_ranks > 1:
+            self.data_ctx = ShardCtx(tp=data_ranks, rank=self.data_rank,
+                                     group=self._data_group, span=FSDP_SPAN)
         self.stage_ctx = NULL_CTX
         self._prev = self._next = None  # (peer rank, pair group)
         if stages > 1:
             coords = [(p, d, m) for p in P for d in D for m in M]
-            stage = _axis_groups([[at(s, *c) for s in S] for c in coords])
+            stage = _axis_groups([[at(s, *c) for s in S] for c in coords],
+                                 make)
             self.stage_ctx = ShardCtx(tp=stages, rank=self.stage,
                                       group=stage[rank], span=PP_SPAN)
             # every rank makes the pair groups in one order: stage pair
             # (s, s + 1) at each (pod, data, model) coordinate
             for s in range(stages - 1):
                 pairs = _axis_groups([[at(s, *c), at(s + 1, *c)]
-                                      for c in coords])
+                                      for c in coords], make)
                 step = tp * data_ranks * pod_ranks
                 if self.stage == s:
                     self._next = (ranks[v + step], pairs[rank])
@@ -308,6 +346,18 @@ class DistMesh(OneCardMesh):
             + (f", pp={pp}" if pp > 1 else "")
             + f" leaves {n} ranks for ({pods} x {data}) groups: 1 or "
             f"{pods * data} fit")
+
+    @classmethod
+    def counting(cls, pods: int, data: int, tp: int = 1, *,
+                 pod_ranks: int = 1, data_ranks: int = 1, stages: int = 1,
+                 rank: int = 0, tally: Optional[CollectiveTally] = None,
+                 link: float = 0.0) -> "DistMesh":
+        """Rank ``rank``'s mesh over counting groups in ``tally``, each on
+        a link of ``link`` bytes/s (no world: the dry run of one rank's
+        coded step on the ``meta`` device)."""
+        return cls(pods, data, tp, pod_ranks=pod_ranks,
+                   data_ranks=data_ranks, stages=stages,
+                   _counting=(rank, tally or CollectiveTally(), link))
 
     # ---- the stage handoff (pipeline parallelism) --------------------
     def send_next(self, x: torch.Tensor) -> None:
@@ -351,10 +401,12 @@ class DistMesh(OneCardMesh):
             return tensors
         return [all_reduce(t, self._pod_group) for t in tensors]
 
+    def residual_rows(self):
+        return range(self.pods) if self.pod_ranks == 1 else [self.pod_rank]
+
     def gather_pod_rows(self, rows):
         if self._pod_group is None:
             return rows
-        out = torch.empty_like(rows)
-        gather_rows(out, self.pod_rank, rows[self.pod_rank],
-                    self._pod_group)
+        out = rows.new_empty((self.pods,) + tuple(rows.shape[1:]))
+        gather_rows(out, self.pod_rank, rows[0], self._pod_group)
         return out

@@ -55,14 +55,26 @@ and records itself (kind, operand bytes, link bytes) in the group's
 :class:`CollectiveTally`; with :data:`TALLY` set, the collectives of a
 real world are recorded the same way.
 
-FSDP, the pjit anchors and ``serve_shardings`` are XLA's and have no
-counterpart.
+FSDP over "data" (the reference's default ``fsdp=True``) is the "data"
+entries of the same rule: :func:`fsdp_split` gives the dim a leaf's FSDP
+axis sits on and the axes it spans after fitting (``mode="dp_only"``:
+"data" and "model" together, no TP), :func:`data_axes` the "data" dims
+of a config's leaves; a rank stores its block of each split leaf and
+:func:`fsdp_gather` rebuilds the whole leaves at step entry (the
+``fsdp.collective`` span, :data:`FSDP_SPAN`); :func:`fsdp_block` cuts a
+rank's block back out.  With :class:`BlockOutputs` a rematerialized
+layer keeps the outputs of its sublayers' finishing collectives (the
+reference's ``remat_policy="save_block_outputs"``) and its recompute
+runs none of them.  The pjit anchors and ``serve_shardings`` are XLA's
+and have no counterpart.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import warnings
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -77,6 +89,8 @@ SPAN = "tp.collective"
 #: the span around the pipeline's collectives: the stage handoffs and the
 #: sums over the "stage" axis
 PP_SPAN = "pp.collective"
+#: the span around FSDP's gathers of the params over "data"
+FSDP_SPAN = "fsdp.collective"
 
 
 #: the collectives' kinds, as the reference's HLO names them
@@ -280,17 +294,64 @@ def reduce_scatter(x: torch.Tensor, axis: int, index: int, n: int,
     return full.narrow(axis, index * local, local).contiguous()
 
 
+class BlockOutputs:
+    """The reference's ``remat_policy="save_block_outputs"`` for one
+    rematerialized layer: its original forward keeps the output of each
+    sublayer's finishing collective (a ``psum_scatter`` of a
+    :class:`ShardCtx` with ``block_out``), and its recompute takes them
+    back in order instead of running the collective again, as XLA drops
+    the recomputed all-reduce whose output the policy saved.  The
+    collectives are host calls that no dispatch-level policy can cache
+    (gloo's reduce in place), so the saving happens here, through
+    :meth:`contexts`, a ``context_fn`` of ``torch.utils.checkpoint``."""
+
+    _active = threading.local()
+
+    def __init__(self):
+        self.saved: List[torch.Tensor] = []
+
+    def contexts(self):
+        """(the original forward's context, the recompute's)."""
+        return self._use("save"), self._use("replay")
+
+    @contextlib.contextmanager
+    def _use(self, mode):
+        prev = getattr(BlockOutputs._active, "cur", None)
+        BlockOutputs._active.cur = (self, mode)
+        try:
+            yield
+        finally:
+            BlockOutputs._active.cur = prev
+
+    @staticmethod
+    def finish(x: torch.Tensor, collective) -> torch.Tensor:
+        """``collective(x)`` (a sublayer's finishing collective), saved
+        by the original forward of the active layer and handed back by
+        its recompute; outside such a layer just ``collective(x)``."""
+        cur = getattr(BlockOutputs._active, "cur", None)
+        if cur is None:
+            return collective(x)
+        owner, mode = cur
+        if mode == "replay":
+            return owner.saved.pop(0).detach()
+        out = collective(x)
+        owner.saved.append(out.detach())
+        return out
+
+
 class _PSum(torch.autograd.Function):
     """``psum`` over the model group; its transpose is ``psum`` too."""
 
     @staticmethod
-    def forward(ctx, x, sc):
+    def forward(ctx, x, sc, block=False):
         ctx.sc = sc
+        if block:
+            return BlockOutputs.finish(x, lambda y: all_reduce(y, sc.group))
         return all_reduce(x, sc.group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.sc.group), None
+        return all_reduce(g, ctx.sc.group), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -317,7 +378,11 @@ class _PSumScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sc, axis):
         ctx.sc, ctx.axis = sc, axis % x.ndim
-        return reduce_scatter(x, axis, sc.rank, sc.tp, sc.group)
+
+        def rs(y):
+            return reduce_scatter(y, axis, sc.rank, sc.tp, sc.group)
+
+        return BlockOutputs.finish(x, rs) if sc.block_out else rs(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -364,6 +429,9 @@ class ShardCtx:
     #: the profiler span of its collectives (:data:`PP_SPAN` for a
     #: context over the "stage" axis)
     span: str = SPAN
+    #: its ``psum_scatter`` finishes a sublayer whose output a
+    #: ``save_block_outputs`` remat keeps (:class:`BlockOutputs`)
+    block_out: bool = False
 
     @property
     def active(self) -> bool:
@@ -476,11 +544,12 @@ class ShardCtx:
     def psum_scatter(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
         """Finish a row-parallel matmul: :meth:`psum` under plain TP; under
         SP the reduce-scatter over the sequence axis (the same bytes on
-        the link; the result holds only the local sequence block)."""
+        the link; the result holds only the local sequence block).  With
+        ``block_out`` the output is a sublayer's (:class:`BlockOutputs`)."""
         if not self.active:
             return x
         if not self.seq_shard:
-            return self.psum(x)
+            return _PSum.apply(x, self, self.block_out)
         self._seq_check(x, axis)
         return _PSumScatter.apply(x, self, axis)
 
@@ -595,20 +664,22 @@ _HEAD_OF = {"wq": "q", "wo": "q", "wk": "kv", "wv": "kv"}
 _SSM_HEADS = {"zproj", "xproj", "dtproj", "conv_x_w"}
 
 
-def shard_axis(name: str, shape, cfg, tp: int) -> Optional[int]:
+def shard_axis(name: str, shape, cfg, tp: int,
+               moe_ep_axis: str = "model") -> Optional[int]:
     """The axis (negative) that leaf ``name`` of full ``shape`` is split
     on over ``tp`` "model" ranks, or None when it is replicated.
 
     The reference's ``_param_rule`` with ``head_aligned=True`` on the
-    "model" axis only (the FSDP entries are XLA's), then dropped where
-    the dim does not divide (``fit_spec``): K/V projections replicate
-    when ``n_kv_heads`` does not divide tp, an untied head when the
-    vocabulary does not, the experts (and the router's columns) when
-    ``n_experts`` does not.  1-D vectors (norm scales, biases,
-    ``A_log``, ``D``, ``dt_bias``, ``lam``, ``conv_b``) stay replicated,
-    stacked or not.
+    "model" axis only (the "data" entries are :func:`fsdp_split`'s),
+    then dropped where the dim does not divide (``fit_spec``): K/V
+    projections replicate when ``n_kv_heads`` does not divide tp, an
+    untied head when the vocabulary does not, the experts (and the
+    router's columns) when ``n_experts`` does not.  With ``moe_ep_axis=
+    "data"`` the experts ride "data" and are whole on "model".  1-D
+    vectors (norm scales, biases, ``A_log``, ``D``, ``dt_bias``,
+    ``lam``, ``conv_b``) stay replicated, stacked or not.
     """
-    if tp <= 1:
+    if tp <= 1 or (name in _EXPERT and moe_ep_axis == "data"):
         return None
     nd = len(shape)
     if name in _HEAD_OF:
@@ -638,16 +709,22 @@ def shard_axis(name: str, shape, cfg, tp: int) -> Optional[int]:
     return ax
 
 
-def param_axes(cfg, tp: int) -> Dict[str, Optional[int]]:
-    """:func:`shard_axis` of every param leaf of ``cfg``, by flat key
-    (``checkpoint.params._flatten``'s), from the full shapes (made on
-    the ``meta`` device: no memory)."""
+def _full_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Every param leaf's full shape by flat key
+    (``checkpoint.params._flatten``'s), made on the ``meta`` device."""
     from repro_torch.checkpoint.params import _flatten
     from repro_torch.models import transformer as tf
 
     shapes = tf.init_params(cfg, device="meta", dtype=torch.float32)
-    return {k: shard_axis(k.rsplit("/", 1)[-1], tuple(v.shape), cfg, tp)
-            for k, v in _flatten(shapes).items()}
+    return {k: tuple(v.shape) for k, v in _flatten(shapes).items()}
+
+
+def param_axes(cfg, tp: int, moe_ep_axis: str = "model"
+               ) -> Dict[str, Optional[int]]:
+    """:func:`shard_axis` of every param leaf of ``cfg``, by flat key,
+    from the full shapes."""
+    return {k: shard_axis(k.rsplit("/", 1)[-1], v, cfg, tp, moe_ep_axis)
+            for k, v in _full_shapes(cfg).items()}
 
 
 def model_sharded_mask(cfg, tp: int) -> Dict[str, bool]:
@@ -692,6 +769,90 @@ def state_axis(key: str, axes: Dict[str, Optional[int]]) -> Optional[int]:
         if trail == "vc":
             return None if ax == -2 else (-1 if ax == -1 else ax + 1)
     return None
+
+
+# ----------------------------------------------------------------------
+# FSDP: the "data" entries of the per-leaf rule
+# ----------------------------------------------------------------------
+def fsdp_split(name: str, shape, sizes: Dict[str, int], *,
+               mode: str = "2d", moe_ep_axis: str = "model"
+               ) -> Optional[Tuple[int, Tuple[str, ...]]]:
+    """``(dim, axes)``: the dim (negative) that leaf ``name`` of full
+    ``shape`` stores split over the mesh ``axes`` (sizes by name in
+    ``sizes``), or None when FSDP leaves it whole.
+
+    The FSDP entry of the reference's ``_param_rule``: column-parallel
+    leaves, the embedding table and the head on dim −2, row-parallel
+    ones on −1, the experts on −2, or on their expert dim −3 when they
+    ride "data" (``moe_ep_axis``; TP then leaves them whole); 1-D
+    vectors and conv channels never.  ``mode="2d"`` puts it on "data";
+    ``"dp_only"`` (no TP) on ("data", "model") together.  Then
+    ``fit_spec``'s rule: each axis in turn is kept where the dim divides
+    the product so far (an axis of one rank splits nothing and is
+    dropped too), so a dim that no count divides stays whole."""
+    nd = len(shape)
+    dim = None
+    if name in _EXPERT and nd >= 3:
+        dim = -3 if mode == "2d" and moe_ep_axis == "data" else -2
+    elif name in _COL_PARALLEL and nd >= 2:
+        dim = -2
+    elif name in _ROW_PARALLEL and nd >= 2:
+        dim = -1
+    elif name in ("table", "w") and nd >= 2:
+        dim = -2
+    if dim is None:
+        return None
+    keep, size = [], 1
+    for a in ("data",) if mode == "2d" else ("data", "model"):
+        n = sizes.get(a, 1)
+        if n > 1 and shape[dim] % (size * n) == 0:
+            keep.append(a)
+            size *= n
+    return (dim, tuple(keep)) if keep else None
+
+
+def fsdp_splits(cfg, sizes: Dict[str, int], *, mode: str = "2d",
+                moe_ep_axis: str = "model"
+                ) -> Dict[str, Optional[Tuple[int, Tuple[str, ...]]]]:
+    """:func:`fsdp_split` of every param leaf of ``cfg`` by flat key."""
+    return {k: fsdp_split(k.rsplit("/", 1)[-1], v, sizes, mode=mode,
+                          moe_ep_axis=moe_ep_axis)
+            for k, v in _full_shapes(cfg).items()}
+
+
+def data_axes(cfg, data: int) -> Dict[str, Optional[int]]:
+    """The dim (negative) each param leaf of ``cfg`` stores split over
+    ``data`` "data" ranks (the coded step's FSDP), by flat key; None:
+    whole."""
+    return {k: (s[0] if s else None)
+            for k, s in fsdp_splits(cfg, {"data": data}).items()}
+
+
+def fsdp_block(x: torch.Tensor, axis: Optional[int], c: ShardCtx
+               ) -> torch.Tensor:
+    """This rank's block of ``x`` on ``axis`` over ``c``'s ranks (a
+    view); ``x`` itself when it is not split."""
+    if axis is None or not c.active:
+        return x
+    n = x.shape[axis] // c.tp
+    return x.narrow(axis % x.ndim, c.rank * n, n)
+
+
+def fsdp_gather(leaves: Sequence[torch.Tensor],
+                splits: Sequence[Optional[Tuple[int, ShardCtx]]]
+                ) -> List[torch.Tensor]:
+    """The whole leaves of FSDP-stored ``leaves``: a split one gathered
+    over its ranks (``(axis, ctx)``, the all-gather of the members'
+    blocks: a new tensor, marked to require a gradient like the stored
+    one), a whole one itself."""
+    out = []
+    for p, sp in zip(leaves, splits):
+        if sp is None or not sp[1].active:
+            out.append(p)
+            continue
+        whole = sp[1].gather(p.detach(), sp[0])
+        out.append(whole.requires_grad_(p.requires_grad))
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -758,12 +919,8 @@ def stage_axes(cfg, pp: int) -> Dict[str, Optional[int]]:
     None, replicated.  Negative, so an EF residual's leading pods axis
     and an optimizer state's reduced trailing dims leave it right
     (:func:`state_axis` maps it as it maps a "model" axis)."""
-    from repro_torch.checkpoint.params import _flatten
-    from repro_torch.models import transformer as tf
-
-    shapes = tf.init_params(cfg, device="meta", dtype=torch.float32)
-    return {k: (-v.ndim if pp > 1 and k.startswith("groups/") else None)
-            for k, v in _flatten(shapes).items()}
+    return {k: (-len(v) if pp > 1 and k.startswith("groups/") else None)
+            for k, v in _full_shapes(cfg).items()}
 
 
 def stage_sharded_mask(cfg, pp: int) -> Dict[str, bool]:

@@ -9,11 +9,12 @@ collectives and the roofline, on the 16×16 single-pod layout and the
 ``XLA_FLAGS``.
 
 Usage:
-    python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k \\
-        --no-fsdp
-    python -m repro_torch.launch.dryrun --all --no-fsdp --out results/dryrun
-    python -m repro_torch.launch.dryrun --all --no-fsdp --multi-pod \\
+    python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
+    python -m repro_torch.launch.dryrun --all --out results/dryrun
+    python -m repro_torch.launch.dryrun --all --multi-pod \\
         --out results/dryrun
+    python -m repro_torch.launch.dryrun --arch qwen2-vl-2b --shape train_4k \\
+        --mode dp_only
 """
 import argparse
 import json

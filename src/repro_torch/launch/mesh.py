@@ -13,6 +13,11 @@ Links are H100 SXM hosts of 8 cards: the cards of a host talk over
 NVLink at 450 GB/s each way; hosts talk over InfiniBand, and this
 module ASSUMES one 400 Gb/s port a card (50 GB/s each way), the usual
 DGX H100 build.  A group whose ranks span hosts runs at the slower rate.
+
+:func:`fsdp_layout` gives rank 0's FSDP storage on a layout: each param
+leaf's split dim, the counting group of the ranks it is split across
+("data", or "data" and "model" under ``mode="dp_only"``) and the group
+of the other data-parallel ranks its gradient is summed over.
 """
 from __future__ import annotations
 
@@ -21,9 +26,12 @@ import math
 from typing import Dict, Tuple
 
 from repro_torch.dist.sharding import (
+    FSDP_SPAN,
     HOST_RANKS,
     CollectiveTally,
     CountingGroup,
+    ShardCtx,
+    fsdp_splits,
 )
 
 #: NVLink 4 within a host, bytes/s each way (H100 SXM data sheet)
@@ -85,3 +93,36 @@ def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
         return ProductionMesh({"pod": 2, "data": 16, "model": 16},
                               ("pod", "data", "model"))
     return ProductionMesh({"data": 16, "model": 16}, ("data", "model"))
+
+
+def fsdp_layout(mesh: ProductionMesh, cfg, dp_ranks: Tuple[int, ...],
+                tally: CollectiveTally, *, mode: str = "2d",
+                moe_ep_axis: str = "model") -> Dict:
+    """Rank 0's FSDP storage on ``mesh``: flat key → ``(dim, context,
+    rest)`` (``dist.sharding.fsdp_split``'s dim; the ``ShardCtx`` over
+    the counting group of the ranks the leaf is split across, span
+    ``fsdp.collective``; the counting group of the data-parallel ranks
+    ``dp_ranks`` that hold the same block, or None when there are none
+    but rank 0), or None for a leaf stored whole."""
+    sizes = {a: n for a, n in mesh.shape.items() if a != "pod"}
+    if mode == "2d":
+        sizes.pop("model", None)
+    groups: Dict[Tuple[str, ...], Tuple] = {}
+    out = {}
+    for key, split in fsdp_splits(cfg, sizes, mode=mode,
+                                  moe_ep_axis=moe_ep_axis).items():
+        if split is None:
+            out[key] = None
+            continue
+        dim, axes = split
+        if axes not in groups:
+            ranks = mesh.group_ranks(axes)
+            rest = tuple(r for r in dp_ranks
+                         if all(mesh.coords(r)[a] == 0 for a in axes))
+            groups[axes] = (
+                ShardCtx(tp=len(ranks), rank=0, span=FSDP_SPAN,
+                         group=mesh.counting_group(ranks, tally)),
+                mesh.counting_group(rest, tally) if len(rest) > 1
+                else None)
+        out[key] = (dim,) + groups[axes]
+    return out

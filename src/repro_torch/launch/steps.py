@@ -5,7 +5,8 @@ PyTorch counterpart of ``repro.launch.steps``:
   * :func:`make_train_step` — the single-host step (mode ``off``):
     microbatched gradient accumulation, global-norm clipping, the cosine
     LR schedule and the optimizer update (one data-parallel rank's, with
-    its "model" slices under a ``ctx``: the dry run's step).  The HGC
+    its "model" slices under a ``ctx`` and its FSDP blocks under
+    ``fsdp``: the dry run's step).  The HGC
     hook rides the batch: per-example coded weights (coeff × λ) in
     ``batch["weights"]`` and the fixed ``batch["denom"]`` make the
     gradient the decoded aggregate.
@@ -14,7 +15,8 @@ PyTorch counterpart of ``repro.launch.steps``:
     (``OneCardMesh``) or over ranks with tensor parallelism
     (``DistMesh``): each
     group's gradient of its own coeff-weighted loss IS its message G_ij
-    (eq. 22), decoded by the two-stage λ-weighted sum of
+    (eq. 22; under FSDP from the whole leaves gathered at entry),
+    decoded by the two-stage λ-weighted sum of
     :mod:`repro_torch.dist.grad_sync` (eqs. 25/27), with the quantized +
     error-feedback hop when ``tcfg.grad_compression`` is set.  For MoE
     archs λ is folded into each group's objective and the load-balancing
@@ -23,7 +25,8 @@ PyTorch counterpart of ``repro.launch.steps``:
     parallelism (:func:`_pipeline_grads`).
   * :func:`make_serve_step` and :func:`make_prefill_step` (one decode
     step, the prefill), and the dry run's inputs on the ``meta`` device:
-    :func:`input_specs`, :func:`abstract_state`, :func:`abstract_cache`.
+    :func:`input_specs`, :func:`abstract_state` (with :func:`fsdp_blocks`),
+    :func:`abstract_cache`.
 
 Steps update the params and the optimizer state in place and return
 them.
@@ -43,9 +46,13 @@ from repro_torch.dist.sharding import (
     NULL_CTX,
     ShardCtx,
     all_reduce,
+    data_axes,
+    fsdp_block,
+    fsdp_gather,
     group_size,
     model_sharded_mask,
     param_axes,
+    reduce_scatter,
     seq_sharded_mask,
     stage_axes,
     stage_sharded_mask,
@@ -108,18 +115,32 @@ def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def _finish(params, opt_state, grads, optimizer, tcfg, lr_at, step,
             metrics, ctx: ShardCtx = NULL_CTX, axes=None,
-            stage: ShardCtx = NULL_CTX, st_axes=None):
+            stage: ShardCtx = NULL_CTX, st_axes=None, data=None,
+            whole: bool = False):
     """Clip, schedule and apply the update in place; the shared tail of
     both steps (under TP each rank's slices, the norm and adafactor's
     statistics reduced over "model": ``ctx``, ``axes``; under PP over
-    "stage" too: ``stage``, ``st_axes``).  Returns the metrics."""
+    "stage" too: ``stage``, ``st_axes``).  Under FSDP ``data`` gives each
+    leaf's ``(axis, context)`` (None: whole) and ``params`` and
+    ``opt_state`` are this rank's blocks: with ``whole`` the gradients
+    are whole over the FSDP ranks (the coded step's), clipped as they
+    are and then cut to this rank's blocks, else they are those blocks
+    already.  Returns the metrics."""
     split = dict(ctx=ctx, axes=axes, stage=stage, stage_axes=st_axes)
+    fsdp = data is not None and any(d is not None for d in data)
+    norm_split = dict(split, data=None if whole else data)
     with torch.no_grad():
         if tcfg.grad_clip > 0:
-            clip_by_global_norm_(grads, tcfg.grad_clip, **split)
-        grad_norm = global_norm(grads, **split)
+            clip_by_global_norm_(grads, tcfg.grad_clip, **norm_split)
+        grad_norm = global_norm(grads, **norm_split)
         lr = lr_at(step).to(grads[0].device)
         kw = split if ctx.active or stage.active else {}
+        if fsdp:
+            if whole:  # in place: each whole leaf freed with its block
+                for i, d in enumerate(data):
+                    if d is not None:
+                        grads[i] = fsdp_block(grads[i], *d)
+            kw = dict(kw, data=data)
         optimizer.apply_(grads, opt_state, params, lr, tcfg.weight_decay,
                          **kw)
     metrics = dict(metrics)
@@ -130,7 +151,8 @@ def _finish(params, opt_state, grads, optimizer, tcfg, lr_at, step,
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     optimizer=None, ctx: ShardCtx = NULL_CTX,
-                    dp_group=None) -> Callable:
+                    dp_group=None, fsdp=None, sharded_accum: bool = False,
+                    moe_ep_axis: str = "model") -> Callable:
     """``train_step(params, opt_state, batch, step) → (params, opt_state,
     metrics)``; params and state are updated in place.  The pipeline's
     options (``pp_stages``, ``microbatches``) are the dist step's: one
@@ -138,24 +160,48 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     Under an active ``ctx`` (a "model" axis: tensor parallelism, with
     ``seq_shard`` sequence parallelism) the params are this rank's
-    slices: the gradients go through :func:`tp_correct` and the update
-    reduces over "model".  ``dp_group`` (a process group, or the dry
-    run's ``CountingGroup``) holds the data-parallel ranks, each with its
-    own rows of the global batch: the gradients and the loss are then
+    slices (``dist.sharding.shard_axis`` with ``moe_ep_axis``): the
+    gradients go through :func:`tp_correct` and the update reduces over
+    "model".  ``dp_group`` (a process group, or the dry run's
+    ``CountingGroup``) holds the data-parallel ranks, each with its own
+    rows of the global batch: the gradients and the loss are then
     averaged over it, where the reference's pjit step has XLA insert that
     reduction (the global batch's mean where every rank's rows carry the
-    same weight sum, as the dry run's do)."""
+    same weight sum, as the dry run's do).
+
+    ``fsdp`` (flat key → ``(axis, context, rest)``, or None for a whole
+    leaf) stores the params and the optimizer state as this rank's FSDP
+    blocks: a split leaf is gathered over its context's ranks at entry
+    and its accumulated gradient reduce-scattered over them once (then
+    summed over ``rest``, the other data-parallel ranks: a group, or
+    None), a whole one all-reduced over ``dp_group``; the clip's norm
+    and the update run on the blocks.  ``sharded_accum`` (with
+    microbatches) reduces each microbatch's gradient into a
+    block-shaped float32 accumulator, the reference's
+    ``accum_shardings``."""
     if optimizer is None:
         optimizer = make_optimizer(default_optimizer_name(cfg, tcfg))
     lr_at = cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
-    axes_by_key = mask = None
-    if ctx.active:
-        axes_by_key = param_axes(cfg, ctx.tp)
-        mask = (seq_sharded_mask if ctx.sp else model_sharded_mask)(
-            cfg, ctx.tp)
+    axes_by_key = param_axes(cfg, ctx.tp, moe_ep_axis) if ctx.active \
+        else None
+    micro = bool(tcfg.microbatch and tcfg.microbatch > 0)
+    per_micro = sharded_accum and micro and dp_group is not None
 
-    def grads_of(params, batch):
-        if not (tcfg.microbatch and tcfg.microbatch > 0):
+    def dp_reduce(grads, splits):
+        """The sums over the data-parallel ranks: a split leaf's block of
+        it, a whole leaf whole."""
+        out = []
+        for g, sp in zip(grads, splits):
+            if sp is None:
+                out.append(all_reduce(g, dp_group))
+                continue
+            ax, c, rest = sp
+            g = reduce_scatter(g, ax, c.rank, c.tp, c.group)
+            out.append(g if rest is None else all_reduce(g, rest))
+        return out
+
+    def grads_of(params, batch, each=None):
+        if not micro:
             grads, m = _grads(params, cfg, batch, ctx=ctx)
             return grads, {"loss": m["loss"]}
         B = batch["tokens"].shape[0]
@@ -166,8 +212,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                              f"microbatches of {mb}")
         acc, lsum = None, None
         for i in range(n_micro):
-            micro = _batch_rows(batch, B, slice(i * mb, (i + 1) * mb))
-            g, m = _grads(params, cfg, micro, ctx=ctx)
+            rows = _batch_rows(batch, B, slice(i * mb, (i + 1) * mb))
+            g, m = _grads(params, cfg, rows, ctx=ctx)
+            if each is not None:
+                g = each([x.to(torch.float32) for x in g])
             if acc is None:
                 acc = [x.to(torch.float32) for x in g]
                 lsum = m["loss"]
@@ -175,6 +223,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 for a, x in zip(acc, g):
                     a.add_(x)
                 lsum = lsum + m["loss"]
+            del g
         if "denom" in batch:
             # fixed-denominator (coded) loss: microbatch losses SUM to
             # the full-batch loss — no /n_micro
@@ -182,18 +231,30 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return [a / n_micro for a in acc], {"loss": lsum / n_micro}
 
     def train_step(params, opt_state, batch, step):
-        grads, metrics = grads_of(params, batch)
+        keys = leaf_keys(params)
+        splits = [fsdp.get(k) if fsdp else None for k in keys]
+        data = [None if sp is None else sp[:2] for sp in splits]
+        whole = params
+        if any(splits):
+            whole = _tree.unflatten_like(
+                params, fsdp_gather(_tree.leaves(params), data))
+        each = (lambda g: dp_reduce(g, splits)) if per_micro else None
+        grads, metrics = grads_of(whole, batch, each)
+        del whole
         axes = None
         if ctx.active:
-            keys = leaf_keys(params)
-            grads = tp_correct(grads, [mask[k] for k in keys], ctx)
             axes = [axes_by_key[k] for k in keys]
+            grads = tp_correct(grads, [a is not None for a in axes], ctx)
         if dp_group is not None:
             n = group_size(dp_group)
-            grads = [all_reduce(g, dp_group).div_(n) for g in grads]
+            if not per_micro:
+                grads = dp_reduce(grads, splits)
+            for g in grads:
+                g.div_(n)
             metrics["loss"] = all_reduce(metrics["loss"], dp_group).div_(n)
         metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
-                          step, metrics, ctx, axes)
+                          step, metrics, ctx, axes,
+                          data=data if any(splits) else None)
         return params, opt_state, metrics
 
     train_step.optimizer = optimizer
@@ -266,6 +327,15 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     decode is).  The loss and the aux are then summed over "stage" once.
     At one stage ``tcfg.microbatches`` is ignored, as the reference's
     step ignores it.
+
+    With ``tcfg.fsdp`` on a mesh whose data ranks are ranks of their own
+    (``mesh.data_ctx`` active) the params and the optimizer state are
+    this rank's FSDP blocks (``dist.sharding.data_axes``): the step
+    gathers the whole leaves over "data" at entry, runs the groups, the
+    coded psum, the hop and the clip on whole leaves exactly as without
+    FSDP, and updates only this rank's blocks; the whole copies go when
+    it returns.  FSDP changes where the state lives, not what is
+    computed: sgd, momentum and adamw give the ``fsdp=False`` bits.
     """
     from repro_torch.dist import grad_sync
 
@@ -295,6 +365,8 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     mask = (seq_sharded_mask if ctx.sp else model_sharded_mask)(cfg,
                                                                   ctx.tp)
     stage_mask = stage_sharded_mask(cfg, pp)
+    data = getattr(mesh, "data_ctx", NULL_CTX) if tcfg.fsdp else NULL_CTX
+    data_by_key = data_axes(cfg, data.tp) if data.active else {}
 
     def train_step(params, opt_state, batch, lam, residual, step):
         B = batch["tokens"].shape[0]
@@ -303,6 +375,13 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         st_axes = [stage_by_key[k] for k in keys]
         sharded = [mask[k] for k in keys]
         staged = [stage_mask[k] for k in keys]
+        fsdp = None
+        stored = params
+        if data.active:
+            fsdp = [None if data_by_key[k] is None else (data_by_key[k], data)
+                    for k in keys]
+            params = _tree.unflatten_like(
+                stored, fsdp_gather(_tree.leaves(stored), fsdp))
 
         def group_fn(pod, data):
             rows = mesh.group_rows(pod, data, B)
@@ -349,9 +428,11 @@ def _make_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         loss = stage.reduce_sum(loss)
         metrics = {"loss": loss[0], "aux_loss": loss[1]} if cfg.is_moe \
             else {"loss": loss}
-        metrics = _finish(params, opt_state, grads, optimizer, tcfg, lr_at,
-                          step, metrics, ctx, axes, stage, st_axes)
-        return params, opt_state, residual, metrics
+        del params  # the whole copies, under FSDP
+        metrics = _finish(stored, opt_state, grads, optimizer, tcfg, lr_at,
+                          step, metrics, ctx, axes, stage, st_axes, fsdp,
+                          whole=True)
+        return stored, opt_state, residual, metrics
 
     train_step.optimizer = optimizer
     return train_step
@@ -478,11 +559,19 @@ def make_serve_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX) -> Callable:
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX
-                      ) -> Callable:
-    """prefill_step(params, batch) → (last logits, cache)."""
+def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
+                      fsdp=None) -> Callable:
+    """prefill_step(params, batch) → (last logits, cache).  With ``fsdp``
+    (as :func:`make_train_step`'s) the params are this rank's FSDP
+    blocks, each split leaf gathered once at entry."""
 
     def prefill_step(params, batch):
+        if fsdp:
+            keys = leaf_keys(params)
+            params = _tree.unflatten_like(params, fsdp_gather(
+                _tree.leaves(params),
+                [None if fsdp.get(k) is None else fsdp[k][:2]
+                 for k in keys]))
         logits, cache, _ = tf.forward(
             params, cfg, batch["tokens"],
             positions=batch.get("positions"),
@@ -523,20 +612,43 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, batch: int = 0,
     return {"token": spec((B, 1), i32)}
 
 
+def fsdp_blocks(params: PyTree, fsdp) -> PyTree:
+    """This rank's FSDP blocks of ``params`` (``fsdp`` as
+    :func:`make_train_step`'s), each in a storage of its own (a block of
+    a ``meta`` tensor then counts only its own bytes)."""
+    from repro_torch.checkpoint.params import _flatten, _unflatten
+
+    out = {}
+    for k, v in _flatten(params).items():
+        sp = (fsdp or {}).get(k)
+        out[k] = v if sp is None else fsdp_block(v, *sp[:2]).clone()
+    return _unflatten(out)
+
+
 def abstract_state(cfg: ModelConfig, tcfg: TrainConfig, optimizer=None,
-                   tp: int = 1, rank: int = 0):
+                   tp: int = 1, rank: int = 0, moe_ep_axis: str = "model",
+                   fsdp=None):
     """(params, opt_state) on the ``meta`` device: the reference's
     shapes and dtypes (params in ``cfg.param_dtype``, the norm scales in
-    float32 whatever it says), this ``rank``'s slices at ``tp`` > 1."""
-    from repro_torch.checkpoint.params import _flatten, _unflatten
+    float32 whatever it says), this ``rank``'s slices at ``tp`` > 1 (the
+    experts whole with ``moe_ep_axis="data"``), and with ``fsdp`` its
+    FSDP blocks of those, the optimizer state made on the blocks."""
+    from repro_torch.checkpoint.params import (
+        _flatten,
+        _unflatten,
+        shard_array,
+    )
 
     if optimizer is None:
         optimizer = make_optimizer(default_optimizer_name(cfg, tcfg))
+    axes = param_axes(cfg, tp, moe_ep_axis)
     params = _flatten(tf.init_params(
-        cfg, device="meta", dtype=tf._torch_dtype(cfg.param_dtype), tp=tp,
-        rank=rank))
-    params = _unflatten({k: v.float() if k.endswith("/scale") else v
-                         for k, v in params.items()})
+        cfg, device="meta", dtype=tf._torch_dtype(cfg.param_dtype)))
+    params = _unflatten({
+        k: shard_array(v.float() if k.endswith("/scale") else v,
+                       axes[k], tp, rank).clone()
+        for k, v in params.items()})
+    params = fsdp_blocks(params, fsdp)
     return params, optimizer.init(params)
 
 

@@ -27,7 +27,11 @@ embeddings in the first positions):
     goes through ``models.attention.FlashAttention`` (the flash kernel
     forward, the reference's recompute backward) and each layer is
     rematerialized with ``torch.utils.checkpoint``, as ``_remat_wrap``
-    does with ``jax.checkpoint``.  The pipeline's pieces are
+    does with ``jax.checkpoint``; under ``remat_policy=
+    "save_block_outputs"`` a layer keeps its sublayers' outputs after
+    their finishing collective and its recompute runs none of those
+    (``dist.sharding.BlockOutputs``, the reference's ``_ckpt_name``
+    tags).  The pipeline's pieces are
     :func:`embed_tokens`, :func:`apply_groups` over a stage's block of
     the group stacks and :func:`head_loss_terms` (the rest layers, the
     head and the cross-entropy), as the reference splits them.
@@ -56,16 +60,18 @@ comparison of a local shape with the config's; inactive (tp 1) every
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (
     NULL_CTX,
+    BlockOutputs,
     ShardCtx,
     shard_axis,
     stage_layer_ranges,
@@ -438,14 +444,17 @@ def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
     then ``xattn``)."""
     h = _norm(p["norm1"], x)
     cache_entry: Any = ()
+    # the sublayers whose outputs the reference tags "block_out"
+    block = dataclasses.replace(ctx, block_out=True) \
+        if cfg.remat_policy == "save_block_outputs" and ctx.active else ctx
     if kind in ATTENTION_KINDS or kind == "enc":
-        out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope, ctx=ctx)
+        out, (k, v) = _attn_apply(p["attn"], h, cfg, kind, rope, ctx=block)
         cache_entry = {"k": k.reshape(*k.shape[:2], -1),
                        "v": v.reshape(*v.shape[:2], -1)}
     elif kind == "ssm":
-        out = ssm_lib.ssm_forward(p["ssm"], h, cfg, ctx)
+        out = ssm_lib.ssm_forward(p["ssm"], h, cfg, block)
     else:
-        out = rglru_lib.rglru_block_forward(p["rglru"], h, cfg, ctx)
+        out = rglru_lib.rglru_block_forward(p["rglru"], h, cfg, block)
     x = x + out
     if "xattn" in p and enc_out is not None:
         out, _ = _attn_apply(p["xattn"], _norm(p["norm_x"], x), cfg,
@@ -453,9 +462,18 @@ def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
         x = x + out
     aux = None
     if "norm2" in p:
-        out, aux = _ffn_apply(p, _norm(p["norm2"], x), cfg, ctx)
+        out, aux = _ffn_apply(p, _norm(p["norm2"], x), cfg, block)
         x = x + out
     return x, cache_entry, aux
+
+
+def _remat_context(cfg: ModelConfig):
+    """The ``context_fn`` of a layer's checkpoint: ``"full"`` recomputes
+    everything; ``"save_block_outputs"`` keeps the sublayers' outputs
+    after their finishing collective (:class:`BlockOutputs`)."""
+    if cfg.remat_policy == "save_block_outputs":
+        return BlockOutputs().contexts
+    return noop_context_fn
 
 
 # ----------------------------------------------------------------------
@@ -575,7 +593,8 @@ def _run_layers(items, x, cfg, rope, enc_out, ctx, auxes, cache=None):
     for lp, kind, (part, key), l in items:
         if remat:
             x, aux = checkpoint(_layer_out, lp, x, kind, cfg, rope, enc_out,
-                                ctx, use_reentrant=False)
+                                ctx, use_reentrant=False,
+                                context_fn=_remat_context(cfg))
         else:
             x, entry, aux = _layer_apply(lp, x, kind, cfg, rope, enc_out,
                                          ctx)
@@ -638,7 +657,8 @@ def encode_frames(params: PyTree, cfg: ModelConfig,
         lp = _index(stack, l)
         if _remat(cfg):
             x, _ = checkpoint(_layer_out, lp, x, "enc", cfg, rope, None,
-                              ctx, use_reentrant=False)
+                              ctx, use_reentrant=False,
+                              context_fn=_remat_context(cfg))
         else:
             x = _layer_apply(lp, x, "enc", cfg, rope, ctx=ctx)[0]
     return _norm(params["encoder"]["enc_norm"], x)

@@ -25,7 +25,11 @@ update-RMS clip all-reduce over the sharded axis.  ``ctx`` is the
 axis of each leaf (None: replicated), in leaf order.  Under pipeline
 parallelism ``stage`` (the context over the "stage" group) and
 ``stage_axes`` (the ``groups`` stacks' leading axis) add the same
-reductions over "stage": a leaf may be split on both axes.
+reductions over "stage": a leaf may be split on both axes.  Under FSDP
+``data`` gives each leaf's ``(axis, context)`` over the ranks it is
+stored split across (None: whole): the norm completes each leaf's
+square sum over them first, and adafactor's means over a split dim
+span them.
 """
 from __future__ import annotations
 
@@ -55,13 +59,23 @@ def _active(ctx) -> bool:
 def global_norm(tree: PyTree, ctx=None,
                 axes: Optional[Sequence[Optional[int]]] = None,
                 stage=None,
-                stage_axes: Optional[Sequence[Optional[int]]] = None
-                ) -> torch.Tensor:
+                stage_axes: Optional[Sequence[Optional[int]]] = None,
+                data: Optional[Sequence] = None) -> torch.Tensor:
     """√Σ over every leaf of its square sum; under TP the sharded leaves'
     part is all-reduced over "model" and each replicated leaf counted
-    once, and under PP the stage-split leaves' part over "stage"."""
+    once, and under PP the stage-split leaves' part over "stage".  Under
+    FSDP (``data``) each split leaf's square sum is first summed over its
+    ranks (one all-reduce a context, of the stacked sums)."""
     flat = _tree.leaves(tree)
     sq = [torch.sum(torch.square(x.to(torch.float32))) for x in flat]
+    by_ctx: Dict[int, Tuple[Any, List[int]]] = {}
+    for i, d in enumerate(data or ()):
+        if d is not None and _active(d[1]):
+            by_ctx.setdefault(id(d[1]), (d[1], []))[1].append(i)
+    for c, idx in by_ctx.values():
+        for i, v in zip(idx, c.reduce_sum(torch.stack([sq[i] for i in idx]))
+                        .unbind(0)):
+            sq[i] = v
     if not _active(ctx) and not _active(stage):
         return torch.sqrt(torch.sum(torch.stack(sq)))
     zero = torch.zeros((), dtype=torch.float32, device=flat[0].device)
@@ -92,11 +106,11 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
                          ctx=None, axes=None, stage=None,
-                         stage_axes=None) -> List[torch.Tensor]:
+                         stage_axes=None, data=None) -> List[torch.Tensor]:
     """:func:`clip_by_global_norm` in place on a list of leaves (the same
-    arithmetic, no second copy of the gradient); under TP and PP the
-    norm is the global one (:func:`global_norm`)."""
-    norm = global_norm(grads, ctx, axes, stage, stage_axes)
+    arithmetic, no second copy of the gradient); under TP, PP and FSDP
+    the norm is the global one (:func:`global_norm`)."""
+    norm = global_norm(grads, ctx, axes, stage, stage_axes, data)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))
@@ -119,15 +133,18 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
 
 # ----------------------------------------------------------------------
 class _Split:
-    """How one leaf is split over the "model" ranks (``axis``, ``ctx``)
-    and the "stage" ranks (``stage_axis``, ``stage``), for the
-    reductions of its update: a mean over a split dim is the mean of the
-    ranks' means (equal blocks)."""
+    """How one leaf is split over the "model" ranks (``axis``, ``ctx``),
+    the "stage" ranks (``stage_axis``, ``stage``) and its FSDP ranks
+    (``data``: ``(axis, context)``), for the reductions of its update: a
+    mean over a split dim is the mean of the ranks' means (equal
+    blocks)."""
 
     def __init__(self, axis: Optional[int] = None, ctx=None, ndim: int = 0,
-                 stage_axis: Optional[int] = None, stage=None):
+                 stage_axis: Optional[int] = None, stage=None, data=None):
+        data = data or (None, None)
         self.splits = [(ax % ndim, c) for ax, c in ((axis, ctx),
-                                                    (stage_axis, stage))
+                                                    (stage_axis, stage),
+                                                    data)
                        if ax is not None and _active(c)]
         self.ndim = ndim
 
@@ -191,12 +208,13 @@ def _optimizer(name: str, slots: Tuple[str, ...], init_leaf, leaf,
         return _tree.unflatten_like(params, [u for u, _ in outs]), new_state
 
     def apply_(grads: List, state, params, lr, weight_decay=0.0, *,
-               ctx=None, axes=None, stage=None, stage_axes=None):
+               ctx=None, axes=None, stage=None, stage_axes=None, data=None):
         flat_p, sts, t = _per_leaf(state, params)
         for i, (p, st) in enumerate(zip(flat_p, sts)):
             split = _Split(axes[i] if axes is not None else None, ctx,
                            p.ndim, stage_axes[i] if stage_axes is not None
-                           else None, stage)
+                           else None, stage,
+                           data[i] if data is not None else None)
             u, nst = leaf(grads[i], p, st, lr, weight_decay, t, split)
             # the new state goes into the old tensors, so old and new are
             # never both held beyond one leaf

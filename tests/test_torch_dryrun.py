@@ -56,6 +56,7 @@ from repro_torch.configs.registry import (
     get_smoke_config,
     shape_applicable,
 )
+from repro_torch.dist import sharding
 from repro_torch.kernels import ops
 from repro_torch.launch import steps
 from torch_reference import REPO, few_threads  # noqa: F401 (autouse)
@@ -176,26 +177,43 @@ def _flops(arch):
             pa, ref_steps.abstract_cache(ref_cfg, ref_shapes["decode"]),
             ref_steps.input_specs(ref_cfg, ref_shapes["decode"])["token"]),
     }
+    flash_cfg = dataclasses.replace(ref_cfg, flash=True)
+    lowered["train-flash"] = jax.jit(ref_steps.make_train_step(
+        flash_cfg, ref_base.TrainConfig())).lower(
+        pa, oa, ref_steps.input_specs(flash_cfg, ref_shapes["train"]),
+        jax.ShapeDtypeStruct((), jnp.int32))
     want = {k: _hlo_matmul_flops(v.compile().as_text())
             for k, v in lowered.items()}
-    params, opt = steps.abstract_state(cfg, TrainConfig())
-    for p in _tree.leaves(params):
-        p.requires_grad_(True)
-    _, train = aot.count_step(
-        steps.make_train_step(cfg, TrainConfig()), params, opt,
-        aot._long(steps.input_specs(cfg, shapes["train"])), 0)
+    # FSDP storage over a counting group of 2 data ranks, each rank's
+    # step on the whole batch here: FSDP moves state, not work
+    data = sharding.ShardCtx(tp=2, rank=0, span=sharding.FSDP_SPAN,
+                             group=sharding.CountingGroup(
+                                 2, (0, 1), 0.0, sharding.CollectiveTally()))
+    fsdp = {k: None if sp is None else (sp[0], data, None)
+            for k, sp in sharding.fsdp_splits(cfg, {"data": 2}).items()}
+    recs = {}
+    for name, split in (("train", None), ("train-fsdp", fsdp)):
+        params, opt = steps.abstract_state(cfg, TrainConfig(), fsdp=split)
+        for p in _tree.leaves(params):
+            p.requires_grad_(True)
+        _, recs[name] = aot.count_step(
+            steps.make_train_step(cfg, TrainConfig(), fsdp=split,
+                                  dp_group=None if split is None
+                                  else data.group), params, opt,
+            aot._long(steps.input_specs(cfg, shapes["train"])), 0)
     served = aot.tf_params(cfg)
     with torch.no_grad():
-        _, prefill = aot.count_step(
-            steps.make_prefill_step(cfg), served,
-            aot._long(steps.input_specs(cfg, shapes["prefill"])))
-        _, decode = aot.count_step(
+        for name, split in (("prefill", None), ("prefill-fsdp", fsdp)):
+            _, recs[name] = aot.count_step(
+                steps.make_prefill_step(cfg, fsdp=split),
+                steps.fsdp_blocks(served, split),
+                aot._long(steps.input_specs(cfg, shapes["prefill"])))
+        _, recs["decode"] = aot.count_step(
             steps.make_serve_step(cfg), served,
             steps.abstract_cache(cfg, shapes["decode"]),
             steps.input_specs(cfg, shapes["decode"])["token"].long())
     got = {}
-    for k, rec in (("train", train), ("prefill", prefill),
-                   ("decode", decode)):
+    for k, rec in recs.items():
         # the kernels' matmuls over every (query, key) pair, as the
         # reference's dense attention multiplies them
         attn = 0.0
@@ -232,6 +250,26 @@ def test_matmul_flops_match_reference_hlo(arch, kind):
     assert want[kind] > 0
     assert got[kind] == want[kind] + _port_minus_reference(arch, kind), (
         want, got)
+
+
+@pytest.mark.parametrize("arch", HLO_ARCHS)
+@pytest.mark.parametrize("kind", ("train-fsdp", "prefill-fsdp",
+                                  "train-flash"))
+def test_fsdp_and_flash_matmul_flops_match_reference_hlo(arch, kind):
+    """The port's step with its params stored as FSDP blocks (gathered
+    at entry, the gradient reduce-scattered) counts the matmul FLOPs of
+    the step without FSDP: the reference's HLO exactly for the prefill,
+    with the two traced differences for the train step.  The port's
+    train step, which always runs the flash kernel, against the
+    reference's ``flash=True`` train HLO: the same two differences (the
+    reference's flash branch counts as its default one at these
+    shapes)."""
+    want, got = _flops(arch)
+    base = kind.split("-")[0]
+    ref = want[kind] if kind == "train-flash" else want[base]
+    assert ref > 0
+    assert got["train" if kind == "train-flash" else kind] == \
+        ref + _port_minus_reference(arch, base), (want, got)
 
 
 # ----------------------------------------------------------------------

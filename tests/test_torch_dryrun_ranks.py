@@ -30,6 +30,7 @@ import torch_tp_ranks as ranks
 from repro_torch import _tree
 from repro_torch.api import aot
 from repro_torch.checkpoint.params import _flatten, params_from_numpy
+from repro_torch.configs.registry import get_config
 from repro_torch.dist import sharding
 from repro_torch.dist.launch import run_ranks
 from repro_torch.launch import dryrun, op_analysis, steps
@@ -43,19 +44,54 @@ def real():
     return run_ranks(ranks.tally_run, 2, timeout=300)
 
 
-@pytest.mark.parametrize("name", ["train", "train-sp", "serve"])
-def test_counting_group_tallies_equal_real_world(real, name):
+TALLIED = ["train", "train-sp", "train-sbo", "train-fsdp",
+           "train-fsdp-accum", "serve"]
+
+
+def _counted(name):
     tally = sharding.CollectiveTally()
     group = sharding.CountingGroup(2, (0, 1), 450e9, tally)
     ctx = sharding.ShardCtx(tp=2, rank=0, group=group)
     ranks.tally_steps(ctx, "meta")[name]()
-    got = {k: (v["count"], v["operand_bytes"], v["link_bytes"])
-           for k, v in tally.by_kind.items()}
+    return {k: (v["count"], v["operand_bytes"], v["link_bytes"])
+            for k, v in tally.by_kind.items()}
+
+
+@pytest.mark.parametrize("name", TALLIED)
+def test_counting_group_tallies_equal_real_world(real, name):
+    got = _counted(name)
     for r in real:
         assert r[name] == got
     assert got["all-reduce"][0] > 0
     if name == "train-sp":
         assert got["all-gather"][0] > 0 and got["reduce-scatter"][0] > 0
+    if name.startswith("train-fsdp"):
+        # one gather a split leaf at entry; one reduce-scatter of its
+        # gradient, or one a microbatch with sharded_accum
+        split = sum(ax is not None for ax in sharding.data_axes(
+            ranks.f32_cfg("llama3-8b"), 2).values())
+        micro = ranks.TALLY_B if name.endswith("accum") else 1
+        assert got["all-gather"][0] == split
+        assert got["reduce-scatter"][0] == micro * split
+
+
+def test_save_block_outputs_equals_full_remat(real):
+    """``remat_policy="save_block_outputs"`` at tp 2: the loss and every
+    gradient leaf equal the ``"full"`` remat's bit for bit (float32), and
+    the step runs one all-reduce a layer fewer: the recomputed forward's
+    attention psum (the MLP's is the layer's last op, which the
+    recompute never reaches: it stops once the backward's saved tensors
+    are back); the backward's psums stay."""
+    for r in real:
+        full, sbo = r["grads"]["full"], r["grads"]["save_block_outputs"]
+        assert full[0] == sbo[0]
+        for a, b in zip(full[1], sbo[1]):
+            np.testing.assert_array_equal(a, b)
+    layers = ranks.f32_cfg("llama3-8b").n_layers
+    full, sbo = real[0]["train"], real[0]["train-sbo"]
+    assert full["all-reduce"][0] - sbo["all-reduce"][0] == layers
+    assert {k: v for k, v in full.items() if k != "all-reduce"} == \
+        {k: v for k, v in sbo.items() if k != "all-reduce"}
 
 
 DP_B, DP_S = 4, 16
@@ -161,21 +197,104 @@ def test_dryrun_cli_cells(tmp_path, capsys):
     assert dec["status"] == "ok" and dec["cross_pod_link_bytes"] == 0
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(fsdp=False, mode="dp_only"),
-                                dict(fsdp=False, moe_ep_axis="data")])
-def test_untrained_layouts_are_errors(kw):
-    rec = aot.run_cell("mamba2-370m", "train_4k", verbose=False, **kw)
-    assert rec["status"] == "error" and "ROADMAP.md §1" in rec["error"]
+def _cell(shape, **kw):
+    rec = aot.run_cell("llama3-8b", shape, verbose=False, microbatch=0,
+                       **kw)
+    assert rec["status"] == "ok", rec.get("traceback")
+    return rec
+
+
+def _counts(rec):
+    return {k: v["count"] for k, v in rec["collectives"].items()}
+
+
+@pytest.fixture(scope="module")
+def no_fsdp():
+    """The llama3-8b train_4k cell without FSDP (tp 16 × dp 16, one
+    microbatch a rank): the yardstick of the layouts below."""
+    return _cell("train_4k", fsdp=False)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(mode="dp_only"),
+                                dict(moe_ep_axis="data")])
+def test_untrained_layouts_are_errors(kw, no_fsdp):
+    """The layouts the port trains since FSDP came (the name is the
+    first dry run's, which refused them): the reference's default
+    ``fsdp=True``, ``mode="dp_only"`` (FSDP over "data" × "model", no
+    TP) and experts over "data" return ``ok`` with counted collectives:
+    one all-gather over the FSDP ranks a split leaf (on top of the
+    embedding's TP gather), one reduce-scatter of its gradient, and its
+    all-reduce over the data-parallel ranks gone (two all-reduces more
+    for the clip's norm over the FSDP ranks); the rank holds its blocks,
+    so its arguments shrink while its peak holds the whole copies."""
+    arch = "llama4-maverick-400b-a17b" if "moe_ep_axis" in kw \
+        else "llama3-8b"
+    rec = aot.run_cell(arch, "train_4k", verbose=False, microbatch=0, **kw)
+    assert rec["status"] == "ok", rec.get("traceback")
+    split = rec["fsdp_leaves"]
+    assert split > 0
+    got = _counts(rec)
+    mem = rec["memory_analysis"]
+    if arch == "llama3-8b" and not kw:
+        want = _counts(no_fsdp)
+        assert got["all-gather"] == want["all-gather"] + split
+        assert got["reduce-scatter"] == want["reduce-scatter"] + split
+        assert got["all-reduce"] == want["all-reduce"] - split + 2
+        base = no_fsdp["memory_analysis"]
+        assert mem["argument_bytes"] < base["argument_bytes"]
+        assert mem["peak_bytes"] - mem["argument_bytes"] > \
+            base["peak_bytes"] - base["argument_bytes"]
+    if kw.get("mode") == "dp_only":
+        assert rec["tp"] == 1 and rec["dp"] == rec["n_devices"]
+        # no TP: every all-gather and reduce-scatter is FSDP's
+        assert got["all-gather"] == got["reduce-scatter"] == split
+    if "moe_ep_axis" in kw:
+        # the 128 experts split 16 ways on their expert dim, whole on
+        # "model"
+        cfg = get_config(arch)
+        want = sharding.fsdp_splits(cfg, {"data": 16}, moe_ep_axis="data")
+        experts = [k for k in want if k.rsplit("/", 1)[-1] in
+                   ("we_g", "we_u", "we_d")]
+        assert experts and all(want[k] == (-3, ("data",)) for k in experts)
+        tp_axes = sharding.param_axes(cfg, rec["tp"], "data")
+        assert all(tp_axes[k] is None for k in experts)
+        assert got["reduce-scatter"] >= split
 
 
 @pytest.mark.parametrize("kw", [dict(flash=True), dict(sharded_accum=True),
                                 dict(remat_policy="save_block_outputs")])
-def test_options_without_behaviour_are_errors(kw):
-    """The reference's options the port has nothing behind return
-    ``error`` (no record of a step that was not counted)."""
-    rec = aot.run_cell("mamba2-370m", "decode_32k", verbose=False, **kw)
-    assert rec["status"] == "error" and "ROADMAP.md §1" in rec["error"]
-    assert "no such option" in rec["error"]
+def test_options_without_behaviour_are_errors(kw, no_fsdp):
+    """The reference's options (the name is the first dry run's, which
+    refused them): ``flash=True`` counts the step the port always runs
+    (the same collectives and FLOPs as without it); ``sharded_accum``
+    reduce-scatters each microbatch's gradient of a split leaf (two
+    microbatches a rank here: one reduce-scatter a split leaf more than
+    one reduction of the accumulated gradient); ``save_block_outputs``
+    keeps each layer's attention psum out of its recompute (the MLP's,
+    the layer's last op, is past where the recompute stops once the
+    backward's saved tensors are back, under either policy)."""
+    rec = aot.run_cell("llama3-8b", "train_4k", verbose=False,
+                       microbatch=0 if "sharded_accum" not in kw else 128,
+                       fsdp=False if "remat_policy" in kw else True, **kw)
+    assert rec["status"] == "ok", rec.get("traceback")
+    got = _counts(rec)
+    if "flash" in kw:
+        base = _cell("train_4k")
+        assert got == _counts(base)
+        assert rec["matmul_flops"] == base["matmul_flops"]
+    if "sharded_accum" in kw:
+        split = rec["fsdp_leaves"]
+        assert rec["rows_per_rank"] == 16
+        assert got["reduce-scatter"] >= 2 * split
+        plain = aot.run_cell("llama3-8b", "train_4k", verbose=False,
+                             microbatch=128)
+        assert got["reduce-scatter"] - _counts(plain)["reduce-scatter"] \
+            == split
+    if "remat_policy" in kw:
+        layers = get_config("llama3-8b").n_layers
+        want = _counts(no_fsdp)
+        assert want["all-reduce"] - got["all-reduce"] == layers
+        assert rec["matmul_flops"] == no_fsdp["matmul_flops"]
 
 
 def test_op_counter_counts_composites_under_inference_mode():

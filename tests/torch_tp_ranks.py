@@ -70,10 +70,11 @@ def mesh_decodes(mesh, residual_seed=3):
     out = {}
     g, loss = grad_sync.coded_weighted_psum(mesh, _group_fn, lam)
     out["f32"] = [x.numpy() for x in g] + [loss.numpy()]
+    held = list(mesh.residual_rows())  # a pod rank holds its own row
     for mode in MODES:
         rng = np.random.default_rng(residual_seed)
         res = [torch.from_numpy(rng.standard_normal(
-            (mesh.pods,) + s).astype(np.float32) * 1e-2)
+            (mesh.pods,) + s).astype(np.float32)[held] * 1e-2)
             for s in LEAF_SHAPES]
         g, loss = grad_sync.compressed_coded_psum(mesh, _group_fn, lam, res,
                                                   block=8, mode=mode)
@@ -287,23 +288,31 @@ def mesh_world(pods, data, tp):
 # ----------------------------------------------------------------------
 def train_cases(cases):
     """Each case: one step of the port's dist train step on this world
-    (``pp`` stages when the case says so) → rank 0's (loss, grad_norm,
+    (``pp`` stages when the case says so; the params and the optimizer
+    state FSDP blocks where the data ranks are ranks of their own, as
+    ``TrainConfig.fsdp`` says by default) → rank 0's (loss, grad_norm,
     full params by flat key)."""
+    from repro_torch.dist.sharding import NULL_CTX
+
     out = []
     for c in cases:
         cfg = dataclasses.replace(f32_cfg(c["arch"]), **c.get("changes", {}))
         tp, pp = c["tp"], c.get("pp", 1)
         mesh = DistMesh.for_world(c["pods"], c["data"], tp, pp=pp)
         tcfg = TrainConfig(**c["tcfg"])
+        data = mesh.data_ctx if tcfg.fsdp else NULL_CTX
+        mine = shard_params(c["params"], cfg, tp, mesh.model_rank, pp=pp,
+                            stage=mesh.stage)
+        residual = (_tree.leaves(compression.init_pod_residuals(
+            params_from_numpy(mine, "cpu"), len(mesh.residual_rows())))
+            if tcfg.grad_compression != "none" else [])
         params = params_from_numpy(
-            shard_params(c["params"], cfg, tp, mesh.model_rank, pp=pp,
-                         stage=mesh.stage), "cpu")
+            shard_params(mine, cfg, 1, 0, {}, data=data.tp,
+                         data_rank=data.rank), "cpu")
         for p in _tree.leaves(params):
             p.requires_grad_(True)
         step = steps._make_dist_train_step(cfg, tcfg, mesh)
         state = step.optimizer.init(params)
-        residual = (_tree.leaves(compression.init_pod_residuals(
-            params, c["pods"])) if tcfg.grad_compression != "none" else [])
         batch = {k: torch.from_numpy(np.asarray(v)) for k, v in
                  c["batch"].items()}
         batch["tokens"] = batch["tokens"].long()
@@ -313,7 +322,7 @@ def train_cases(cases):
         params, state, residual, m = step(params, state, batch, lam,
                                           residual, 0)
         full = gather_params(_flatten(params), cfg, mesh.ctx,
-                             stage=mesh.stage_ctx)
+                             stage=mesh.stage_ctx, data=data)
         out.append({"loss": float(m["loss"]),
                     "grad_norm": float(m["grad_norm"]),
                     "params": full} if dist.get_rank() == 0 else None)
@@ -408,7 +417,8 @@ def session_run(kw, fit_kw, ckpt_step=0, with_state=False):
     residual = None
     if with_state:
         residual = s._gather({k: s._mesh.gather_pod_rows(r) for k, r in
-                              zip(leaf_keys(s.params), s.residual)})
+                              zip(leaf_keys(s.params), s.residual)},
+                             "residual")
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
     out = {"losses": list(s.losses), "params": full}
@@ -578,7 +588,7 @@ def pp_checkpoint_run(kw, fit_kw, ckpt_dir, resume):
         s.fit(**fit_kw)
     out = {"losses": list(s.losses), "step": s._step,
            "params": s.full_params(),
-           "opt_state": s._gather(_flatten(s.opt_state), state=True)}
+           "opt_state": s._gather(_flatten(s.opt_state), "state")}
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
     return out
@@ -715,15 +725,24 @@ TALLY_B, TALLY_S, TALLY_GEN = 2, 16, 2
 def tally_steps(ctx, device):
     """The llama3-8b float32 smoke config at ``ctx``'s degree on
     ``device`` (``meta``: shapes only): a train step (sgd), the same with
-    sequence parallelism, and a served request (bulk prefill and
-    ``TALLY_GEN`` greedy tokens) → name → a function that runs it."""
+    sequence parallelism, and with the ``save_block_outputs`` remat; FSDP
+    steps over the same ranks as data ranks (no TP: one reduce-scatter
+    of the whole batch's gradient, and with ``sharded_accum`` one a
+    microbatch); and a served request (bulk prefill and ``TALLY_GEN``
+    greedy tokens) → name → a function that runs it."""
     from repro_torch.api import serving
+    from repro_torch.dist.sharding import FSDP_SPAN, NULL_CTX, fsdp_splits
 
     cfg = f32_cfg("llama3-8b")
     tcfg = TrainConfig(optimizer="sgd", lr=0.05, warmup_steps=0)
     gen = None if device == "meta" else torch.Generator().manual_seed(0)
     params = tf.init_params(cfg, gen, device=device, dtype=torch.float32,
                             tp=ctx.tp, rank=ctx.rank)
+    whole = tf.init_params(cfg, gen, device=device, dtype=torch.float32)
+    dp = dist.group.WORLD if ctx.group is None else ctx.group
+    data = ShardCtx(tp=ctx.tp, rank=ctx.rank, group=dp, span=FSDP_SPAN)
+    fsdp = {k: None if sp is None else (sp[0], data, None)
+            for k, sp in fsdp_splits(cfg, {"data": ctx.tp}).items()}
     rng = np.random.default_rng(1)
     shape = (TALLY_B, TALLY_S)
 
@@ -734,13 +753,25 @@ def tally_steps(ctx, device):
     batch = {"tokens": ids(), "targets": ids(),
              "weights": torch.ones(shape, device=device)}
 
-    def train(sp):
+    def train(sp, policy="full"):
         def run():
             c = dataclasses.replace(ctx, seq_shard=sp)
             for p in _tree.leaves(params):
                 p.requires_grad_(True)
-            step = steps.make_train_step(cfg, tcfg, ctx=c)
+            step = steps.make_train_step(
+                dataclasses.replace(cfg, remat_policy=policy), tcfg, ctx=c)
             step(params, step.optimizer.init(params), batch, 0)
+        return run
+
+    def train_fsdp(accum):
+        def run():
+            blocks = steps.fsdp_blocks(whole, fsdp)
+            for p in _tree.leaves(blocks):
+                p.requires_grad_(True)
+            step = steps.make_train_step(
+                cfg, dataclasses.replace(tcfg, microbatch=accum), ctx=NULL_CTX,
+                dp_group=dp, fsdp=fsdp, sharded_accum=bool(accum))
+            step(blocks, step.optimizer.init(blocks), batch, 0)
         return run
 
     def serve():
@@ -751,7 +782,33 @@ def tally_steps(ctx, device):
                 prefill_fn=serving.make_prefill_fn(cfg, max_len, ctx=ctx),
                 decode_fn=serving.make_decode_fn(cfg, ctx=ctx), ctx=ctx)
 
-    return {"train": train(False), "train-sp": train(True), "serve": serve}
+    return {"train": train(False), "train-sp": train(True),
+            "train-sbo": train(False, "save_block_outputs"),
+            "train-fsdp": train_fsdp(0), "train-fsdp-accum": train_fsdp(1),
+            "serve": serve}
+
+
+def block_outputs_grads(ctx):
+    """The loss and this rank's gradients of the llama3-8b float32 smoke
+    config at ``ctx``'s degree under remat ``full`` and
+    ``save_block_outputs`` → policy → (loss, gradient leaves)."""
+    cfg = f32_cfg("llama3-8b")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32, tp=ctx.tp,
+                            rank=ctx.rank)
+    for p in _tree.leaves(params):
+        p.requires_grad_(True)
+    rng = np.random.default_rng(1)
+    shape = (TALLY_B, TALLY_S)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, shape)),
+             "targets": torch.from_numpy(rng.integers(0, cfg.vocab, shape)),
+             "weights": torch.ones(shape)}
+    out = {}
+    for policy in ("full", "save_block_outputs"):
+        g, m = steps._grads(params, dataclasses.replace(
+            cfg, remat_policy=policy), batch, ctx=ctx)
+        out[policy] = (float(m["loss"]), [x.numpy() for x in g])
+    return out
 
 
 def tally_run():
@@ -768,14 +825,19 @@ def tally_run():
         out[name] = {k: (v["count"], v["operand_bytes"], v["link_bytes"])
                      for k, v in sharding.TALLY.by_kind.items()}
         sharding.TALLY = None
+    out["grads"] = block_outputs_grads(model_ctx(dist.get_world_size()))
     return out
 
 
 # ----------------------------------------------------------------------
 # make_train_step's tensor- and data-parallel step (the dry run's)
 # ----------------------------------------------------------------------
-#: case → (data-parallel ranks, sequence parallelism); "model" is 2 ranks
-DP_CASES = {"tp2": (1, False), "tp2-sp": (1, True), "tp2dp2": (2, False)}
+#: case → (data-parallel ranks, sequence parallelism, FSDP over the data
+#: ranks, microbatch with ``sharded_accum``); "model" is 2 ranks
+DP_CASES = {"tp2": (1, False, False, 0), "tp2-sp": (1, True, False, 0),
+            "tp2dp2": (2, False, False, 0),
+            "tp2dp2-fsdp": (2, False, True, 0),
+            "tp2dp2-fsdp-accum": (2, False, True, 1)}
 #: no clipping: a clipped step would hide a gradient off by a factor
 DP_TCFG = TrainConfig(optimizer="sgd", lr=0.05, warmup_steps=0,
                       grad_clip=0.0)
@@ -793,10 +855,17 @@ def dp_train_run(flat, batch):
     d, m = divmod(r, 2)
     model_groups = [dist.new_group([2 * i, 2 * i + 1]) for i in range(2)]
     data_groups = [dist.new_group([j, 2 + j]) for j in range(2)]
+    from repro_torch.dist.sharding import FSDP_SPAN, NULL_CTX, data_axes
+
     out = {}
-    for name, (dp, sp) in DP_CASES.items():
+    for name, (dp, sp, fsdp, accum) in DP_CASES.items():
         ctx = ShardCtx(tp=2, rank=m, group=model_groups[d], seq_shard=sp)
-        params = params_from_numpy(shard_params(flat, cfg, 2, m), "cpu")
+        data = ShardCtx(tp=2, rank=d, group=data_groups[m],
+                        span=FSDP_SPAN) if fsdp else NULL_CTX
+        split = {k: None if ax is None else (ax, data, None)
+                 for k, ax in data_axes(cfg, 2).items()} if fsdp else None
+        params = params_from_numpy(shard_params(
+            flat, cfg, 2, m, data=data.tp, data_rank=data.rank), "cpu")
         for p in _tree.leaves(params):
             p.requires_grad_(True)
         n = len(batch["tokens"]) // dp
@@ -806,11 +875,12 @@ def dp_train_run(flat, batch):
         local["tokens"], local["targets"] = (local["tokens"].long(),
                                              local["targets"].long())
         step = steps.make_train_step(
-            cfg, DP_TCFG, ctx=ctx,
-            dp_group=data_groups[m] if dp > 1 else None)
+            cfg, dataclasses.replace(DP_TCFG, microbatch=accum), ctx=ctx,
+            dp_group=data_groups[m] if dp > 1 else None, fsdp=split,
+            sharded_accum=bool(accum))
         params, _, metrics = step(params, step.optimizer.init(params),
                                   local, 0)
-        full = gather_params(_flatten(params), cfg, ctx)
+        full = gather_params(_flatten(params), cfg, ctx, data=data)
         out[name] = ({"loss": float(metrics["loss"]), "params": full}
                      if r == 0 else None)
     return out
