@@ -1244,7 +1244,7 @@ def _serve_runs(request, cfg, label="", prompt=PROMPT, warm=None,
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     res = request()
-    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    counts = {k: v for k, v in _launches().items() if v}
     want = _serve_launches(cfg, prompt)
     if counts != want:
         raise AssertionError(f"{label} launch counts {counts}, expected "
@@ -1869,7 +1869,7 @@ def _encdec_train(torch, totals):
     for t in range(4):
         _, _, m = step(gpu, state, batch, t + 1)
         losses.append(float(m["loss"]))
-    counts = ops.launch_counts()
+    counts = _launches()
     for k, v in counts.items():
         totals[k] += v
     if not np.isfinite(losses).all():
@@ -2120,7 +2120,7 @@ def phase_train():
             session.fit(step + 1, force_drop_edge=1, force_drop_step=2)
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
-            counts = ops.launch_counts()
+            counts = _launches()
             got = {k: v for k, v in counts.items() if v}
             if got != want:
                 raise AssertionError(f"{codec} step {step}: launches {got}, "
@@ -2144,7 +2144,7 @@ def phase_train():
             ops.reset_launch_counts()  # the profiled step is not counted
     ops.reset_launch_counts()
     hgc = _hgc_recovery(torch, session)
-    counts = ops.launch_counts()
+    counts = _launches()
     if counts["coded_combine"] != 2:
         raise AssertionError(f"HGC check launches {counts}")
     totals["coded_combine"] += counts["coded_combine"]
@@ -2227,7 +2227,7 @@ def _counted_steps(session, first, last, want, totals, **fit):
         session.fit(CKPT_STEPS, stop_after=step + 1, **fit)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
-        counts = ops.launch_counts()
+        counts = _launches()
         got = {k: v for k, v in counts.items() if v}
         if got != want:
             raise AssertionError(f"step {step}: launches {got}, expected "
@@ -2415,7 +2415,7 @@ def phase_checkpoint():
     t0 = time.perf_counter()
     toks = resumed.generate(prompts, GEN_NEW)
     gen_ms = 1e3 * (time.perf_counter() - t0)
-    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    counts = {k: v for k, v in _launches().items() if v}
     want_gen = {"flash_attention": TRAIN_LAYERS,
                 "decode_attention": TRAIN_LAYERS * GEN_NEW}
     if counts != want_gen:
@@ -2497,7 +2497,7 @@ def phase_orchestrate():
             rec = orch.run_round(session._step)
             torch.cuda.synchronize()
             round_ms.append(1e3 * (time.perf_counter() - t0))
-            counts = ops.launch_counts()
+            counts = _launches()
             got = {k: v for k, v in counts.items() if v}
             if got != want:
                 raise AssertionError(f"round {len(round_ms) - 1}: launches "
@@ -2779,7 +2779,7 @@ def _tp_serve(rank, arch, layers, warm_gen=GEN, profiled=True):
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     res = request(GEN)
-    counts = _nonzero(ops.launch_counts())
+    counts = _nonzero(_launches())
     want = _serve_launches(cfg, PROMPT)
     if counts != want:
         raise AssertionError(f"rank {rank} {arch}: serve launches {counts}, "
@@ -2903,7 +2903,7 @@ def _tp_train(rank, cfg, seq_shard=False, ref_dir=None,
                         force_drop_step=min(2, steps - 1))
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
-            counts = ops.launch_counts()
+            counts = _launches()
             if _nonzero(counts) != want:
                 raise AssertionError(f"rank {rank} run {run} step {step}: "
                                      f"launches {_nonzero(counts)}, "
@@ -3531,7 +3531,7 @@ def _pp_train(rank, ref_dir, tp=1, seq_shard=False, steps=PP_STEPS,
                             force_drop_step=drop)
                 torch.cuda.synchronize()
                 step_ms.append(1e3 * (time.perf_counter() - t0))
-            counts = ops.launch_counts()
+            counts = _launches()
             if _nonzero(counts) != want:
                 raise AssertionError(f"rank {rank} run {run} step {step}: "
                                      f"launches {_nonzero(counts)}, "
@@ -3966,7 +3966,7 @@ def _shrink_steps(session, n, out, gated=False):
             out["fsdp_spans"] = sum(e.name == FSDP_SPAN
                                     for e in prof.events())
             del prof
-        got = _nonzero(ops.launch_counts())
+        got = _nonzero(_launches())
         if got != want:
             raise AssertionError(f"shrink step {session._step - 1}: "
                                  f"launches {got}, expected {want}")
@@ -4405,6 +4405,15 @@ def phase_dryrun(serve, train, spans, shrink):
     return {}
 
 
+def _launches():
+    """The kernels' launch counts since the last ``reset_launch_counts``.
+    ``ops.launch_counts()`` also holds the ``span.*`` and ``count.*``
+    tallies of any step a profiler recorded; the checks here compare
+    kernel launches alone."""
+    from repro_torch.kernels import ops
+    return {k: v for k, v in ops.launch_counts().items() if k in ops.KERNELS}
+
+
 def _nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
@@ -4429,7 +4438,7 @@ def _eval_parity(torch, totals):
         ops.reset_launch_counts()
         card = simulate_training(name, paper_cluster(dataset),
                                  device="cuda", **kw)
-        counts = _nonzero(ops.launch_counts())
+        counts = _nonzero(_launches())
         if counts != {"coded_combine": iters}:
             raise AssertionError(f"{name} {dataset}: launches {counts}")
         totals["coded_combine"] += iters
@@ -4662,7 +4671,7 @@ def _eval_run(torch, name, dataset, totals):
         run.step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / iters
-    counts = _nonzero(ops.launch_counts())
+    counts = _nonzero(_launches())
     if counts != {"coded_combine": iters}:
         raise AssertionError(f"{dataset} {name}: launches {counts}, "
                              f"expected {iters} coded_combine")

@@ -1,0 +1,14 @@
+"""Device ms a step in the ``moe.route`` spans (``models/moe.py``
+``moe_ffn``: the router, the top-k, the dispatch plan's sort and the
+aux loss) and their backward (``moe.route.bwd``), every MoE layer of
+every group."""
+
+SPANS = ("moe.route",)
+
+
+def read(rec):
+    t = rec.get("trace")
+    keys = [f"span.{s}{b}.device_ms" for s in SPANS for b in ("", ".bwd")]
+    if not t or any(k not in t.get("launches", {}) for k in keys):
+        return None
+    return sum(t["launches"][k] for k in keys) / t["steps"]

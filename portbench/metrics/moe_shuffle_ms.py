@@ -1,0 +1,14 @@
+"""Device ms a step in the ``moe.dispatch`` and ``moe.combine`` spans
+(``models/moe.py`` ``moe_ffn``: the sorted stream gathered into the
+experts' slots, then gathered back, weighted, unsorted and summed over
+k) and their backward, every MoE layer of every group."""
+
+SPANS = ("moe.dispatch", "moe.combine")
+
+
+def read(rec):
+    t = rec.get("trace")
+    keys = [f"span.{s}{b}.device_ms" for s in SPANS for b in ("", ".bwd")]
+    if not t or any(k not in t.get("launches", {}) for k in keys):
+        return None
+    return sum(t["launches"][k] for k in keys) / t["steps"]

@@ -29,6 +29,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import NULL_CTX, ShardCtx
@@ -49,9 +50,11 @@ def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
     ctx = ctx or NULL_CTX
 
     def bulk(params, tokens, enc_frames=None):
-        logits, pcache = tf.prefill(params, cfg, tokens, last_only=True,
-                                    ctx=ctx)
-        cache = tf.prefill_to_decode_cache(cfg, pcache, max_len)
+        with obs.span("serving.prefill"):
+            logits, pcache = tf.prefill(params, cfg, tokens, last_only=True,
+                                        ctx=ctx)
+        with obs.span("serving.handoff"):
+            cache = tf.prefill_to_decode_cache(cfg, pcache, max_len)
         return logits[:, -1], cache
 
     def exact_loop(params, tokens, enc_frames=None):
@@ -59,9 +62,9 @@ def make_prefill_fn(cfg: ModelConfig, max_len: int, *,
         cache = tf.init_cache(cfg, B, max_len, device=tokens.device,
                               tp=ctx.tp)
         if cfg.is_encdec:
-            # a profiler span (a no-op unless one records): the serve
+            # an obs.span (a no-op unless a profiler records): the serve
             # CLI's phase report splits the encoder from the handoff
-            with torch.profiler.record_function("serve.encode"):
+            with obs.span("serve.encode"):
                 cache = tf.fill_cross_cache(params, cfg, enc_frames, cache,
                                             ctx)
         logits = None
@@ -127,8 +130,9 @@ def token_loop(params, cfg: ModelConfig, prompt: torch.Tensor,
     tok = ctx.argmax(logits, cfg.vocab)[:, None].to(torch.int32)
     for _ in range(gen_len):
         out.append(tok)
-        logits, cache = decode_fn(params, tok, cache)
-        tok = pick(logits)
+        with obs.span("serving.decode"):
+            logits, cache = decode_fn(params, tok, cache)
+            tok = pick(logits)
     return torch.cat(out, dim=1)
 
 

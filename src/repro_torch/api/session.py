@@ -71,7 +71,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch._device import resolve_device
 from repro_torch.api import serving
 from repro_torch.api.cluster import CodedCluster, sample_straggler_pattern
@@ -703,17 +703,19 @@ class CodedSession:
         """Run ONE train step under a given completion set — the shared
         tail of :meth:`_iteration` and :meth:`external_step`."""
         code, topo = self.code, self.cluster.topo
-        if batch is None:
-            batch = self.build_batch(fast_e, fast_w)
-        batch = self._to_device(batch)
+        with obs.span("coded.batch"):  # host work the card waits for
+            if batch is None:
+                batch = self.build_batch(fast_e, fast_w)
+            batch = self._to_device(batch)
+            if self._mesh is not None:
+                from repro_torch.dist import grad_sync
+
+                lam = grad_sync.lam_array_from_code(code, fast_e, fast_w,
+                                                    topo.n, topo.m[0])
         if self._mesh is None:
             self.params, self.opt_state, metrics = self.train_step(
                 self.params, self.opt_state, batch, step)
         else:
-            from repro_torch.dist import grad_sync
-
-            lam = grad_sync.lam_array_from_code(code, fast_e, fast_w,
-                                                topo.n, topo.m[0])
             (self.params, self.opt_state, self.residual,
              metrics) = self.train_step(self.params, self.opt_state, batch,
                                         lam, self.residual, step)

@@ -31,6 +31,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.dist import compression
 from repro_torch.dist.mesh import GroupFn
 from repro_torch.kernels import ops as kernel_ops
@@ -118,25 +119,27 @@ def compressed_coded_psum(mesh, group_fn: GroupFn, lam,
             raise ValueError(f"residual has {len(residual)} leaves, "
                              f"gradients {len(part)}")
         shapes = [y.shape for y in part]
-        for n, r in enumerate(residual):
-            q, s = _encode_hop(part[n], r[mesh.residual_row(pod)], block,
-                               mode)
-            part[n] = None  # one pod's f32 partial alive at a time
-            if len(qbuf) == n:
-                qbuf.append(q.new_empty((mesh.pods,) + tuple(q.shape)))
-                sbuf.append(s.new_empty((mesh.pods,) + tuple(s.shape)))
-            mesh.all_gather_pod(qbuf[n], pod, q)
-            mesh.all_gather_pod(sbuf[n], pod, s)
-    loss, = mesh.reduce_pods([loss])
-    ones = torch.ones((1, mesh.pods), dtype=torch.float32,
-                      device=residual[0].device)
-    decoded = []
-    for n, shape in enumerate(shapes):
-        out = kernel_ops.combine_compressed(mode, ones, qbuf[n], sbuf[n],
-                                            block=block)[0]
-        qbuf[n] = sbuf[n] = None
-        numel = int(np.prod(shape)) if len(shape) else 1
-        decoded.append(out[:numel].reshape(shape))
+        with obs.span("coded.hop"):  # this pod's encode and gather
+            for n, r in enumerate(residual):
+                q, s = _encode_hop(part[n], r[mesh.residual_row(pod)], block,
+                                   mode)
+                part[n] = None  # one pod's f32 partial alive at a time
+                if len(qbuf) == n:
+                    qbuf.append(q.new_empty((mesh.pods,) + tuple(q.shape)))
+                    sbuf.append(s.new_empty((mesh.pods,) + tuple(s.shape)))
+                mesh.all_gather_pod(qbuf[n], pod, q)
+                mesh.all_gather_pod(sbuf[n], pod, s)
+    with obs.span("coded.hop"):  # the combine over pods (eq. 27)
+        loss, = mesh.reduce_pods([loss])
+        ones = torch.ones((1, mesh.pods), dtype=torch.float32,
+                          device=residual[0].device)
+        decoded = []
+        for n, shape in enumerate(shapes):
+            out = kernel_ops.combine_compressed(mode, ones, qbuf[n], sbuf[n],
+                                                block=block)[0]
+            qbuf[n] = sbuf[n] = None
+            numel = int(np.prod(shape)) if len(shape) else 1
+            decoded.append(out[:numel].reshape(shape))
     return decoded, loss
 
 

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.dist.sharding import (
     FSDP_SPAN,
     NULL_CTX,
@@ -110,16 +111,17 @@ class OneCardMesh:
         for j in self.data_indices():
             lam_ij = float(lam[pod, j])
             grads, loss_ij = group_fn(pod, j)
-            if lam_ij != 1.0:  # unit weights (the MoE objective): no pass
-                for g in grads:
-                    g.mul_(lam_ij)
-            if partial is None:
-                partial = list(grads)
-                loss = loss_ij * lam_ij
-            else:
-                for acc, g in zip(partial, grads):
-                    acc.add_(g)
-                loss = loss + loss_ij * lam_ij
+            with obs.span("coded.edge_decode"):
+                if lam_ij != 1.0:  # unit weights (MoE objective): no pass
+                    for g in grads:
+                        g.mul_(lam_ij)
+                if partial is None:
+                    partial = list(grads)
+                    loss = loss_ij * lam_ij
+                else:
+                    for acc, g in zip(partial, grads):
+                        acc.add_(g)
+                    loss = loss + loss_ij * lam_ij
             del grads
         return partial, loss
 
@@ -386,8 +388,9 @@ class DistMesh(OneCardMesh):
     def psum_data(self, pod, group_fn, lam):
         partial, loss = super().psum_data(pod, group_fn, lam)
         if self._data_group is not None:
-            partial = [all_reduce(g, self._data_group) for g in partial]
-            loss = all_reduce(loss, self._data_group)
+            with obs.span("coded.edge_decode"):
+                partial = [all_reduce(g, self._data_group) for g in partial]
+                loss = all_reduce(loss, self._data_group)
         return partial, loss
 
     def all_gather_pod(self, out, pod, local):

@@ -79,11 +79,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
+
 
 # ----------------------------------------------------------------------
 # collectives on a process group
 # ----------------------------------------------------------------------
-#: the profiler span around every collective (a no-op unless a
+#: the ``obs.span`` around every collective (a no-op unless a
 #: ``torch.profiler`` records): a profile splits out the time inside them
 SPAN = "tp.collective"
 #: the span around the pipeline's collectives: the stage handoffs and the
@@ -191,7 +193,7 @@ def _record(kind: str, x: torch.Tensor, group) -> bool:
 def _all_reduce(x: torch.Tensor, group, op=None,
                 span: str = SPAN) -> torch.Tensor:
     buf = x.detach().clone(memory_format=torch.contiguous_format)
-    with torch.profiler.record_function(span):
+    with obs.span(span):
         dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
     return buf
 
@@ -218,7 +220,7 @@ def send_to(x: torch.Tensor, me: int, peer: int, group) -> None:
     x = x.detach().contiguous()
     if _record("collective-permute", x, group):
         return
-    with torch.profiler.record_function(PP_SPAN):
+    with obs.span(PP_SPAN):
         if dist.get_backend(group) == "nccl":
             dist.send(x, dst=peer, group=group)
         else:
@@ -231,7 +233,7 @@ def recv_from(buf: torch.Tensor, peer: int, group) -> torch.Tensor:
     handoff is recorded once, by its sender."""
     if isinstance(group, CountingGroup):
         return buf
-    with torch.profiler.record_function(PP_SPAN):
+    with obs.span(PP_SPAN):
         if dist.get_backend(group) == "nccl":
             dist.recv(buf, src=peer, group=group)
         else:
@@ -254,14 +256,14 @@ def gather_rows(out: torch.Tensor, index: int, local: torch.Tensor,
         out[index].copy_(local)
         return
     if dist.get_backend(group) == "nccl":
-        with torch.profiler.record_function(span):
+        with obs.span(span):
             dist.all_gather_into_tensor(
                 out.view(torch.uint8), local.contiguous().view(torch.uint8),
                 group=group)
         return
     out.zero_()
     out[index].copy_(local)
-    with torch.profiler.record_function(span):
+    with obs.span(span):
         dist.all_reduce(out.view(torch.uint8), group=group)
 
 
@@ -287,7 +289,7 @@ def reduce_scatter(x: torch.Tensor, axis: int, index: int, n: int,
     if dist.get_backend(group) == "nccl":
         src = x.detach().movedim(axis, 0).contiguous()
         out = src.new_empty((local,) + tuple(src.shape[1:]))
-        with torch.profiler.record_function(SPAN):
+        with obs.span(SPAN):
             dist.reduce_scatter_tensor(out, src, group=group)
         return out.movedim(0, axis).contiguous()
     full = _all_reduce(x, group)

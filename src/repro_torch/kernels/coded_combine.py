@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
 KIND = {"f32": 0, "int8": 1, "int4": 2, "fp8": 3}
@@ -95,7 +96,7 @@ def _check_block(F: int, block: int) -> None:
 def coded_combine(coeff: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
     """out (R, F) = coeff (R, K) @ grads (K, F), float32 (FMA, no TF32)."""
     out = _launch("f32", coeff, grads, None, 1, grads.shape[-1])
-    coded_combine.launches += 1
+    obs.launched("coded_combine")
     return out
 
 
@@ -105,7 +106,7 @@ def coded_combine_q(coeff, grads_q, scales, block: int = 128):
     F = grads_q.shape[-1]
     _check_block(F, block)
     out = _launch("int8", coeff, grads_q, scales, block, F)
-    coded_combine_q.launches += 1
+    obs.launched("coded_combine_q")
     return out
 
 
@@ -117,7 +118,7 @@ def coded_combine_q4(coeff, grads_q, scales, block: int = 128):
     if block % 2:
         raise ValueError(f"int4 needs an even block, got {block}")
     out = _launch("int4", coeff, grads_q, scales, block, F)
-    coded_combine_q4.launches += 1
+    obs.launched("coded_combine_q4")
     return out
 
 
@@ -126,12 +127,10 @@ def coded_combine_f8(coeff, grads_q, scales, block: int = 128):
     F = grads_q.shape[-1]
     _check_block(F, block)
     out = _launch("fp8", coeff, grads_q, scales, block, F)
-    coded_combine_f8.launches += 1
+    obs.launched("coded_combine_f8")
     return out
 
 
-#: launches of each kernel since the count was last set to 0
-coded_combine.launches = 0
-coded_combine_q.launches = 0
-coded_combine_q4.launches = 0
-coded_combine_f8.launches = 0
+for _name in ("coded_combine", "coded_combine_q", "coded_combine_q4",
+              "coded_combine_f8"):
+    obs.register_launch(_name)

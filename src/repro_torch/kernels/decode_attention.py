@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -143,9 +144,8 @@ def decode_attention_fwd(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "decode_attention")
-    decode_attention_fwd.launches += 1
+    obs.launched("decode_attention")
     return out
 
 
-#: launches of the kernel since the count was last set to 0
-decode_attention_fwd.launches = 0
+obs.register_launch("decode_attention")

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
     DTYPE_CODES,
@@ -98,9 +99,8 @@ def flash_attention_fwd(
                            "descriptor (cuTensorMapEncodeTiled) for strides "
                            f"q {q.stride()} k {k.stride()} v {v.stride()}")
     build.check(err, "flash_attention")
-    flash_attention_fwd.launches += 1
+    obs.launched("flash_attention")
     return (out, lse) if return_lse else out
 
 
-#: launches of the kernel since the count was last set to 0
-flash_attention_fwd.launches = 0
+obs.register_launch("flash_attention")

@@ -19,7 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch.kernels import ref
 from repro_torch.kernels.coded_combine import (
     coded_combine,
@@ -253,10 +253,16 @@ def decode_gradient(code, messages: torch.Tensor, fast_edges,
     return combine(lam[None, :], messages)[0]
 
 
-def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def launch_counts() -> Dict[str, float]:
+    """``obs.snapshot()``: every kernel of :data:`KERNELS` by name, its
+    launches since the last :func:`reset_launch_counts`; while a profiler
+    recorded, also the spans' ``span.<name>.n``, ``.host_ms`` and
+    ``.device_ms`` and the counters' ``count.<name>``
+    (:mod:`repro_torch.obs`).  With no profiler recording since the
+    reset, the kernel names alone."""
+    return obs.snapshot()
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    """``obs.reset()``: the launch counts, spans and counters cleared."""
+    obs.reset()

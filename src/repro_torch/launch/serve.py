@@ -50,6 +50,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.api import serving
 from repro_torch.configs.registry import get_config, get_smoke_config
@@ -154,14 +155,14 @@ def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
         decode = serving.make_decode_fn(cfg, ctx=ctx)
         seen = {}
 
-        # profiler spans (no-ops unless a torch.profiler is recording):
+        # obs spans (no-ops unless a torch.profiler is recording):
         # "serve.prefill" ends after the prefill's kernels, "serve.request"
         # after the tokens' host copy, so the device work between the two
         # ends is the decode's; inside the prefill, serving's exact handoff
         # puts an encoder–decoder model's encoder under "serve.encode"
         def timed_prefill(p, tokens, *frames):
             _sync(device)
-            with torch.profiler.record_function("serve.prefill"):
+            with obs.span("serve.prefill"):
                 t = time.perf_counter()
                 out = prefill(p, tokens, *frames)
                 _sync(device)
@@ -175,7 +176,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
 
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        with torch.profiler.record_function("serve.request"):
+        with obs.span("serve.request"):
             t0 = time.perf_counter()
             toks = serving.generate_tokens(
                 params, cfg, prompt, gen_len, prefill_fn=timed_prefill,

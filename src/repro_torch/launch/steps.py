@@ -39,7 +39,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch.checkpoint.params import leaf_keys
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.dist.sharding import (
@@ -105,11 +105,13 @@ def _grads(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     gives it."""
     leaves = _tree.leaves(params)
     with torch.enable_grad():
-        total, metrics = tf.loss_and_metrics(params, cfg, batch, ctx=ctx)
-        if objective is not None:
-            total = objective(metrics)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        with obs.span("model.forward"):
+            total, metrics = tf.loss_and_metrics(params, cfg, batch, ctx=ctx)
+            if objective is not None:
+                total = objective(metrics)
+        with obs.span("model.backward"):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                        materialize_grads=True)
     return list(grads), {k: v.detach() for k, v in metrics.items()}
 
 
@@ -129,7 +131,7 @@ def _finish(params, opt_state, grads, optimizer, tcfg, lr_at, step,
     split = dict(ctx=ctx, axes=axes, stage=stage, stage_axes=st_axes)
     fsdp = data is not None and any(d is not None for d in data)
     norm_split = dict(split, data=None if whole else data)
-    with torch.no_grad():
+    with torch.no_grad(), obs.span("coded.update"):
         if tcfg.grad_clip > 0:
             clip_by_global_norm_(grads, tcfg.grad_clip, **norm_split)
         grad_norm = global_norm(grads, **norm_split)
@@ -484,7 +486,7 @@ def _pipeline_grads(params, cfg: ModelConfig, local, mesh, ctx: ShardCtx,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     saved = []
     nll_tot, w_tot, aux_tot = zero, zero, zero
-    with torch.enable_grad():
+    with torch.enable_grad(), obs.span("model.forward"):
         pc = tf.cast_params(params, cfg)
         enc_out = enc_in = None
         if cfg.is_encdec:
@@ -517,9 +519,10 @@ def _pipeline_grads(params, cfg: ModelConfig, local, mesh, ctx: ShardCtx,
                 mesh.send_next(x)
                 saved.append((x_in, x, aux))
             aux_tot = aux_tot + aux.detach() / M
-        denom = local.get("denom")
-        if denom is None:
-            denom = torch.clamp(w_tot, min=1.0)
+    denom = local.get("denom")
+    if denom is None:
+        denom = torch.clamp(w_tot, min=1.0)
+    with torch.enable_grad(), obs.span("model.backward"):
         for i in reversed(range(M)):
             x_in, out, aux = saved[i]
             saved[i] = None

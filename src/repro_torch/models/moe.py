@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.dist.sharding import NULL_CTX
 
 
@@ -136,41 +137,56 @@ def moe_ffn(params: Dict, x: torch.Tensor, top_k: int,
     B, S, d = x.shape
     N = B * S
     xf = x.reshape(N, d)
-    probs, top_p, top_e = route(params["router"], xf, top_k, ctx,
-                                n_experts)
-    E = probs.shape[-1]
-
-    # aux load-balancing loss (Switch): E · Σ_e f_e · P_e
-    cap = capacity(N, top_k, E, capacity_factor)
-    # TP: this rank's contiguous expert block [e0, e0 + E_local); routing
-    # stays global, the dispatch keeps only local experts
     E_local = params["we_g"].shape[-3]
-    experts_sharded = ctx.active and E_local != E
-    e0 = ctx.axis_index() * E_local if experts_sharded else 0
-    order, slot, counts = dispatch_slots(top_e, E, cap, e0, E_local)
-    fe = counts.to(torch.float32) / (N * top_k)
-    aux = E * torch.sum(fe * probs.mean(dim=0))
+    with obs.span("moe.route", grad=True) as (enter, exit):
+        probs, top_p, top_e = route(params["router"], enter(xf), top_k, ctx,
+                                    n_experts)
+        E = probs.shape[-1]
+
+        # aux load-balancing loss (Switch): E · Σ_e f_e · P_e
+        cap = capacity(N, top_k, E, capacity_factor)
+        # TP: this rank's contiguous expert block [e0, e0 + E_local);
+        # routing stays global, the dispatch keeps only local experts
+        experts_sharded = ctx.active and E_local != E
+        e0 = ctx.axis_index() * E_local if experts_sharded else 0
+        order, slot, counts = dispatch_slots(top_e, E, cap, e0, E_local)
+        fe = counts.to(torch.float32) / (N * top_k)
+        aux = E * torch.sum(fe * probs.mean(dim=0))
+        top_p, aux = exit(top_p, aux)
+    # entries past their local expert's capacity
+    obs.count("moe.routed", N * top_k)
+    obs.count("moe.dropped",
+              lambda: (counts[e0:e0 + E_local] - cap).clamp_(min=0).sum())
 
     # dispatch: the sorted stream into (E_local·cap + 1) slots, the
     # sentinel last
-    x_sorted = xf[:, None, :].expand(N, top_k, d).reshape(N * top_k, d)
-    x_sorted = x_sorted.index_select(0, order)
-    buf = xf.new_zeros((E_local * cap + 1, d)).index_put((slot,), x_sorted)
-    buf = buf[:E_local * cap].reshape(E_local, cap, d)
+    with obs.span("moe.dispatch", grad=True) as (enter, exit):
+        x_sorted = enter(xf)[:, None, :].expand(N, top_k, d).reshape(
+            N * top_k, d)
+        x_sorted = x_sorted.index_select(0, order)
+        buf = xf.new_zeros((E_local * cap + 1, d)).index_put((slot,),
+                                                             x_sorted)
+        buf = exit(buf[:E_local * cap].reshape(E_local, cap, d))
 
     # every expert's swiglu FFN, batched over the experts
-    h = F.silu(torch.bmm(buf, params["we_g"])) * torch.bmm(buf,
-                                                           params["we_u"])
-    out_buf = torch.bmm(h, params["we_d"]).reshape(E_local * cap, d)
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
+    with obs.span("moe.experts", grad=True) as (enter, exit):
+        buf = enter(buf)
+        h = F.silu(torch.bmm(buf, params["we_g"])) * torch.bmm(
+            buf, params["we_u"])
+        out_buf = exit(torch.bmm(h, params["we_d"]).reshape(E_local * cap,
+                                                            d))
 
     # combine: gather back, weight, unsort and sum the k copies in order
-    w_sorted = top_p.reshape(-1).index_select(0, order)
-    contrib = out_buf.index_select(0, slot) * w_sorted[:, None].to(
-        out_buf.dtype)
-    unsort = torch.empty_like(order)
-    unsort[order] = torch.arange(order.numel(), device=order.device)
-    y = contrib.index_select(0, unsort).reshape(N, top_k, d).sum(dim=1)
+    with obs.span("moe.combine", grad=True) as (enter, exit):
+        out_buf, top_p = enter(out_buf, top_p)
+        out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
+        w_sorted = top_p.reshape(-1).index_select(0, order)
+        contrib = out_buf.index_select(0, slot) * w_sorted[:, None].to(
+            out_buf.dtype)
+        unsort = torch.empty_like(order)
+        unsort[order] = torch.arange(order.numel(), device=order.device)
+        y = exit(contrib.index_select(0, unsort).reshape(N, top_k, d).sum(
+            dim=1))
 
     sh, sh_sharded = None, False
     if "ws_g" in params:  # shared expert (llama4)

@@ -60,6 +60,7 @@ comparison of a local shape with the config's; inactive (tp 1) every
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -67,6 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (
@@ -470,10 +472,24 @@ def _layer_apply(p: Dict, x: torch.Tensor, kind: str, cfg: ModelConfig,
 def _remat_context(cfg: ModelConfig):
     """The ``context_fn`` of a layer's checkpoint: ``"full"`` recomputes
     everything; ``"save_block_outputs"`` keeps the sublayers' outputs
-    after their finishing collective (:class:`BlockOutputs`)."""
-    if cfg.remat_policy == "save_block_outputs":
-        return BlockOutputs().contexts
-    return noop_context_fn
+    after their finishing collective (:class:`BlockOutputs`).  While a
+    profiler records, the recompute runs under ``obs.recompute()``."""
+    policy = BlockOutputs().contexts \
+        if cfg.remat_policy == "save_block_outputs" else noop_context_fn
+    if not obs.recording():
+        return policy
+
+    def contexts():
+        fwd, rec = policy()
+        return fwd, _recomputing(rec)
+
+    return contexts
+
+
+@contextlib.contextmanager
+def _recomputing(rec):
+    with obs.recompute(), rec:
+        yield
 
 
 # ----------------------------------------------------------------------
