@@ -41,7 +41,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      at the training shape too (S = 512, with its log-sum-exp); the f32
      combine at the evaluation shape (R = 1, K = 40, F = 845,738) with
      16-byte-aligned (padded) and packed rows, beside ``torch.mm``, each
-     time with its share of the bound; the
+     time with its share of the bound; the four MoE shuffle passes
+     (dispatch, combine and their backward passes, bf16) at granite-moe's
+     training group (N 16,384, top-8 of 40 experts, cap 4,096, d 1,536)
+     and maverick's served prompt (N 4,096, top-1 of 128, d 5,120), on
+     a routing that drops 8-10% of the entries: the dispatch equal to
+     the plain version, every other row within 2e-2 of its max |plain|,
+     each timed beside the plain version (its forward ops and their
+     autograd backward) and its bound; the
      decode kernel's split of the cache sweep at the serve shape is
      printed.  For attention, besides the grid's
      tolerance, every output row (the Dh features of one query and head)
@@ -394,6 +401,18 @@ ENC_LEN, WHISPER_PROMPT, XATTN_SEQ = 1500, 16, 64
 WHISPER_SHAPE = dict(H=16, KV=16, DH=64)
 QWEN_SHAPE = dict(H=12, KV=2, DH=128)
 
+# the MoE shuffle kernels (csrc/moe_shuffle.cu) at granite-moe's training
+# group (16,384 tokens, top-8 of 40 experts, 4,096 slots each, d 1,536)
+# and llama4-maverick's served prompt (4 x 1024 tokens, top-1 of 128, d
+# 5,120), bf16: label -> (N, k, E, d).  The routing's logits rise by
+# MOE_SKEW from the first expert to the last, which drops 8-10% of the
+# entries at capacity factor 1.25, as the trained cell's routing does
+MOE_SHUFFLE_SHAPES = {"granite-moe training": (16384, 8, 40, 1536),
+                      "maverick prefill": (4096, 1, 128, 5120)}
+MOE_CAPACITY_FACTOR, MOE_SKEW = 1.25, 1.5
+MOE_KERNELS = ("moe_dispatch", "moe_combine", "moe_dispatch_bwd",
+               "moe_combine_bwd")
+
 # the paper's evaluation path: benchmarks/bench_fig56_accuracy.py and
 # bench_table1_time_to_acc.py at their FULL settings
 EVAL_K, EVAL_N_DATA, EVAL_BATCH, EVAL_N_EVAL = 40, 8000, 32, 1000
@@ -483,6 +502,17 @@ def combine_work(R, K, F, payload_bytes, n_scales=0):
     once; 2 · R · K · F operations, and K · F to dequantize."""
     nbytes = payload_bytes + R * K * 4 + R * F * 4 + n_scales * 4
     return nbytes, 2 * R * K * F + (K * F if n_scales else 0)
+
+
+def moe_launches(cfg, forwards: int, backwards: int = 0) -> dict:
+    """The MoE shuffle kernels' launches when every MoE layer of ``cfg``
+    runs ``forwards`` forward and ``backwards`` backward passes: one
+    dispatch and one combine launch a forward, one of each backward a
+    backward."""
+    n = sum(cfg.moe_at(i) for i in range(cfg.n_layers))
+    return {"moe_dispatch": n * forwards, "moe_combine": n * forwards,
+            "moe_dispatch_bwd": n * backwards,
+            "moe_combine_bwd": n * backwards}
 
 
 def check_rows(got, want, share: float, what: str) -> float:
@@ -930,6 +960,115 @@ def _time_combine_eval(torch):
     return checked, turns, plain_ms, bms, by
 
 
+def _moe_shuffle_case(torch, gen, N, k, E, d, dtype):
+    """Tokens (N, d) and the plan of a routing drawn on the card (k
+    distinct experts a token, Gumbel top-k over logits rising by
+    ``MOE_SKEW``); slot rows, weights and the two gradients to feed."""
+    from repro_torch.models import moe as moe_lib
+
+    u = torch.rand(N, E, generator=gen, device="cuda")
+    logits = torch.linspace(0.0, MOE_SKEW, E, device="cuda")
+    top_e = (logits - torch.log(-torch.log(u))).argsort(
+        -1, descending=True)[:, :k]
+    cap = moe_lib.capacity(N, k, E, MOE_CAPACITY_FACTOR)
+    order, slot, _ = moe_lib.dispatch_slots(top_e, E, cap)
+    plan = moe_lib.shuffle_plan(order, slot, k, E * cap)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    n_slots = plan.src.numel()
+    return dict(x=randn(N, d), plan=plan, rows=randn(n_slots, d),
+                w=torch.rand(N, k, generator=gen, device="cuda"),
+                dbuf=randn(n_slots, d), dy=randn(N, d))
+
+
+def _row_worst(got, want) -> float:
+    """The worst row's max |got − want| over its max |want| (rows that
+    are zero in both count 0)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return (err / want.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _time_moe_shuffle(torch, label, N, k, E, d, dtype):
+    """The four MoE shuffle passes at one shape: each kernel against the
+    plain version (its forward ops; their autograd backward), outputs
+    checked (the dispatch equal; every other row within 2e-2 of its max
+    |plain|: the plain version rounds the weight and each product to
+    bf16, the kernel once), then timed back to back with CUDA events,
+    the kernel in two turns around the plain version, beside the bound
+    of the bytes it must move.  → rows by kernel name."""
+    from repro_torch.kernels import moe_shuffle, ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    c = _moe_shuffle_case(torch, gen, N, k, E, d, dtype)
+    plan, x, rows, w, dbuf, dy = (c[n] for n in ("plan", "x", "rows", "w",
+                                                 "dbuf", "dy"))
+    n_slots = plan.src.numel()
+    filled = int((plan.src >= 0).sum())
+    dropped = 1 - filled / (N * k)
+    kernel = {
+        "moe_dispatch": lambda: moe_shuffle.moe_dispatch(x, plan.slot_tk,
+                                                         plan.src),
+        "moe_combine": lambda: moe_shuffle.moe_combine(rows, w,
+                                                       plan.slot_tk),
+        "moe_dispatch_bwd": lambda: moe_shuffle.moe_dispatch_bwd(
+            dbuf, plan.slot_tk),
+        "moe_combine_bwd": lambda: moe_shuffle.moe_combine_bwd(
+            dy, rows, w, plan.slot_tk, plan.src),
+    }
+    xg, rg, wg = (t.detach().requires_grad_(True) for t in (x, rows, w))
+    buf_p = ref.moe_dispatch_ref(xg, plan.order, plan.slot, n_slots, k)
+    y_p = ref.moe_combine_ref(rg, wg, plan.order, plan.slot)
+    plain = {
+        "moe_dispatch": lambda: ref.moe_dispatch_ref(
+            x, plan.order, plan.slot, n_slots, k),
+        "moe_combine": lambda: ref.moe_combine_ref(rows, w, plan.order,
+                                                   plan.slot),
+        "moe_dispatch_bwd": lambda: torch.autograd.grad(
+            buf_p, xg, dbuf, retain_graph=True)[0],
+        "moe_combine_bwd": lambda: torch.autograd.grad(
+            y_p, [rg, wg], dy, retain_graph=True),
+    }
+    out = {}
+    for name in MOE_KERNELS:
+        got, want = kernel[name](), plain[name]()
+        if name == "moe_combine_bwd":
+            worst = max(_row_worst(got[0], want[0]),
+                        _row_worst(got[1].reshape(1, -1),
+                                   want[1].reshape(1, -1)))
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+        else:
+            worst = _row_worst(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+        if name == "moe_dispatch" and not torch.equal(got, want):
+            raise AssertionError(f"moe_dispatch at {label}: the slots "
+                                 f"differ from the plain version's")
+        if not worst <= 2e-2:
+            raise AssertionError(f"{name} at {label}: a row is off by "
+                                 f"{worst:.3g} of its max |plain|")
+        del got, want
+        turns = [timed_ms(kernel[name], 20)]
+        plain_ms = timed_ms(plain[name], 5, warmup=1)
+        turns.append(timed_ms(kernel[name], 20))
+        nbytes, flops = ops.shuffle_work(name, N, k, n_slots, d,
+                                         x.element_size(), filled)
+        bms, by = bound_ms(nbytes, flops, str(dtype).split(".")[-1])
+        ms = min(turns)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=None, max_abs_err=err)
+        log(f"[kernels] {name} at {label} (N={N} k={k} E={E} "
+            f"cap={n_slots // E} d={d}, {filled:,} of {n_slots:,} slots "
+            f"filled, {100 * dropped:.2f}% of entries dropped): max abs "
+            f"err {err:.3g}, worst row {worst:.3g}; kernel {ms:.4f} ms "
+            f"(turns {turns[0]:.4f} / {turns[1]:.4f}; "
+            f"{100 * bms / ms:.1f}% of the bound), plain {plain_ms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), none "
+            f"(index_select + index_add)")
+        torch.cuda.empty_cache()
+    return out
+
+
 def _check_flash_lse(torch, gen):
     """The flash kernel's per-row log-sum-exp (the training forward's
     second output) against the plain version's, f32 and bf16, and at
@@ -1112,6 +1251,10 @@ def phase_kernels():
         if name not in rows:  # the first shape of each kernel is its row
             rows[name] = r
         torch.cuda.empty_cache()
+    for label, (N, k, E, d) in MOE_SHUFFLE_SHAPES.items():
+        r = _time_moe_shuffle(torch, label, N, k, E, d, torch.bfloat16)
+        if label == "granite-moe training":
+            rows.update(r)
     checked, turns, plain_ms, bms, by = _time_combine_eval(torch)
     log(f"[kernels] coded_combine at the evaluation shape R=1 K={EVAL_K} "
         f"F={CNN_F} (graph replay, in turns): " + ", ".join(
@@ -1195,7 +1338,8 @@ def _attn_layers(cfg) -> int:
 def _serve_launches(cfg, prompt: int) -> dict:
     """A request's exact launches: with the bulk handoff one flash launch
     per attention layer and one decode launch per attention layer and
-    new token; with the exact handoff (recurrent archs) no flash launch
+    new token (and a dispatch and a combine launch per MoE layer for the
+    prompt and for each new token); with the exact handoff (recurrent archs) no flash launch
     and one decode launch per attention layer and token, prompt tokens
     included; an encoder–decoder model adds a flash launch per encoder
     layer and a cross decode per decoder layer and token."""
@@ -1203,7 +1347,9 @@ def _serve_launches(cfg, prompt: int) -> dict:
 
     n = _attn_layers(cfg)
     if tf.bulk_prefill_supported(cfg):
-        want = {"flash_attention": n, "decode_attention": n * GEN}
+        # the MoE layers: one forward for the prompt, one a new token
+        want = {"flash_attention": n, "decode_attention": n * GEN,
+                **moe_launches(cfg, 1 + GEN)}
     elif cfg.is_encdec:
         # the encoder once a request, then a self and a cross decode
         # launch per decoder layer and token
@@ -1566,8 +1712,10 @@ def _coded_twice(torch, arch, n_layers, totals, tag="[archs]"):
         t0 = time.perf_counter()
         session = _session(cfg, "coded_q", "int8", "cuda", **kw)
         leaves = _tree.leaves(session.params)
+        # every group's layers run forward twice (the remat) and back once
         want = {"coded_combine_q": len(leaves),
-                "flash_attention": GROUPS * _attn_layers(cfg) * 2}
+                "flash_attention": GROUPS * _attn_layers(cfg) * 2,
+                **moe_launches(cfg, 2 * GROUPS, GROUPS)}
         want = {k: v for k, v in want.items() if v}
         step_ms = _counted_steps(session, 0, CKPT_STEPS, want, totals, **fit)
         losses, aux = list(session.losses), list(session.aux_losses)
@@ -2893,7 +3041,9 @@ def _tp_train(rank, cfg, seq_shard=False, ref_dir=None,
                            seq_shard=seq_shard, total_steps=steps,
                            **_train_kw())
         want = {"coded_combine_q": len(_tree.leaves(session.params)),
-                "flash_attention": GROUPS * _attn_layers(cfg) * 2}
+                "flash_attention": GROUPS * _attn_layers(cfg) * 2,
+                **moe_launches(cfg, 2 * GROUPS, GROUPS)}
+        want = {k: v for k, v in want.items() if v}
         step_ms = []
         for step in range(steps):
             ops.reset_launch_counts()
@@ -4788,10 +4938,12 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention.py:100")}
     for name, _, replaces in COMBINE.values():
         sources[name] = (csrc + "coded_combine.cu", replaces)
+    for name in MOE_KERNELS:  # the reference's dispatch is jnp gathers
+        sources[name] = (csrc + "moe_shuffle.cu", "none")
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1],
                     launches=counts.get(name, 0)
-                    + sum(c[name] for c in paths.values()), **r)
+                    + sum(c.get(name, 0) for c in paths.values()), **r)
                for name, r in rows.items()]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import _tree, obs
-from repro_torch.kernels import ref
+from repro_torch.kernels import moe_shuffle, ref
 from repro_torch.kernels.coded_combine import (
     coded_combine,
     coded_combine_f8,
@@ -40,6 +40,10 @@ KERNELS = {
     "coded_combine_q": coded_combine_q,
     "coded_combine_q4": coded_combine_q4,
     "coded_combine_f8": coded_combine_f8,
+    "moe_dispatch": moe_shuffle.moe_dispatch,
+    "moe_combine": moe_shuffle.moe_combine,
+    "moe_dispatch_bwd": moe_shuffle.moe_dispatch_bwd,
+    "moe_combine_bwd": moe_shuffle.moe_combine_bwd,
 }
 
 
@@ -218,6 +222,120 @@ def combine_compressed(mode: str, coeff, grads_q, scales,
         raise ValueError(
             f"no fused combine for compression mode {mode!r}") from None
     return fn(coeff, grads_q, scales, block=block)
+
+
+# ----------------------------------------------------------------------
+# the MoE layer's token permutation into and out of the experts' slots
+# ----------------------------------------------------------------------
+def shuffle_work(name: str, N: int, k: int, n_slots: int, d: int,
+                 elem: int, filled: int):
+    """(bytes, operations) of one MoE shuffle pass, as ``chip_smoke.py``'s
+    bound counts them: each input byte read once (of the slots' rows,
+    only the ``filled`` ones the plan names), each output written once.
+    ``N`` tokens of ``k`` entries, ``n_slots`` rows of ``d`` values of
+    ``elem`` bytes; the plan's ``src`` (n_slots) and ``slot_tk`` (N·k)
+    int32, the weights float32."""
+    rows, toks, filled_rows = n_slots * d * elem, N * d * elem, \
+        filled * d * elem
+    return {
+        "moe_dispatch": (toks + 4 * N * k + 4 * n_slots + rows, 0),
+        "moe_combine": (filled_rows + 8 * N * k + toks, 2 * filled * d),
+        "moe_dispatch_bwd": (filled_rows + 4 * N * k + toks, filled * d),
+        "moe_combine_bwd": (toks + filled_rows + 4 * n_slots + 8 * N * k
+                            + rows + 4 * N * k, 3 * filled * d),
+    }[name]
+
+
+def _shuffle_meta(name: str, N: int, k: int, n_slots: int,
+                  rows: torch.Tensor) -> None:
+    """A shuffle pass's work on ``meta``, where no routing is known:
+    every slot the entries could fill, ``min(n_slots, N·k)``."""
+    nbytes, flops = shuffle_work(name, N, k, n_slots, rows.shape[-1],
+                                 rows.element_size(), min(n_slots, N * k))
+    _meta_work(name, flops, nbytes)
+
+
+def _dispatch_fwd(x, slot_tk, src):
+    if _route(x) == "meta":
+        _shuffle_meta("moe_dispatch", *slot_tk.shape, src.numel(), x)
+        return x.new_empty((src.numel(), x.shape[-1]))
+    return moe_shuffle.moe_dispatch(x, slot_tk, src)
+
+
+def _dispatch_bwd(dbuf, slot_tk):
+    N, k = slot_tk.shape
+    if _route(dbuf) == "meta":
+        _shuffle_meta("moe_dispatch_bwd", N, k, dbuf.shape[0], dbuf)
+        return dbuf.new_empty((N, dbuf.shape[-1]))
+    return moe_shuffle.moe_dispatch_bwd(dbuf, slot_tk)
+
+
+def _combine_fwd(out, w, slot_tk):
+    N, k = slot_tk.shape
+    if _route(out) == "meta":
+        _shuffle_meta("moe_combine", N, k, out.shape[0], out)
+        return out.new_empty((N, out.shape[-1]))
+    return moe_shuffle.moe_combine(out, w, slot_tk)
+
+
+def _combine_bwd(dy, out, w, slot_tk, src):
+    N, k = slot_tk.shape
+    if _route(out) == "meta":
+        _shuffle_meta("moe_combine_bwd", N, k, out.shape[0], out)
+        return (out.new_empty(out.shape),
+                out.new_empty((N, k), dtype=torch.float32))
+    return moe_shuffle.moe_combine_bwd(dy, out, w, slot_tk, src)
+
+
+class _Dispatch(torch.autograd.Function):
+    """x (N, d) → the slots (n_slots, d); backward: the unweighted
+    gather-sum of the slots' gradient back to each token."""
+
+    @staticmethod
+    def forward(ctx, x, slot_tk, src):
+        ctx.save_for_backward(slot_tk)
+        return _dispatch_fwd(x, slot_tk, src)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        (slot_tk,) = ctx.saved_tensors
+        return _dispatch_bwd(dbuf.contiguous(), slot_tk), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The experts' rows (n_slots, d) and the weights (N, k) → y (N, d);
+    backward: one pass for both gradients."""
+
+    @staticmethod
+    def forward(ctx, out, w, slot_tk, src):
+        w = w.contiguous()
+        ctx.save_for_backward(out, w, slot_tk, src)
+        return _combine_fwd(out, w, slot_tk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        out, w, slot_tk, src = ctx.saved_tensors
+        dout, dw = _combine_bwd(dy.contiguous().to(out.dtype), out, w,
+                                slot_tk, src)
+        return dout, dw, None, None
+
+
+def moe_dispatch(x: torch.Tensor, plan) -> torch.Tensor:
+    """The tokens ``x`` (N, d) into the experts' slots (n_slots, d) by
+    ``plan`` (``models.moe.shuffle_plan``); zeros in the empty slots."""
+    if _route(x) == "cpu":
+        return ref.moe_dispatch_ref(x, plan.order, plan.slot,
+                                    plan.src.numel(), plan.top_k)
+    return _Dispatch.apply(x, plan.slot_tk, plan.src)
+
+
+def moe_combine(out: torch.Tensor, w: torch.Tensor, plan) -> torch.Tensor:
+    """The experts' rows ``out`` (n_slots, d) back to the tokens: y (N, d)
+    ``= Σ_j w[t, j] · out[slot of (t, j)]`` over the kept entries, with
+    ``w`` (N, k) float32."""
+    if _route(out) == "cpu":
+        return ref.moe_combine_ref(out, w, plan.order, plan.slot)
+    return _Combine.apply(out, w, plan.slot_tk, plan.src)
 
 
 def flatten_tree(tree: PyTree) -> torch.Tensor:

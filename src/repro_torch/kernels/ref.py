@@ -105,3 +105,36 @@ def coded_combine_q4_ref(coeff, grads_q, scales, block: int):
 def coded_combine_f8_ref(coeff, grads_q, scales, block: int):
     """fp8-e4m3 payload (K, F), upcast exactly, × scale, then ``C @ ·``."""
     return _dequant_combine(coeff, grads_q.to(torch.float32), scales, block)
+
+
+# ----------------------------------------------------------------------
+# MoE shuffle: the sorted (token, choice) stream into the experts' slots
+# and back (``models.moe.dispatch_slots``'s plan), with autograd
+# ----------------------------------------------------------------------
+def moe_dispatch_ref(x: torch.Tensor, order: torch.Tensor,
+                     slot: torch.Tensor, n_slots: int,
+                     top_k: int) -> torch.Tensor:
+    """The tokens ``x`` (N, d) → the slots (n_slots, d): each token's
+    ``top_k`` copies sorted by ``order`` and put at ``slot`` (the
+    sentinel ``n_slots`` takes the dropped ones and is discarded); zeros
+    in the empty slots."""
+    N, d = x.shape
+    x_sorted = x[:, None, :].expand(N, top_k, d).reshape(N * top_k, d)
+    x_sorted = x_sorted.index_select(0, order)
+    buf = x.new_zeros((n_slots + 1, d)).index_put((slot,), x_sorted)
+    return buf[:n_slots]
+
+
+def moe_combine_ref(out: torch.Tensor, w: torch.Tensor, order: torch.Tensor,
+                    slot: torch.Tensor) -> torch.Tensor:
+    """The slots' rows ``out`` (n_slots, d) → y (N, d): gathered back by
+    ``slot`` (the sentinel row zero), weighted by ``w`` (N, k) in the
+    rows' dtype, unsorted and summed over the k copies in order."""
+    d = out.shape[-1]
+    N, k = w.shape
+    out = torch.cat([out, out.new_zeros((1, d))])
+    w_sorted = w.reshape(-1).index_select(0, order)
+    contrib = out.index_select(0, slot) * w_sorted[:, None].to(out.dtype)
+    unsort = torch.empty_like(order)
+    unsort[order] = torch.arange(order.numel(), device=order.device)
+    return contrib.index_select(0, unsort).reshape(N, k, d).sum(dim=1)

@@ -22,24 +22,31 @@ split.  Under sequence parallelism the layer gathers the sequence once
 before routing (the capacity and the aux statistics count every token)
 and the combine reduce-scatters back to the local block.
 
+The token permutation into and out of the slots (dispatch, combine and
+their backward passes) runs through ``kernels.ops``: on the card four
+hand-written gathers over :func:`shuffle_plan` (``csrc/moe_shuffle.cu``),
+on the CPU their plain version (``kernels.ref``: PyTorch's index ops).
+
 Repeatability: no accumulation here depends on the order threads run
-in.  The k copies of a token are unsorted back to ``(N, k, d)`` and
-summed over k (the reference scatter-adds them); every gather is a
-permutation or writes each real row once, so its backward adds one
-value into each row; the only row that gathers many (the sentinel) is
-discarded.  Ties in the top-k resolve to the lower expert index, as
+in.  A token's k copies are summed over k in order (the reference
+scatter-adds them), and each pass of the kernels writes every output
+row once, from one group of threads; in the plain version every gather
+is a permutation or writes each real row once, so its backward adds one
+value into each row, and the only row that gathers many (the sentinel)
+is discarded.  Ties in the top-k resolve to the lower expert index, as
 ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk`` does
 not promise an order).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.dist.sharding import NULL_CTX
+from repro_torch.kernels import ops
 
 
 def init_moe(d: int, ff: int, E: int, n_shared: int,
@@ -118,6 +125,33 @@ def dispatch_slots(top_e: torch.Tensor, n_experts: int, cap: int,
     return order, slot, counts
 
 
+class ShufflePlan(NamedTuple):
+    """Where each (token, choice) entry ``e = t·k + j`` goes."""
+    order: torch.Tensor    # (N·k,) the stable sort by expert
+    slot: torch.Tensor     # (N·k,) each sorted entry's slot, or the sentinel
+    slot_tk: torch.Tensor  # (N, k) int32: entry e's slot, or −1 (dropped)
+    src: torch.Tensor      # (n_slots,) int32: the entry in slot s, or −1
+    top_k: int
+
+
+def shuffle_plan(order: torch.Tensor, slot: torch.Tensor, top_k: int,
+                 n_slots: int) -> ShufflePlan:
+    """:func:`dispatch_slots`' plan seen from both sides, in a few integer
+    ops over the entries: ``slot_tk``, each entry's slot (−1 where it
+    passed its expert's capacity or its expert lies on another rank),
+    and ``src``, the entry that fills each of the ``n_slots`` slots (−1
+    where empty).  Both are scatters by a permutation; the dropped
+    entries all land on the sentinel ``src[n_slots]``, which is cut off."""
+    slot32 = slot.to(torch.int32)
+    slot_tk = torch.empty_like(slot32)
+    slot_tk[order] = torch.where(slot32 < n_slots, slot32, -1)
+    src = torch.full((n_slots + 1,), -1, dtype=torch.int32,
+                     device=order.device)
+    src[slot] = order.to(torch.int32)
+    return ShufflePlan(order, slot, slot_tk.reshape(-1, top_k),
+                       src[:n_slots], top_k)
+
+
 def _shared(params: Dict, xf: torch.Tensor) -> torch.Tensor:
     return (F.silu(xf @ params["ws_g"]) * (xf @ params["ws_u"])) \
         @ params["ws_d"]
@@ -158,15 +192,11 @@ def moe_ffn(params: Dict, x: torch.Tensor, top_k: int,
     obs.count("moe.dropped",
               lambda: (counts[e0:e0 + E_local] - cap).clamp_(min=0).sum())
 
-    # dispatch: the sorted stream into (E_local·cap + 1) slots, the
-    # sentinel last
+    # dispatch: the sorted stream into the E_local·cap slots
     with obs.span("moe.dispatch", grad=True) as (enter, exit):
-        x_sorted = enter(xf)[:, None, :].expand(N, top_k, d).reshape(
-            N * top_k, d)
-        x_sorted = x_sorted.index_select(0, order)
-        buf = xf.new_zeros((E_local * cap + 1, d)).index_put((slot,),
-                                                             x_sorted)
-        buf = exit(buf[:E_local * cap].reshape(E_local, cap, d))
+        plan = shuffle_plan(order, slot, top_k, E_local * cap)
+        buf = exit(ops.moe_dispatch(enter(xf), plan).reshape(E_local, cap,
+                                                             d))
 
     # every expert's swiglu FFN, batched over the experts
     with obs.span("moe.experts", grad=True) as (enter, exit):
@@ -176,17 +206,10 @@ def moe_ffn(params: Dict, x: torch.Tensor, top_k: int,
         out_buf = exit(torch.bmm(h, params["we_d"]).reshape(E_local * cap,
                                                             d))
 
-    # combine: gather back, weight, unsort and sum the k copies in order
+    # combine: gather back, weight and sum each token's k copies in order
     with obs.span("moe.combine", grad=True) as (enter, exit):
         out_buf, top_p = enter(out_buf, top_p)
-        out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
-        w_sorted = top_p.reshape(-1).index_select(0, order)
-        contrib = out_buf.index_select(0, slot) * w_sorted[:, None].to(
-            out_buf.dtype)
-        unsort = torch.empty_like(order)
-        unsort[order] = torch.arange(order.numel(), device=order.device)
-        y = exit(contrib.index_select(0, unsort).reshape(N, top_k, d).sum(
-            dim=1))
+        y = exit(ops.moe_combine(out_buf, top_p, plan))
 
     sh, sh_sharded = None, False
     if "ws_g" in params:  # shared expert (llama4)

@@ -5,7 +5,9 @@ runs inside a fixture, so every pytest worker collects the same tests).
 On the card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_kernels_cuda.py``.  Tolerances: 1e-4 in float32 (only
 the summation order differs), 2e-2 in bfloat16 (one output rounding);
-the coded-combine kernels 1e-5 of each output row's max |plain|.
+the coded-combine kernels 1e-5 of each output row's max |plain|; the
+MoE shuffle kernels as :func:`test_moe_shuffle_kernels_match_plain`
+states.
 """
 import dataclasses
 import itertools
@@ -19,6 +21,7 @@ from repro_torch.dist import compression
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.models import moe as moe_lib
 
 pytestmark = pytest.mark.cuda
 
@@ -232,9 +235,17 @@ def test_ops_dispatch_by_device_and_counts():
         qs, ss = torch.stack([q8, q8]), torch.stack([s8, s8])
         ops.combine_compressed(mode, c, qs, ss, block=64)
         ops.combine_compressed(mode, c.cpu(), qs.cpu(), ss.cpu(), block=64)
+    for dev in ("cuda", "cpu"):
+        x, plan = _moe_case(torch.Generator(device="cuda").manual_seed(2),
+                            *MOE_SHAPES["decode"], torch.float32)
+        x, plan = x.to(dev), _plan_to(plan, dev)
+        w = torch.rand(plan.slot_tk.shape, device=dev)
+        ops.moe_combine(ops.moe_dispatch(x, plan), w, plan)
     assert ops.launch_counts() == {
         "decode_attention": 1, "flash_attention": 1, "coded_combine": 1,
-        "coded_combine_q": 1, "coded_combine_q4": 1, "coded_combine_f8": 1}
+        "coded_combine_q": 1, "coded_combine_q4": 1, "coded_combine_f8": 1,
+        "moe_dispatch": 1, "moe_combine": 1, "moe_dispatch_bwd": 0,
+        "moe_combine_bwd": 0}
 
 
 def _to_cuda(tree):
@@ -576,3 +587,189 @@ def test_attention_kernels_at_a_tp_rank_shapes(H, Kv, dtype):
         want = ref.decode_attention_ref(q, k, v, pos)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+# ----------------------------------------------------------------------
+# the MoE shuffle kernels (csrc/moe_shuffle.cu) through their autograd
+# Functions, against the plain version (kernels.ref) on the same tensors
+# ----------------------------------------------------------------------
+#: (N tokens, k, E, this rank's expert block (e0, E_local), capacity
+#: factor, d): granite-moe's training group; rank 1 of two at tp 2 (its
+#: 20 experts of 40: the others' entries dropped); its decode step (N =
+#: the batch, cap 1); llama4-maverick's top-1 of 128 experts at d 5,120
+MOE_SHAPES = {
+    "cell": (16384, 8, 40, (0, 40), 1.25, 1536),
+    "tp": (4096, 8, 40, (20, 20), 1.25, 1536),
+    "decode": (4, 8, 40, (0, 40), 1.25, 1536),
+    "maverick": (4096, 1, 128, (0, 128), 1.25, 5120),
+}
+
+
+def _moe_case(gen, N, k, E, block, cf, d, dtype):
+    """Tokens (N, d) and the plan of a random routing, made on the card:
+    k distinct experts a token, drawn with logits rising by 1.5 from the
+    first expert to the last (Gumbel top-k), which drops 8–10% of the
+    entries at capacity factor 1.25, as the trained cell's routing does."""
+    e0, E_local = block
+    u = torch.rand(N, E, generator=gen, device="cuda")
+    logits = torch.linspace(0.0, 1.5, E, device="cuda")
+    top_e = (logits - torch.log(-torch.log(u))).argsort(
+        -1, descending=True)[:, :k]
+    cap = moe_lib.capacity(N, k, E, cf)
+    order, slot, _ = moe_lib.dispatch_slots(top_e, E, cap, e0, E_local)
+    plan = moe_lib.shuffle_plan(order, slot, k, E_local * cap)
+    return _randn(gen, N, d, dtype=dtype), plan
+
+
+def _plan_to(plan, dev):
+    return plan._replace(**{f: getattr(plan, f).to(dev)
+                            for f in ("order", "slot", "slot_tk", "src")})
+
+
+def _moe_passes(x, plan, rows, w, dbuf, dy, plain):
+    """The four passes through autograd: → (buf, y, dx, dout, dw)."""
+    x, rows, w = (t.detach().requires_grad_(True) for t in (x, rows, w))
+    if plain:
+        buf = ref.moe_dispatch_ref(x, plan.order, plan.slot,
+                                   plan.src.numel(), plan.top_k)
+        y = ref.moe_combine_ref(rows, w, plan.order, plan.slot)
+    else:
+        buf = ops.moe_dispatch(x, plan)
+        y = ops.moe_combine(rows, w, plan)
+    (dx,) = torch.autograd.grad(buf, x, dbuf)
+    dout, dw = torch.autograd.grad(y, [rows, w], dy)
+    return buf, y, dx, dout, dw
+
+
+def _moe_inputs(shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, plan = _moe_case(gen, *MOE_SHAPES[shape], dtype)
+    n_slots, d = plan.src.numel(), x.shape[-1]
+    rows = _randn(gen, n_slots, d, dtype=dtype)
+    w = torch.rand(plan.slot_tk.shape, generator=gen, device="cuda")
+    dbuf = _randn(gen, n_slots, d, dtype=dtype)
+    dy = _randn(gen, x.shape[0], d, dtype=dtype)
+    return x, plan, rows, w, dbuf, dy
+
+
+def _close(got, want, rtol, share, what):
+    """``got`` within ``rtol`` of each value and ``share`` of the largest
+    |want| (float32 comparison)."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=share * want.abs().max().item() + 1e-30,
+                               msg=what)
+
+
+@pytest.mark.parametrize("shape", list(MOE_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_moe_shuffle_kernels_match_plain(shape, dtype):
+    """Tolerances.  The dispatch copies: equal.  float32: the kernels sum
+    a token's k rows (and the weight's gradient over d) in another order
+    than PyTorch's reductions, rtol 1e-5 and 1e-6 of the largest value;
+    the combine's backward ``w · dy`` is one product in both: equal.
+    bfloat16: each kernel computes in float32 and rounds once, so
+    against the plain version run in float32 on the same (upcast)
+    inputs it is within one bf16 rounding, rtol 2^-8; against the plain
+    version in bf16, which rounds the weight and each product to bf16
+    before its sum, within 2% of the largest value (``dw``: the plain
+    version rounds its products and its sum to bf16)."""
+    x, plan, rows, w, dbuf, dy = _moe_inputs(shape, dtype, seed=11)
+    before = ops.launch_counts()
+    got = _moe_passes(x, plan, rows, w, dbuf, dy, plain=False)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in (
+        "moe_dispatch", "moe_combine", "moe_dispatch_bwd",
+        "moe_combine_bwd")} == dict.fromkeys(
+        ("moe_dispatch", "moe_combine", "moe_dispatch_bwd",
+         "moe_combine_bwd"), 1)
+    plain = _moe_passes(x, plan, rows, w, dbuf, dy, plain=True)
+    names = ("buf", "y", "dx", "dout", "dw")
+    for name, a, b in zip(names, got, plain):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+    assert torch.equal(got[0], plain[0])
+    dropped = plan.slot_tk < 0
+    assert (got[4][dropped] == 0).all()
+    assert (got[0][plan.src < 0] == 0).all()
+    assert (got[3][plan.src < 0] == 0).all()
+    if shape != "decode":
+        assert dropped.any() and (plan.src < 0).any()
+    if dtype == torch.float32:
+        assert torch.equal(got[3], plain[3])
+        for name, a, b in zip(names[1:], got[1:], plain[1:]):
+            _close(a, b, 1e-5, 1e-6, name)
+        return
+    up = [t.float() for t in (x, rows, w, dbuf, dy)]
+    exact = _moe_passes(up[0], plan, *up[1:], plain=True)
+    for name, a, b, c in zip(names[1:], got[1:], exact[1:], plain[1:]):
+        if name == "dw":  # float32 output, bf16 products: exact in f32
+            _close(a, b, 1e-5, 1e-6, name)
+        else:
+            _close(a, b, 2 ** -8, 1e-6, name)
+        _close(a, c, 2e-2, 2e-2, name)
+
+
+def test_moe_shuffle_kernels_repeat_bit_for_bit():
+    """Two runs of the four passes at the training shape, bf16, equal bit
+    for bit: no pass adds into a row from more than one thread group."""
+    inputs = _moe_inputs("cell", torch.bfloat16, seed=12)
+    a = _moe_passes(*inputs, plain=False)
+    b = _moe_passes(*inputs, plain=False)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_moe_shuffle_wrappers_reject_what_the_kernels_do_not_take():
+    from repro_torch.kernels import moe_shuffle
+
+    x, plan = _moe_case(torch.Generator(device="cuda").manual_seed(3),
+                        *MOE_SHAPES["decode"], torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        moe_shuffle.moe_dispatch(x.half(), plan.slot_tk, plan.src)
+    with pytest.raises(ValueError, match="int32"):
+        moe_shuffle.moe_dispatch(x, plan.slot_tk, plan.src.long())
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_shuffle.moe_dispatch(x.cpu(), plan.slot_tk, plan.src)
+    with pytest.raises(ValueError, match="tokens"):
+        moe_shuffle.moe_dispatch(x[:3], plan.slot_tk, plan.src)
+    with pytest.raises(ValueError, match="packed rows"):
+        moe_shuffle.moe_combine(x.t(), torch.rand(4, 8, device="cuda"),
+                                plan.slot_tk)
+
+
+def test_moe_coded_step_launches_the_shuffle_kernels_and_no_index_add():
+    """One coded_q int8 step of the granite-moe smoke config on the card
+    (8 groups, every layer rematerialized): per MoE layer and group two
+    forward launches of the dispatch and of the combine (the forward and
+    the recompute) and one of each backward, and, under the profiler, no
+    ``index_add`` kernel (``indexFunc…``) anywhere in the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import CodedCluster, CodedSession, planner_for_scheme
+    from repro_torch.configs.registry import get_smoke_config
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    n_moe = sum(cfg.moe_at(i) for i in range(cfg.n_layers))
+    assert n_moe > 0
+    s = CodedSession(CodedCluster.homogeneous(2, 4), cfg,
+                     planner=planner_for_scheme("hgc", 1, 1), mode="coded_q",
+                     grad_compression="int8", seq_len=16, optimizer="adamw",
+                     lr=1e-3, total_steps=2, verbose=False, device="cuda")
+    s.fit(1)
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s.fit(2)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    groups = 8
+    assert {k: counts[k] for k in ("moe_dispatch", "moe_combine",
+                                   "moe_dispatch_bwd", "moe_combine_bwd")} \
+        == {"moe_dispatch": 2 * groups * n_moe,
+            "moe_combine": 2 * groups * n_moe,
+            "moe_dispatch_bwd": groups * n_moe,
+            "moe_combine_bwd": groups * n_moe}
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("moe_gather_dispatch_kernel" in n for n in names)
+    assert not [n for n in names if "indexFunc" in n]
